@@ -1,0 +1,686 @@
+"""Drive the PyTorch/CUDA port on one NVIDIA GPU, end to end.
+
+    python3 chip_smoke.py          # from the repository root, one card
+
+Phases (any failure exits nonzero; nothing is caught and turned into 0):
+
+1. the card's name and power limit (``nvidia-smi``);
+2. build the three CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+   per source, started together) and print ``-Xptxas -v``'s summary;
+3. hold each kernel to its plain PyTorch version on the card, in bf16, at
+   the main path's shapes (``smollm-135m`` prefill and decode, the 49152
+   vocabulary) and at ``llama3-8b`` widths, with a fully masked padding row,
+   duplicate top-k logits and likely chosen tokens (Eq. 2's term held at a
+   relative tolerance); time kernel, plain version and, for attention,
+   ``scaled_dot_product_attention`` (a yardstick only: the port never calls
+   it) with CUDA events, beside each call's least possible time; then a
+   2-layer model on the card against the port's CPU path, in both
+   uncertainty modes;
+4. serve the probe tier: ``smollm-135m`` at full width and depth with
+   random weights from ``torch.Generator(seed)`` — ``generate`` on 8 prompts
+   of 24-200 tokens, ``serve()`` on the same requests (tie-aware equal to
+   ``generate``), ``generate_stepwise`` (tie-aware equal to ``generate``),
+   Phase-A ``route`` on the u's with thresholds at their 0.40/0.90
+   quantiles;
+5. ``generate`` and ``generate_stepwise`` on ``llama3-8b`` at full width,
+   cut to the 4 layers of the gateway's cloud tier;
+6. the tie budget: stepwise-vs-generate readings over several prompt seeds
+   for both models must lie inside it, and a generate whose decode never
+   writes its K/V to the cache must lie outside it (milder wrong paths are
+   read and reported);
+7. the ``kernels`` line, then the result line.
+
+Every path of phases 4-5 runs with the kernels' launch counts set to 0 just
+before it and read just after: each kernel the path runs must have launched,
+and no plain version may have run.  The ``kernels`` line gives the counts of
+the main ``generate`` run, with every path's counts beside them.
+
+Without a CUDA device, or without the repository's sources beside this
+file, it exits nonzero and prints no result.  Details of the run go to
+``chiprun_out/chip_smoke.json``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import copy
+import dataclasses
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+# H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor FLOP/s, and the
+# f32 rate outside the tensor cores for the probe's f32 logits
+HBM_BPS = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+SEED = 0
+# Tie-aware budget for full-width bf16 logits: the larger of 0.03 and 4 bf16
+# ulps at the row's largest logit.  Another batch or absorption shape changes
+# cuBLAS's summation order, which moves bf16 activations by an ulp and the
+# logits by a few; random-weight llama3-8b logits reach ~6 (lm_head std 0.02
+# times sqrt(4096)), where one ulp is 0.03.  Phase 6 holds the budget
+# between the readings of sound paths and those of a wrong one on every run.
+# The reference's smoke budget, on logits of size ~1, is 0.01.
+TIE_ATOL = 0.03
+TIE_ULPS = 4
+KERNELS = ("flash_attention_positions", "decode_attention",
+           "swarm_uncertainty")
+DECODE_ONLY = ("decode_attention", "swarm_uncertainty")   # stepwise paths
+
+
+def bf16_ulp(x: float) -> float:
+    """Spacing of bf16 values at magnitude ``x`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - 7)
+
+
+def fail(msg: str):
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str):
+    if not cond:
+        fail(msg)
+
+
+def tie_reading(out_tokens, ref_tokens, ref_logits, out_logits=None):
+    """Compare two greedy runs tie-aware (tests/test_continuation.py's rule):
+    tokens agree up to the first mismatch, the logits before it differ by at
+    most atol, and at it the reference's top-2 logit gap is at most 2 * atol
+    (atol per row as TIE_ATOL above says).
+
+    Returns (rows that diverged, reading, largest logit difference before a
+    flip): the reading is, over rows, the largest ratio of the least atol
+    that passes the row to the row's atol.  The runs agree when it is <= 1."""
+    import numpy as np
+    flips, reading, dmax = 0, 0.0, 0.0
+    for b in range(ref_tokens.shape[0]):
+        atol = max(TIE_ATOL, TIE_ULPS * bf16_ulp(
+            float(np.abs(ref_logits[b]).max())))
+        o, r = np.asarray(out_tokens[b]), np.asarray(ref_tokens[b])
+        n = min(len(o), len(r))
+        mism = np.where(o[:n] != r[:n])[0]
+        m = mism[0] if len(mism) else n
+        need = 0.0
+        if out_logits is not None and m:
+            need = float(np.abs(out_logits[b, :m] - ref_logits[b, :m]).max())
+            dmax = max(dmax, need)
+        if len(mism):
+            top2 = np.sort(ref_logits[b, m])[-2:]
+            need = max(need, float(top2[1] - top2[0]) / 2)
+            flips += 1
+        reading = max(reading, need / atol)
+    return flips, reading, dmax
+
+
+def tie_aware(label, *args):
+    flips, reading, dmax = tie_reading(*args)
+    check(reading <= 1.0, f"{label}: not tie-aware equal (reading "
+                          f"{reading:.3f} of the budget, logits differ by "
+                          f"{dmax} before a flip, {flips} rows flipped)")
+    return flips, reading, dmax
+
+
+def main():
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    try:
+        from repro_torch import configs
+        from repro_torch.core import router
+        from repro_torch.core.budget import init_budget
+        from repro_torch.core.uncertainty import UncertaintyConfig
+        from repro_torch.kernels import build
+        from repro_torch.kernels.decode_attention import ops as dops
+        from repro_torch.kernels.decode_attention import ref as dref
+        from repro_torch.kernels.flash_attention import ops as fops
+        from repro_torch.kernels.flash_attention import ref as fref
+        from repro_torch.kernels.swarm_uncertainty import ops as uops
+        from repro_torch.kernels.swarm_uncertainty import ref as uref
+        from repro_torch.models import attention
+        from repro_torch.models.common import use_f32_accumulation
+        from repro_torch.models.transformer import init_params
+        from repro_torch.serving.engine import InferenceEngine
+        from repro_torch.serving.scheduler import Request
+    except ImportError as e:
+        fail(f"the port's sources are not beside this script ({e})")
+
+    use_f32_accumulation()         # the plain versions of phase 3 too
+    dev = torch.device("cuda")
+    report: dict = {}
+
+    # ---- 1. the card ---------------------------------------------------
+    device_name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    smi_line = smi[0] if smi else "nvidia-smi unavailable"
+    print(f"[1] device {device_name}")
+    print(f"[1] nvidia-smi: {smi_line}")
+    report["device"] = {"name": device_name, "nvidia_smi": smi_line,
+                        "torch": torch.__version__,
+                        "cuda": torch.version.cuda}
+
+    # ---- 2. build ------------------------------------------------------
+    t0 = time.perf_counter()
+    built = build.build_all()
+    t_build = time.perf_counter() - t0
+    print(f"[2] built {len(built)} kernels in {t_build:.1f} s")
+    for k, info in built.items():
+        for line in info["ptxas"].splitlines():
+            if "Used" in line or "spill" in line:
+                print(f"[2] {k}: {line.strip()}")
+    report["build_s"] = t_build
+
+    # ---- 3. kernels vs plain versions ----------------------------------
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > L2
+
+    def time_ms(fn, iters=20):
+        """Median device time of one call with a cold L2: a spin kernel
+        keeps the stream busy while the host enqueues the call."""
+        fn()
+        torch.cuda.synchronize()
+        ts = []
+        for _ in range(iters):
+            flush.zero_()
+            torch.cuda._sleep(5_000_000)
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            e.synchronize()
+            ts.append(s.elapsed_time(e))
+        return float(np.median(ts))
+
+    def bound(nbytes, nops, peak):
+        tb, to = nbytes / HBM_BPS * 1e3, nops / peak * 1e3
+        return (tb, "bytes") if tb >= to else (to, "operations")
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            dtype)
+
+    checks = []
+
+    def flash_case(label, B, S, H, K, D, n_pad, main=False):
+        q, k, v = randn(B, S, H, D), randn(B, S, K, D), randn(B, S, K, D)
+        pos = (torch.arange(S, device=dev, dtype=torch.int32) - n_pad)
+        kw = dict(q_positions=pos, kv_positions=pos)
+        out = fops.flash_attention_positions(q, k, v, **kw)
+        ref = fref.flash_attention_positions_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
+        # padding rows (negative positions) are the mean of v
+        G = H // K
+        mv = v.float().mean(1).repeat_interleave(G, dim=1)      # (B, H, D)
+        pad_err = float((out[:, :n_pad].float() - mv[:, None]).abs().max())
+        check(pad_err <= 2e-2, f"{label}: padding rows {pad_err} from mean(v)")
+        qp, kp = pos[:, None], pos[None, :]
+        mask = (kp >= 0) & (qp >= kp)                            # (S, S)
+        n_valid = int(mask.sum())
+        mask_sd = mask.clone()
+        mask_sd[pos < 0] = True        # SDPA needs >= 1 key per row
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask_sd, enable_gqa=True)
+        nbytes = 2 * (2 * B * S * H * D + 2 * B * S * K * D) + 8 * S
+        b_ms, b_by = bound(nbytes, 4 * D * n_valid * H * B, BF16_FLOPS)
+        return dict(name="flash_attention_positions", label=label, main=main,
+                    max_abs_err=err, tol=2e-2,
+                    ms=time_ms(lambda: fops.flash_attention_positions(
+                        q, k, v, **kw)),
+                    plain_ms=time_ms(lambda: fref.flash_attention_positions_ref(
+                        q, k, v, **kw)),
+                    library_ms=time_ms(sdpa), bound_ms=b_ms, bound_by=b_by)
+
+    def decode_case(label, B, T, K, G, D, main=False):
+        q, k, v = randn(B, K, G, D), randn(B, T, K, D), randn(B, T, K, D)
+        idx = torch.randint(T // 2, T, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        ar = torch.arange(T, device=dev, dtype=torch.int32)
+        pos = torch.where(ar[None] <= idx[:, None], ar[None],
+                          -1).to(torch.int32).contiguous()
+        pos[0] = -1                                  # a row with no valid slot
+        out = dops.decode_attention(q, k, v, pos, idx)
+        ref = dref.decode_attention_ref(q, k, v, pos, idx)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
+        valid = (pos >= 0) & (pos <= idx[:, None])
+        n_valid = int(valid.sum())
+        vmask = valid.clone()
+        vmask[0] = True
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q.reshape(B, K * G, 1, D), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=vmask[:, None, None, :], enable_gqa=True)
+        nbytes = 2 * (2 * B * K * G * D + 2 * B * T * K * D) + 4 * (B * T + B)
+        b_ms, b_by = bound(nbytes, 4 * D * n_valid * K * G, BF16_FLOPS)
+        return dict(name="decode_attention", label=label, main=main,
+                    max_abs_err=err,
+                    tol=2e-2,
+                    ms=time_ms(lambda: dops.decode_attention(q, k, v, pos,
+                                                             idx)),
+                    plain_ms=time_ms(lambda: dref.decode_attention_ref(
+                        q, k, v, pos, idx)),
+                    library_ms=time_ms(sdpa), bound_ms=b_ms, bound_by=b_by)
+
+    def uncertainty_case(label, B, V, main=False):
+        lg = randn(B, 1, V, dtype=torch.float32, scale=3.0)
+        lg[0, 0, :12] = lg[0, 0].max()              # duplicate top-k values
+        tok = torch.randint(0, V, (B, 1), generator=gen, device=dev,
+                            dtype=torch.int32)
+        # rows 0-3 choose a likely token (one of row 0's tied maxima, row
+        # 1's argmax, rows 2-3's 2nd and 5th largest), so Eq. 2's -p log p
+        # is ~0.1 there, not the ~1e-6 of a random token; it is held at a
+        # relative tolerance, and a wrong chosen logit or log p cannot pass
+        top = torch.topk(lg[:, 0], 5, dim=-1).indices
+        tok[0, 0] = 3
+        tok[1:4, 0] = top[[1, 2, 3], [0, 1, 4]].to(torch.int32)
+        out = uops.uncertainty(lg, tok, k=10)
+        ref = uref.uncertainty_ref(lg, tok, k=10)
+        torch.cuda.synchronize()
+        check(float(ref[0][:4].min()) > 1e-3, f"{label}: chosen tokens "
+                                              "unlikely")
+        h_rel = float(((out[0] - ref[0]).abs()
+                       / (ref[0].abs() + 1e-7 / 1e-4)).max())
+        check(bool(torch.isclose(out[0], ref[0], rtol=1e-4, atol=1e-7).all()),
+              f"{label}: h outside rtol 1e-4 / atol 1e-7 (relative error "
+              f"{h_rel:.2e})")
+        errs = [float((o - r).abs().max()) for o, r in zip(out, ref)]
+        for e, t, n in zip(errs[1:], (5e-3, 1e-4), ("v", "h_dist")):
+            check(e <= t, f"{label}: {n} error {e} > {t}")
+        nbytes = 4 * B * V + 4 * B + 12 * B
+        b_ms, b_by = bound(nbytes, 6 * B * V, F32_FLOPS)
+        return dict(name="swarm_uncertainty", label=label, main=main,
+                    max_abs_err=max(errs), tol=5e-3, h_rel_err=h_rel,
+                    ms=time_ms(lambda: uops.uncertainty(lg, tok, k=10)),
+                    plain_ms=time_ms(lambda: uref.uncertainty_ref(
+                        lg, tok, k=10)),
+                    library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+    cases = [
+        flash_case("smollm prefill B8 S128", 8, 128, 9, 3, 64, 40),
+        flash_case("smollm prefill B8 S256 (generate bucket)", 8, 256, 9, 3,
+                   64, 56, main=True),
+        flash_case("llama3 prefill B8 S256", 8, 256, 32, 8, 128, 56),
+        decode_case("smollm decode B8 T256", 8, 256, 3, 3, 64),
+        decode_case("smollm decode B8 T320 (generate cache)", 8, 320, 3, 3,
+                    64, main=True),
+        decode_case("llama3 decode B8 T320", 8, 320, 8, 4, 128),
+        uncertainty_case("probe B8 V49152", 8, 49152, main=True),
+        uncertainty_case("llama3 B8 V128256", 8, 128256),
+    ]
+    for c in cases:
+        check(c["max_abs_err"] <= c["tol"],
+              f"{c['label']}: error {c['max_abs_err']} > {c['tol']}")
+        lib = ("-" if c["library_ms"] is None
+               else f"{c['library_ms']:.4f}")
+        rel = (f", h relative {c['h_rel_err']:.2e} (rtol 1e-4)"
+               if "h_rel_err" in c else "")
+        print(f"[3] {c['label']}: err {c['max_abs_err']:.2e} (tol "
+              f"{c['tol']:g}{rel}) kernel {c['ms']:.4f} ms plain "
+              f"{c['plain_ms']:.4f} ms library {lib} ms bound "
+              f"{c['bound_ms']:.4f} ms ({c['bound_by']})")
+        checks.append(c)
+    report["kernel_checks"] = checks
+
+    # the model path on a small input, held to the port's plain path on the
+    # CPU, in both uncertainty modes (outside the counted windows: the CPU
+    # run calls the plain versions)
+    cfg = configs.get_config("smollm-135m")
+    ucfg = UncertaintyConfig(alpha=1.0, mode="distribution")
+    tcfg = UncertaintyConfig(alpha=1.0, mode="token")
+    small = dataclasses.replace(cfg, num_layers=2)
+    sm = init_params(small, torch.Generator(device=dev).manual_seed(SEED + 1),
+                     device=dev)
+    small_prompts = torch.randint(1, cfg.vocab_size, (2, 24), generator=gen,
+                                  device=dev, dtype=torch.int32).cpu().numpy()
+    sm_cpu = copy.deepcopy(sm).cpu()
+    small_check = {}
+    for uc in (ucfg, tcfg):
+        cpu_ref = InferenceEngine("cpu", small, sm_cpu, uc,
+                                  device="cpu").generate(small_prompts, 8)
+        gpu_out = InferenceEngine("gpu", small, sm, uc).generate(
+            small_prompts, 8)
+        glog = gpu_out["logits"]
+        flips, reading, dlog = tie_aware(
+            f"2-layer smollm ({uc.mode}) on the card vs the CPU path",
+            gpu_out["tokens"], cpu_ref["tokens"],
+            cpu_ref["logits"].float().numpy(), glog.float().cpu().numpy())
+        # the card's Eq. 2-3 means against the plain version of the card's
+        # own logits and tokens: f32 summation order only
+        h, v, hd = uref.uncertainty_ref(
+            glog, torch.as_tensor(gpu_out["tokens"], device=dev), k=10)
+        want_h = (h if uc.mode == "token" else hd).mean(-1).cpu().numpy()
+        check(np.allclose(gpu_out["h_mean"], want_h, rtol=1e-4, atol=1e-9)
+              and np.allclose(gpu_out["v_mean"], v.mean(-1).cpu().numpy(),
+                              rtol=1e-4, atol=1e-5),
+              f"{uc.mode}: the engine's probe means differ from the plain "
+              "version of its logits")
+        # against the CPU path: a logit moved by d moves log p of the chosen
+        # token by at most 2d, and -p log p relatively by about as much
+        dh = float(np.abs(gpu_out["h_mean"] / cpu_ref["h_mean"] - 1).max())
+        if not flips:
+            check(dh <= 2.5 * dlog + 1e-4, f"{uc.mode}: h_mean differs from "
+                  f"the CPU path by {dh:.2e} (logits by {dlog:.2e})")
+        print(f"[3] 2-layer smollm ({uc.mode}) on the card vs the CPU path: "
+              f"tie-aware equal ({flips} rows diverged at a tie, reading "
+              f"{reading:.3f}), logits {dlog:.2e}, h_mean relative "
+              f"{dh:.2e}, u {float(np.abs(gpu_out['u'] - cpu_ref['u']).max()):.2e}")
+        small_check[uc.mode] = {"flips": flips, "reading": reading,
+                                "max_dlogit": dlog, "h_mean_rel": dh}
+    report["small_vs_cpu"] = small_check
+    del sm, sm_cpu
+
+    # ---- counted paths -------------------------------------------------
+    ops_of = dict(zip(KERNELS, (fops, dops, uops)))
+    path_launches: dict[str, dict[str, int]] = {}
+
+    def counted(path, needs, fn):
+        """Run one path with every kernel count set to 0 just before it and
+        read just after: each kernel the path runs (``needs``) must have
+        launched, and no plain version may have run."""
+        for o in ops_of.values():
+            o.counts.reset()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {n: o.counts.launches for n, o in ops_of.items()}
+        for n in needs:
+            check(got[n] > 0, f"{path}: {n} was never launched")
+        for n, o in ops_of.items():
+            check(o.counts.plain == 0, f"{path}: {o.counts.plain} calls of "
+                                       f"{n}'s plain version")
+        path_launches[path] = got
+        print(f"[k] {path}: launches {got}")
+        return out
+
+    # ---- 4. the probe tier: smollm-135m, full width and depth ----------
+    V = cfg.vocab_size
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(SEED),
+                        device=dev)
+    probe = InferenceEngine("probe-smollm", cfg, model, ucfg)
+    rng = np.random.default_rng(SEED)
+    lens = [24, 200] + list(rng.integers(24, 201, 6))
+    raw = [list(rng.integers(1, V, n)) for n in lens]
+    S = max(lens)
+    prompts = np.zeros((len(raw), S), np.int32)
+    for i, p in enumerate(raw):
+        prompts[i, S - len(p):] = p                 # left-padded with PAD=0
+    max_new = 32
+
+    probe.generate(prompts[:2], 2)                  # warm up cuBLAS et al.
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    probe.generate(prompts, 1)
+    torch.cuda.synchronize()
+    t_one = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = counted("smollm generate", KERNELS,
+                  lambda: probe.generate(prompts, max_new))
+    t_gen = time.perf_counter() - t0
+    per_tok = (t_gen - t_one) / (max_new - 1)
+    t_prefill = t_one - per_tok
+    toks, u = res["tokens"], res["u"]
+    logits = res["logits"].float().cpu().numpy()
+    check(toks.shape == (8, max_new) and toks.min() >= 0 and toks.max() < V,
+          "generate tokens out of range")
+    check(bool(np.isfinite(logits).all()), "generate logits not finite")
+    check(bool(np.isfinite(u).all() and (u >= 0).all() and (u <= 1).all()),
+          f"u outside [0, 1]: {u}")
+    print(f"[4] generate B=8 S={S} max_new={max_new}: prefill "
+          f"{t_prefill * 1e3:.1f} ms, decode {per_tok * 1e3:.2f} ms/step, "
+          f"{8 * max_new / t_gen:.1f} tokens/s end to end")
+
+    # where a decode step's time goes: device kernel time from the profiler
+    # (difference of a 9-step and a 1-step generate) against the unprofiled
+    # wall time per step; a share well below 1 means the host holds the card
+    dev_us, top = {}, []
+    for steps in (1, 9):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            probe.generate(prompts, steps)
+            torch.cuda.synchronize()
+        ka = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_us[steps] = sum(e.self_device_time_total for e in ka)
+        top = sorted(((e.self_device_time_total, e.key, e.count)
+                      for e in ka), reverse=True)[:6]
+    step_dev_ms = (dev_us[9] - dev_us[1]) / 8 / 1e3
+    busy = step_dev_ms / (per_tok * 1e3) if dev_us[9] > 0 else None
+    print(f"[4] decode step: device kernel time {step_dev_ms:.3f} ms of "
+          f"{per_tok * 1e3:.2f} ms wall (busy share "
+          f"{'not measured' if busy is None else f'{busy:.3f}'})")
+    for us, key, n in top:
+        print(f"[4]   9-step generate: {us / 1e3:9.3f} ms in {n:5d} x "
+              f"{key[:70]}")
+
+    t0 = time.perf_counter()
+    fin = counted("smollm serve", KERNELS, lambda: probe.serve(
+        [Request(rid=i, prompt=prompts[i].tolist(), max_new=max_new)
+         for i in range(8)], n_slots=4, decode_chunk=8))
+    t_serve = time.perf_counter() - t0
+    check(sorted(r["rid"] for r in fin) == list(range(8)),
+          "serve lost a request")
+    out_rows = {r["rid"]: r["tokens"] for r in fin}
+    flips_serve, read_serve, _ = tie_aware(
+        "serve vs generate", [out_rows[i] for i in range(8)], toks, logits)
+    print(f"[4] serve n_slots=4 decode_chunk=8: {t_serve:.2f} s, tie-aware "
+          f"equal to generate ({flips_serve} rows diverged at a tie)")
+
+    two = np.argsort(lens)[:2]
+    pr2 = prompts[two][:, S - max(lens[i] for i in two):]
+    ref2 = probe.generate(pr2, max_new)
+    t0 = time.perf_counter()
+    step2 = counted("smollm generate_stepwise", DECODE_ONLY,
+                    lambda: probe.generate_stepwise(pr2, max_new))
+    t_step = time.perf_counter() - t0
+    flips_step, read_step, d_step = tie_aware(
+        "smollm stepwise vs generate", step2["tokens"], ref2["tokens"],
+        ref2["logits"].float().cpu().numpy(),
+        step2["logits"].float().cpu().numpy())
+    print(f"[4] generate_stepwise on 2 prompts: {t_step:.2f} s, tie-aware "
+          f"equal to generate ({flips_step} rows diverged at a tie, logits "
+          f"{d_step:.4f} apart, reading {read_step:.3f})")
+
+    ut = torch.as_tensor(u, dtype=torch.float32, device=dev)
+    rcfg = router.RouterConfig(tau_low=float(np.quantile(u, 0.40)),
+                               tau_high=float(np.quantile(u, 0.90)),
+                               sigma=0.7, peers_k=2, gamma=0.3, l_max=4.0)
+    rr = router.route(ut, torch.zeros_like(ut), cfg=rcfg,
+                      budget=init_budget(1.0, device=dev), wan_ok=True,
+                      est_cloud_cost=torch.full_like(ut, 0.1))
+    dec = rr.decision.cpu().numpy()
+    counts = {n: int((dec == c).sum())
+              for c, n in enumerate(router.DECISION_NAMES)}
+    check(sum(counts.values()) == 8, "route lost a query")
+    print(f"[4] route (tau {rcfg.tau_low:.4f}/{rcfg.tau_high:.4f}): {counts}")
+
+    report["probe"] = {
+        "prompt_lengths": [int(n) for n in lens], "max_new": max_new,
+        "prefill_ms": t_prefill * 1e3, "decode_ms_per_step": per_tok * 1e3,
+        "generate_s": t_gen, "tokens_per_s": 8 * max_new / t_gen,
+        "decode_step_device_ms": step_dev_ms, "decode_busy_share": busy,
+        "profile_top_9step": [(us / 1e3, key, n) for us, key, n in top],
+        "serve_s": t_serve, "stepwise_s": t_step,
+        "serve_tie_flips": flips_serve, "stepwise_tie_flips": flips_step,
+        "serve_tie_reading": read_serve, "stepwise_tie_reading": read_step,
+        "u": [float(x) for x in u], "route": counts}
+
+    # ---- 5. the cloud tier: llama3-8b, full width, 4 layers -----------
+    lcfg = dataclasses.replace(configs.get_config("llama3-8b"), num_layers=4)
+    lmodel = init_params(lcfg, torch.Generator(device=dev).manual_seed(SEED),
+                         device=dev)
+    cloud = InferenceEngine("cloud-fm", lcfg, lmodel, ucfg)
+    lp = prompts               # ids < 49152 are valid llama3 tokens too
+    cloud.generate(lp[:2], 2)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lres = counted("llama3 generate", KERNELS, lambda: cloud.generate(lp, 16))
+    t_llama = time.perf_counter() - t0
+    ll = lres["logits"].float().cpu().numpy()
+    check(lres["tokens"].shape == (8, 16) and bool(np.isfinite(ll).all())
+          and lres["tokens"].max() < lcfg.vocab_size, "llama3 generate")
+    lref = cloud.generate(lp[two][:, -24:], 8)
+    lstep = counted("llama3 generate_stepwise", DECODE_ONLY,
+                    lambda: cloud.generate_stepwise(lp[two][:, -24:], 8))
+    flips_l, read_l, d_l = tie_aware(
+        "llama3 stepwise vs generate", lstep["tokens"], lref["tokens"],
+        lref["logits"].float().cpu().numpy(),
+        lstep["logits"].float().cpu().numpy())
+    print(f"[5] llama3-8b (4 layers) generate B=8 max_new=16: "
+          f"{t_llama:.2f} s; stepwise tie-aware equal ({flips_l} flips, "
+          f"logits {d_l:.4f} apart, reading {read_l:.3f})")
+    report["cloud"] = {"generate_s": t_llama, "stepwise_tie_flips": flips_l,
+                       "stepwise_tie_reading": read_l}
+    report["launches_by_path"] = path_launches
+
+    # ---- 6. the tie budget between sound and wrong paths ---------------
+    @contextlib.contextmanager
+    def drop_cache_write(n_layers, steps, layers):
+        """Drop the K/V/pos cache writes of the decode steps ``steps`` (None:
+        every step) in ``layers``: those tokens are then invisible there."""
+        orig = attention._write_slot
+        calls = [0]
+
+        def write(t, b, slot, val, keep):
+            n = calls[0]
+            calls[0] += 1
+            if ((steps is None or n // (3 * n_layers) in steps)
+                    and (n // 3) % n_layers in layers):
+                return
+            orig(t, b, slot, val, keep)
+
+        attention._write_slot = write
+        try:
+            yield
+        finally:
+            attention._write_slot = orig
+
+    @contextlib.contextmanager
+    def bf16_probabilities():
+        """Decode attention with the softmax weights rounded to bf16 before
+        the PV product (the JAX model path's rounding site), f32 otherwise."""
+        orig = attention.decode_attention
+
+        def attend(q, k, v, pos, index, *, window=None):
+            s = torch.einsum("bkgd,btkd->bkgt", q.float(),
+                             k.float()) * q.shape[-1] ** -0.5
+            valid = (pos >= 0) & (pos <= index[:, None])
+            if window is not None:
+                valid = valid & (index[:, None] - pos < window)
+            s = s.masked_fill(~valid[:, None, None, :], dref.NEG_INF)
+            p = torch.softmax(s, dim=-1).to(torch.bfloat16).float()
+            return torch.einsum("bkgt,btkd->bkgd", p, v.float()).to(q.dtype)
+
+        attention.decode_attention = attend
+        try:
+            yield
+        finally:
+            attention.decode_attention = orig
+
+    def readings(engine, n_layers, plen, steps, seeds):
+        sound, ref, pr = [], None, None
+        for s in seeds:
+            r = np.random.default_rng(1000 + s)
+            pr = r.integers(1, V, (2, plen)).astype(np.int32)
+            ref = engine.generate(pr, steps)
+            st = engine.generate_stepwise(pr, steps)
+            sound.append(tie_reading(
+                st["tokens"], ref["tokens"],
+                ref["logits"].float().cpu().numpy(),
+                st["logits"].float().cpu().numpy()))
+        wrong = {}
+        rl = ref["logits"].float().cpu().numpy()
+        every = range(n_layers)
+        for name, ctx in (
+                ("no decode step writes its K/V",
+                 drop_cache_write(n_layers, None, every)),
+                ("one step's K/V write dropped, all layers",
+                 drop_cache_write(n_layers, (2,), every)),
+                ("one step's K/V write dropped, layer 0",
+                 drop_cache_write(n_layers, (2,), (0,))),
+                ("bf16 p before PV", bf16_probabilities())):
+            with ctx:
+                mut = engine.generate(pr, steps)
+            wrong[name] = tie_reading(mut["tokens"], ref["tokens"], rl,
+                                      mut["logits"].float().cpu().numpy())
+        return sound, wrong
+
+    calib = {}
+    for label, engine, n_layers, plen, steps in (
+            ("smollm-135m", probe, cfg.num_layers, 40, 24),
+            ("llama3-8b 4 layers", cloud, lcfg.num_layers, 40, 16)):
+        sound, wrong = readings(engine, n_layers, plen, steps, range(4))
+        calib[label] = {"sound": sound, "wrong": wrong}
+        print(f"[6] {label}: stepwise vs generate over 4 prompt seeds: "
+              "readings " + ", ".join(
+                  f"{r:.3f} ({d:.4f} apart, {f} flips)"
+                  for f, r, d in sound))
+        for name, (f, r, d) in wrong.items():
+            print(f"[6] {label}: {name}: reading {r:.3f} ({d:.4f} apart "
+                  f"before a flip, {f} flips)")
+    report["tie_budget"] = {"atol": TIE_ATOL, "ulps": TIE_ULPS,
+                            "readings": calib}
+    for label, c in calib.items():
+        worst = max(r for _, r, _ in c["sound"])
+        check(worst <= 1.0, f"{label}: a sound path reads {worst:.3f} of the "
+                            "tie budget")
+        bad = c["wrong"]["no decode step writes its K/V"][1]
+        check(bad > 1.0, f"{label}: a decode that never writes its K/V "
+                         f"reads only {bad:.3f} of the tie budget: it would "
+                         "pass")
+    del model, probe, lmodel, cloud
+
+    # ---- 7. kernels line and result ------------------------------------
+    src = {"flash_attention_positions": (
+               "src/repro_torch/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention/kernel.py:128"),
+           "decode_attention": (
+               "src/repro_torch/csrc/decode_attention.cu",
+               "src/repro/kernels/decode_attention/kernel.py:271"),
+           "swarm_uncertainty": (
+               "src/repro_torch/csrc/swarm_uncertainty.cu",
+               "src/repro/kernels/swarm_uncertainty/kernel.py:96")}
+    kernels = []
+    for name in KERNELS:
+        first = next(c for c in checks if c["name"] == name and c["main"])
+        kernels.append({
+            "name": name, "route": "cuda", "source": src[name][0],
+            "replaces": src[name][1],
+            "launches": path_launches["smollm generate"][name],
+            "launches_by_path": {p: n[name]
+                                 for p, n in path_launches.items()},
+            "max_abs_err": max(c["max_abs_err"] for c in checks
+                               if c["name"] == name),
+            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+            "library_ms": first["library_ms"]})
+    report["kernels"] = kernels
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print(json.dumps({"kernels": kernels}))
+    print(smi_line)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": device_name,
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,140 @@
+"""Build the port's CUDA kernels at first use and bind them with ctypes.
+
+Each ``csrc/<name>.cu`` is one shared library with a plain C interface,
+compiled by ``nvcc`` for ``sm_90a`` into ``<repo>/build/kernels`` (listed in
+``.gitignore``) under a name keyed by a hash of the source and the flags, so
+an edited source rebuilds and an unchanged one is reused.  Nothing here runs
+at import: the CPU tests import every module, and this machine class has no
+``nvcc``.  ``build_all`` starts one ``nvcc`` per source at once.
+
+Every C entry point takes device pointers and the stream as ``c_void_p`` and
+returns ``cudaGetLastError()`` after its launch; ``check`` turns a nonzero
+code into an exception, so a refused launch never passes silently.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(os.environ.get(
+    "REPRO_TORCH_BUILD_DIR",
+    Path(__file__).resolve().parents[3] / "build" / "kernels"))
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# C signatures: name -> (entry point, argtypes)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES = {
+    "flash_attention": ("flash_attention_positions",
+                        [_P] * 6 + [_I] * 8 + [_F, _I, _P]),
+    "decode_attention": ("decode_attention",
+                         [_P] * 6 + [_I] * 6 + [_F, _I, _P]),
+    "swarm_uncertainty": ("swarm_uncertainty",
+                          [_P] * 5 + [_I] * 3 + [_I, _F, _P]),
+}
+
+_loaded: dict[str, object] = {}   # name -> bound ctypes entry point
+
+
+def dtype_code(t) -> int:
+    """The element-type code every C entry point takes: 0 = float32,
+    1 = bfloat16 (the templates each kernel is instantiated for)."""
+    import torch
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if t.dtype not in codes:
+        raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")
+    return codes[t.dtype]
+
+
+class LaunchCounts:
+    """Per-wrapper counters: kernel launches, and calls that ran the plain
+    PyTorch version instead (CPU tensors)."""
+
+    def __init__(self):
+        self.launches = 0
+        self.plain = 0
+
+    def reset(self):
+        self.launches = 0
+        self.plain = 0
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([str(Path(home) / "bin" / "nvcc")] if home else []) + [
+            shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]:
+        if cand and Path(cand).is_file():
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                       "(the CUDA kernels are built at first use)")
+
+
+def library_path(name: str) -> Path:
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names=tuple(SIGNATURES)) -> dict[str, dict]:
+    """Compile every stale library in ``names`` in parallel.  Returns, per
+    name, the library path, the build seconds (0.0 if it was up to date) and
+    the ``-Xptxas -v`` report.  Raises if any compile fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out, procs = {}, {}
+    for name in names:
+        lib = library_path(name)
+        log = lib.with_suffix(".log")
+        if lib.exists():
+            out[name] = {"path": lib, "seconds": 0.0,
+                         "ptxas": log.read_text() if log.exists() else ""}
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       lib, log, tmp, time.perf_counter())
+    failed = []
+    for name, (proc, lib, log, tmp, t0) in procs.items():
+        report, _ = proc.communicate()
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exit {proc.returncode}\n{report}")
+            continue
+        log.write_text(report)
+        os.replace(tmp, lib)                 # atomic: no half-written library
+        out[name] = {"path": lib, "seconds": secs, "ptxas": report}
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return out
+
+
+def kernel(name: str):
+    """The ctypes entry point of library ``name``, built on first use."""
+    fn = _loaded.get(name)
+    if fn is None:
+        entry, argtypes = SIGNATURES[name]
+        lib = ctypes.CDLL(str(build_all((name,))[name]["path"]))
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _loaded[name] = fn
+    return fn
+
+
+def check(code: int, name: str):
+    if code != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {code}")
+
+
+def stream_ptr(t) -> int:
+    """The raw handle of the current CUDA stream on ``t``'s device."""
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
