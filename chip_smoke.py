@@ -5,17 +5,22 @@
 Phases (any failure exits nonzero; nothing is caught and turned into 0):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the three CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+2. build the four CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, started together) and print ``-Xptxas -v``'s summary;
 3. hold each kernel to its plain PyTorch version on the card, in bf16, at
-   the main path's shapes (``smollm-135m`` prefill and decode, the 49152
-   vocabulary) and at ``llama3-8b`` widths, with a fully masked padding row,
-   duplicate top-k logits and likely chosen tokens (Eq. 2's term held at a
-   relative tolerance); time kernel, plain version and, for attention,
-   ``scaled_dot_product_attention`` (a yardstick only: the port never calls
-   it) with CUDA events, beside each call's least possible time; then a
-   2-layer model on the card against the port's CPU path, in both
-   uncertainty modes;
+   the main path's shapes — phase 7's gateway: for each tier at its own
+   widths (``smollm-135m``, ``swarm-edge-1b``, ``qwen1.5-110b``,
+   ``llama3-8b``), prefill of the 50 study prompts bucketed to S=8, decode
+   over the 128-slot cache and the uncertainty terms at the tier's
+   vocabulary, and the safety encoder's bidirectional attention — and at
+   the shapes of phases 4-5, with a fully masked padding row, duplicate top-k
+   logits and likely chosen tokens (Eq. 2's term held at a relative
+   tolerance); the grid-offset flash attention also at S=2048 causal
+   (smollm and llama3 widths), windowed and bidirectional; time kernel,
+   plain version and, for attention, ``scaled_dot_product_attention`` (a
+   yardstick only: the port never calls it) with CUDA events, beside each
+   call's least possible time; then a 2-layer model on the card against
+   the port's CPU path, in both uncertainty modes;
 4. serve the probe tier: ``smollm-135m`` at full width and depth with
    random weights from ``torch.Generator(seed)`` — ``generate`` on 8 prompts
    of 24-200 tokens, ``serve()`` on the same requests (tie-aware equal to
@@ -28,12 +33,27 @@ Phases (any failure exits nonzero; nothing is caught and turned into 0):
    for both models must lie inside it, and a generate whose decode never
    writes its K/V to the cache must lie outside it (milder wrong paths are
    read and reported);
-7. the ``kernels`` line, then the result line.
+7. Algorithm 1: the gateway (``launch/serve.build_gateway``) at published
+   widths — probe ``smollm-135m`` (30 layers), peers the probe,
+   ``swarm-edge-1b`` (22 layers) and ``qwen1.5-110b`` (2 layers), cloud
+   ``llama3-8b`` (4 layers), the safety classifier — with random weights
+   from ``torch.Generator`` seeds; tau from ``calibrate_thresholds``, sigma
+   at the median s of the study workload; ``answer_batch`` on the 50-query
+   study workload (every route must occur, u and s in [0, 1], one probe
+   prefill per batch), then ``run_edge_only`` and ``run_cloud_only``, with
+   the wall time per batch and per tier;
+8. ``transformer.forward`` of ``smollm-135m`` at full width (B=8, S=256)
+   against the same forward with the grid-offset op's plain version
+   swapped in, within the tie budget;
+9. the ``kernels`` line, then the result line.
 
-Every path of phases 4-5 runs with the kernels' launch counts set to 0 just
+Every path of phases 4-8 runs with the kernels' launch counts set to 0 just
 before it and read just after: each kernel the path runs must have launched,
 and no plain version may have run.  The ``kernels`` line gives the counts of
-the main ``generate`` run, with every path's counts beside them.
+the main path's run — one gateway ``answer_batch``, where all four kernels
+launch — with every path's counts beside them; its times and bounds are
+those of phase 3's case at the probe tier's gateway shape (rows 1-3) and at
+the safety encoder's (row 4), and its error the largest over all cases.
 
 Without a CUDA device, or without the repository's sources beside this
 file, it exits nonzero and prints no result.  Details of the run go to
@@ -53,6 +73,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM published peaks (dense): HBM bytes/s, bf16 tensor FLOP/s, and the
@@ -70,8 +91,9 @@ SEED = 0
 # The reference's smoke budget, on logits of size ~1, is 0.01.
 TIE_ATOL = 0.03
 TIE_ULPS = 4
-KERNELS = ("flash_attention_positions", "decode_attention",
-           "swarm_uncertainty")
+SERVE_KERNELS = ("flash_attention_positions", "decode_attention",
+                 "swarm_uncertainty")                   # one tier's generate
+KERNELS = SERVE_KERNELS + ("flash_attention",)          # + the safety gate
 DECODE_ONLY = ("decode_attention", "swarm_uncertainty")   # stepwise paths
 
 
@@ -138,6 +160,7 @@ def main():
     try:
         from repro_torch import configs
         from repro_torch.core import router
+        from repro_torch.core import safety as safety_lib
         from repro_torch.core.budget import init_budget
         from repro_torch.core.uncertainty import UncertaintyConfig
         from repro_torch.kernels import build
@@ -147,11 +170,16 @@ def main():
         from repro_torch.kernels.flash_attention import ref as fref
         from repro_torch.kernels.swarm_uncertainty import ops as uops
         from repro_torch.kernels.swarm_uncertainty import ref as uref
+        from repro_torch.data.workload import FACT_IS, FactWorld
+        from repro_torch.launch.serve import build_gateway, tier_configs
         from repro_torch.models import attention
+        from repro_torch.models import transformer
         from repro_torch.models.common import use_f32_accumulation
         from repro_torch.models.transformer import init_params
-        from repro_torch.serving.engine import InferenceEngine
+        from repro_torch.serving import gateway as gateway_mod
+        from repro_torch.serving.engine import InferenceEngine, bucket_len
         from repro_torch.serving.scheduler import Request
+        from repro_torch.serving.swarm import pad_prompts
     except ImportError as e:
         fail(f"the port's sources are not beside this script ({e})")
 
@@ -176,11 +204,12 @@ def main():
     t0 = time.perf_counter()
     built = build.build_all()
     t_build = time.perf_counter() - t0
-    print(f"[2] built {len(built)} kernels in {t_build:.1f} s")
+    print(f"[2] built {len(built)} libraries ({len(build.SIGNATURES)} "
+          f"kernel entry points) in {t_build:.1f} s")
     for k, info in built.items():
-        for line in info["ptxas"].splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"[2] {k}: {line.strip()}")
+        for line in sorted({ln.strip() for ln in info["ptxas"].splitlines()
+                            if "Used" in ln or "spill" in ln}):
+            print(f"[2] {k}: {line}")
     report["build_s"] = t_build
 
     # ---- 3. kernels vs plain versions ----------------------------------
@@ -215,6 +244,7 @@ def main():
             dtype)
 
     checks = []
+    world = FactWorld(n_ent=16, n_rel=6)      # build_gateway's fact world
 
     def flash_case(label, B, S, H, K, D, n_pad, main=False):
         q, k, v = randn(B, S, H, D), randn(B, S, K, D), randn(B, S, K, D)
@@ -245,6 +275,36 @@ def main():
                     ms=time_ms(lambda: fops.flash_attention_positions(
                         q, k, v, **kw)),
                     plain_ms=time_ms(lambda: fref.flash_attention_positions_ref(
+                        q, k, v, **kw)),
+                    library_ms=time_ms(sdpa), bound_ms=b_ms, bound_by=b_by)
+
+    def grid_case(label, B, S, H, K, D, causal, window=None, main=False):
+        """Row 4, the grid-offset op: masks from query row / key column."""
+        q, k, v = randn(B, S, H, D), randn(B, S, K, D), randn(B, S, K, D)
+        kw = dict(causal=causal, window=window)
+        out = fops.flash_attention(q, k, v, **kw)
+        ref = fref.flash_attention_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
+        i = torch.arange(S, device=dev)
+        mask = torch.ones((S, S), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= i[:, None] >= i[None, :]
+        if window is not None:
+            mask &= i[:, None] - i[None, :] < window
+        n_valid = int(mask.sum())          # the pairs this mask needs
+        sd = dict(is_causal=True) if causal and window is None else (
+            dict(attn_mask=mask) if window is not None else {})
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            enable_gqa=True, **sd)
+        nbytes = 2 * (2 * B * S * H * D + 2 * B * S * K * D)
+        b_ms, b_by = bound(nbytes, 4 * D * n_valid * H * B, BF16_FLOPS)
+        return dict(name="flash_attention", label=label, main=main,
+                    max_abs_err=err, tol=2e-2,
+                    ms=time_ms(lambda: fops.flash_attention(q, k, v, **kw)),
+                    plain_ms=time_ms(lambda: fref.flash_attention_ref(
                         q, k, v, **kw)),
                     library_ms=time_ms(sdpa), bound_ms=b_ms, bound_by=b_by)
 
@@ -313,17 +373,52 @@ def main():
                         lg, tok, k=10)),
                     library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
+    # the gateway's shapes, those of phase 7's counted run (the main path):
+    # every tier at its own widths, the 50 study prompts of 4-6 tokens
+    # bucketed to S_GW (2 padding columns), decode over the engine's
+    # default T_GW-slot cache, one uncertainty row per query and step.  The
+    # swarm members and the cloud tier serve the queries routed to them, a
+    # data-dependent subset: they are held here at all 50
+    nq = len(world.study_workload())
+    s_raw = max(len(q["prompt"]) for q in world.study_workload())
+    gw_cases = []
+    for name, tc in tier_configs().items():
+        H, K, D = tc.num_heads, tc.num_kv_heads, tc.head_dim
+        S_GW = bucket_len(s_raw, max(tc.attn_q_block, tc.attn_kv_block))
+        T_GW = InferenceEngine.max_len
+        probe_tier = name == "probe"
+        gw_cases += [
+            flash_case(f"gateway {tc.name} prefill B{nq} S{S_GW}", nq, S_GW,
+                       H, K, D, S_GW - s_raw, main=probe_tier),
+            decode_case(f"gateway {tc.name} decode B{nq} T{T_GW}", nq, T_GW,
+                        K, H // K, D, main=probe_tier),
+            uncertainty_case(f"gateway {tc.name} B{nq} V{tc.vocab_size}",
+                             nq, tc.vocab_size, main=probe_tier)]
     cases = [
+        # the shapes of phases 4-5: the probe tier's generate and llama3-8b's
         flash_case("smollm prefill B8 S128", 8, 128, 9, 3, 64, 40),
         flash_case("smollm prefill B8 S256 (generate bucket)", 8, 256, 9, 3,
-                   64, 56, main=True),
+                   64, 56),
         flash_case("llama3 prefill B8 S256", 8, 256, 32, 8, 128, 56),
         decode_case("smollm decode B8 T256", 8, 256, 3, 3, 64),
         decode_case("smollm decode B8 T320 (generate cache)", 8, 320, 3, 3,
-                    64, main=True),
+                    64),
         decode_case("llama3 decode B8 T320", 8, 320, 8, 4, 128),
-        uncertainty_case("probe B8 V49152", 8, 49152, main=True),
+        uncertainty_case("probe B8 V49152", 8, 49152),
         uncertainty_case("llama3 B8 V128256", 8, 128256),
+        *gw_cases,
+        # row 4: the safety gate's own shape (the main path), then the
+        # full-sequence forward at S=2048
+        grid_case(f"safety encoder B{nq} S{s_raw} H4 D32 bidirectional", nq,
+                  s_raw, 4, 4, 32, causal=False, main=True),
+        grid_case("smollm forward B8 S2048 causal", 8, 2048, 9, 3, 64,
+                  causal=True),
+        grid_case("llama3 forward B2 S2048 causal", 2, 2048, 32, 8, 128,
+                  causal=True),
+        grid_case("smollm B2 S2048 causal window 512", 2, 2048, 9, 3, 64,
+                  causal=True, window=512),
+        grid_case("smollm B8 S512 bidirectional", 8, 512, 9, 3, 64,
+                  causal=False),
     ]
     for c in cases:
         check(c["max_abs_err"] <= c["tol"],
@@ -388,23 +483,24 @@ def main():
     del sm, sm_cpu
 
     # ---- counted paths -------------------------------------------------
-    ops_of = dict(zip(KERNELS, (fops, dops, uops)))
+    counts_of = dict(zip(KERNELS, (fops.counts, dops.counts, uops.counts,
+                                   fops.grid_counts)))
     path_launches: dict[str, dict[str, int]] = {}
 
     def counted(path, needs, fn):
         """Run one path with every kernel count set to 0 just before it and
         read just after: each kernel the path runs (``needs``) must have
         launched, and no plain version may have run."""
-        for o in ops_of.values():
-            o.counts.reset()
+        for c in counts_of.values():
+            c.reset()
         out = fn()
         torch.cuda.synchronize()
-        got = {n: o.counts.launches for n, o in ops_of.items()}
+        got = {n: c.launches for n, c in counts_of.items()}
         for n in needs:
             check(got[n] > 0, f"{path}: {n} was never launched")
-        for n, o in ops_of.items():
-            check(o.counts.plain == 0, f"{path}: {o.counts.plain} calls of "
-                                       f"{n}'s plain version")
+        for n, c in counts_of.items():
+            check(c.plain == 0, f"{path}: {c.plain} calls of {n}'s plain "
+                                "version")
         path_launches[path] = got
         print(f"[k] {path}: launches {got}")
         return out
@@ -430,7 +526,7 @@ def main():
     torch.cuda.synchronize()
     t_one = time.perf_counter() - t0
     t0 = time.perf_counter()
-    res = counted("smollm generate", KERNELS,
+    res = counted("smollm generate", SERVE_KERNELS,
                   lambda: probe.generate(prompts, max_new))
     t_gen = time.perf_counter() - t0
     per_tok = (t_gen - t_one) / (max_new - 1)
@@ -471,7 +567,7 @@ def main():
               f"{key[:70]}")
 
     t0 = time.perf_counter()
-    fin = counted("smollm serve", KERNELS, lambda: probe.serve(
+    fin = counted("smollm serve", SERVE_KERNELS, lambda: probe.serve(
         [Request(rid=i, prompt=prompts[i].tolist(), max_new=max_new)
          for i in range(8)], n_slots=4, decode_chunk=8))
     t_serve = time.perf_counter() - t0
@@ -531,7 +627,8 @@ def main():
     cloud.generate(lp[:2], 2)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lres = counted("llama3 generate", KERNELS, lambda: cloud.generate(lp, 16))
+    lres = counted("llama3 generate", SERVE_KERNELS,
+                   lambda: cloud.generate(lp, 16))
     t_llama = time.perf_counter() - t0
     ll = lres["logits"].float().cpu().numpy()
     check(lres["tokens"].shape == (8, 16) and bool(np.isfinite(ll).all())
@@ -647,7 +744,165 @@ def main():
                          "pass")
     del model, probe, lmodel, cloud
 
-    # ---- 7. kernels line and result ------------------------------------
+    # ---- 7. Algorithm 1: the gateway at published widths --------------
+    tcfgs = tier_configs()
+    t0 = time.perf_counter()
+    tiers = {}
+    for i, (name, tcfg) in enumerate(tcfgs.items()):
+        tiers[name] = (tcfg, init_params(
+            tcfg, torch.Generator(device=dev).manual_seed(SEED + 10 + i),
+            device=dev))
+    # the classifier and the engines take their default device (the card)
+    scfg = safety_lib.classifier_config(vocab_size=512)
+    sparams = safety_lib.init_safety(
+        scfg, torch.Generator(device=dev).manual_seed(SEED + 20))
+    torch.cuda.synchronize()
+    weight_gb = {n: sum(p.numel() * p.element_size()
+                        for p in m.parameters()) / 1e9
+                 for n, (_, m) in tiers.items()}
+    print(f"[7] tiers initialised in {time.perf_counter() - t0:.1f} s: "
+          + ", ".join(f"{n} {tcfgs[n].name} {tcfgs[n].num_layers} layers "
+                      f"{gb:.2f} GB" for n, gb in weight_gb.items()))
+    gw, gprobe, gcloud, world = build_gateway(
+        **tiers, safety=(scfg, sparams))
+    check(gprobe.device.type == "cuda"
+          and gw.safety_params.embed.device.type == "cuda",
+          "gateway: an engine or the safety classifier is not on the card")
+    queries = world.study_workload()
+    rp = pad_prompts([q["prompt"] for q in queries], align="right")
+    with torch.inference_mode():
+        s_study = safety_lib.safety_score(
+            sparams, scfg, torch.as_tensor(rp, device=dev)).cpu().numpy()
+    gw.router_cfg = dataclasses.replace(gw.router_cfg,
+                                        sigma=float(np.median(s_study)))
+    rc = gw.router_cfg
+    print(f"[7] tau {rc.tau_low:.6f}/{rc.tau_high:.6f} (calibrated), sigma "
+          f"{rc.sigma:.6f} (median s of the workload)")
+
+    # wall time per tier: each engine's generate and the safety gate,
+    # synchronised, summed over one batch
+    tier_s: dict[str, float] = {}
+
+    @contextlib.contextmanager
+    def timed_tiers(engines):
+        """Time each engine's ``generate`` and the gateway's safety gate
+        while inside; the patched names are restored on the way out."""
+        def timed(name, fn):
+            def run(*a, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                tier_s[name] = (tier_s.get(name, 0.0)
+                                + time.perf_counter() - t)
+                return out
+            return run
+
+        orig_score = gateway_mod.safety_score
+        for eng in engines:
+            eng.generate = timed(eng.name, eng.generate)
+        gateway_mod.safety_score = timed("safety gate", orig_score)
+        try:
+            yield
+        finally:
+            gateway_mod.safety_score = orig_score
+            for eng in engines:
+                del eng.generate               # back to the class's method
+
+    members = [gprobe] + [m for m in gw.swarm.members if m is not gprobe]
+    gw.answer_batch(queries)                     # warm up every tier
+    gw.reset_fault_state()
+    before = dict(gprobe.counters)
+    with timed_tiers(members + [gcloud]):
+        t0 = time.perf_counter()
+        log = counted("gateway answer_batch", KERNELS,
+                      lambda: gw.answer_batch(queries))
+        t_batch = time.perf_counter() - t0
+    batch_tiers = dict(tier_s)
+    dec = log.decision
+    routes = {n: int((dec == c).sum())
+              for c, n in enumerate(router.DECISION_NAMES)}
+    check(bool(np.isin(dec, range(len(router.DECISION_NAMES))).all()),
+          f"gateway: invalid decision codes {np.unique(dec)}")
+    check(routes["local"] > 0 and routes["swarm"] > 0
+          and routes["cloud"] + routes["cloud_safety"] > 0,
+          f"gateway: not every route occurs: {routes}")
+    for name, x in (("u", log.u), ("s", log.safety)):
+        check(bool(np.isfinite(x).all() and (x >= 0).all()
+                   and (x <= 1).all()), f"gateway: {name} outside [0, 1]")
+    check(log.answers.shape == (len(queries), gw.max_new),
+          f"gateway: answers {log.answers.shape}")
+    d_prefill = gprobe.counters["prefill"] - before["prefill"]
+    d_decode = gprobe.counters["decode_only"] - before["decode_only"]
+    check(d_prefill == 1 and d_decode == 0,
+          f"gateway: the probe ran {d_prefill} prefills and {d_decode} "
+          "decode-only extensions in one batch (want 1 and 0: the swarm "
+          "round reuses the probe's generation)")
+    n_grid = path_launches["gateway answer_batch"]["flash_attention"]
+    check(n_grid == scfg.num_layers,
+          f"gateway: the safety encoder launched {n_grid} times, want "
+          f"{scfg.num_layers} (one per layer)")
+    print(f"[7] answer_batch on {len(queries)} queries: {t_batch:.3f} s; "
+          f"routes {routes}; tiers " + ", ".join(
+              f"{n} {t:.3f} s" for n, t in batch_tiers.items()))
+
+    t0 = time.perf_counter()
+    edge = counted("run_edge_only", SERVE_KERNELS,
+                   lambda: gateway_mod.run_edge_only(
+                       queries, gprobe, gw.sim, stop_token=FACT_IS))
+    t_edge = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cl = counted("run_cloud_only", SERVE_KERNELS,
+                 lambda: gateway_mod.run_cloud_only(
+                     queries, gcloud, gw.sim, stop_token=FACT_IS))
+    t_cloud = time.perf_counter() - t0
+    for name, lg in (("edge-only", edge), ("cloud-only", cl)):
+        check(bool(np.isfinite(lg.u).all() and np.isfinite(lg.latency).all()
+                   and lg.answers.shape == log.answers.shape),
+              f"{name}: non-finite or misshapen log")
+    print(f"[7] run_edge_only {t_edge:.3f} s, run_cloud_only {t_cloud:.3f} s")
+    pm = log.privacy()
+    report["gateway"] = {
+        "tiers": {n: {"arch": tcfgs[n].name, "layers": tcfgs[n].num_layers,
+                      "weights_gb": weight_gb[n]} for n in tcfgs},
+        "tau_low": rc.tau_low, "tau_high": rc.tau_high, "sigma": rc.sigma,
+        "answer_batch_s": t_batch, "tier_s": batch_tiers,
+        "edge_only_s": t_edge, "cloud_only_s": t_cloud, "routes": routes,
+        "faults": log.faults, "cloud_usage": log.cloud_usage(),
+        "privacy": {k: float(v) for k, v in pm._asdict().items()},
+        "latency_sim_mean_s": float(log.latency.mean()),
+        "u": [float(x) for x in log.u], "s": [float(x) for x in log.safety]}
+
+    # ---- 8. the full-sequence forward: kernel vs plain version ---------
+    pcfg, pmodel = tiers["probe"]
+    ftok = torch.randint(1, pcfg.vocab_size, (8, 256), generator=gen,
+                         device=dev, dtype=torch.int32)
+    with torch.inference_mode():
+        fk, _ = counted("smollm forward", ("flash_attention",),
+                        lambda: transformer.forward(pmodel, pcfg,
+                                                    {"tokens": ftok}))
+        orig = attention.flash_attention
+        attention.flash_attention = fref.flash_attention_ref
+        try:
+            fp, _ = transformer.forward(pmodel, pcfg, {"tokens": ftok})
+        finally:
+            attention.flash_attention = orig
+    check(path_launches["smollm forward"]["flash_attention"]
+          == pcfg.num_layers, "forward: not one grid launch per layer")
+    fk, fp = fk.float(), fp.float()
+    check(bool(torch.isfinite(fk).all()), "forward: non-finite logits")
+    f_atol = max(TIE_ATOL, TIE_ULPS * bf16_ulp(float(fp.abs().max())))
+    f_diff = float((fk - fp).abs().max())
+    f_agree = float((fk.argmax(-1) == fp.argmax(-1)).float().mean())
+    check(f_diff <= f_atol, f"forward: kernel and plain logits differ by "
+                            f"{f_diff} > {f_atol}")
+    print(f"[8] smollm forward B=8 S=256: logits {f_diff:.4f} apart (budget "
+          f"{f_atol:.4f}), argmax agreement {f_agree:.4f}")
+    report["forward"] = {"max_dlogit": f_diff, "atol": f_atol,
+                         "argmax_agreement": f_agree}
+    del tiers, gw, gprobe, gcloud, pmodel, sparams
+
+    # ---- 9. kernels line and result ------------------------------------
     src = {"flash_attention_positions": (
                "src/repro_torch/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention/kernel.py:128"),
@@ -656,14 +911,17 @@ def main():
                "src/repro/kernels/decode_attention/kernel.py:271"),
            "swarm_uncertainty": (
                "src/repro_torch/csrc/swarm_uncertainty.cu",
-               "src/repro/kernels/swarm_uncertainty/kernel.py:96")}
+               "src/repro/kernels/swarm_uncertainty/kernel.py:96"),
+           "flash_attention": (
+               "src/repro_torch/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention/kernel.py:169")}
     kernels = []
     for name in KERNELS:
         first = next(c for c in checks if c["name"] == name and c["main"])
         kernels.append({
             "name": name, "route": "cuda", "source": src[name][0],
             "replaces": src[name][1],
-            "launches": path_launches["smollm generate"][name],
+            "launches": path_launches["gateway answer_batch"][name],
             "launches_by_path": {p: n[name]
                                  for p, n in path_launches.items()},
             "max_abs_err": max(c["max_abs_err"] for c in checks
@@ -672,9 +930,11 @@ def main():
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": first["library_ms"]})
     report["kernels"] = kernels
+    report["wall_s"] = time.perf_counter() - T_START
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
+    print(f"[9] chip_smoke took {report['wall_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,17 @@ def init_budget(total: float, window_id: int = 0, device=None) -> BudgetState:
         window_id=torch.tensor(window_id, dtype=torch.int32, device=device))
 
 
+def roll_window(state: BudgetState, window_id) -> BudgetState:
+    """Reset ``used`` when the accounting window advances."""
+    window_id = torch.as_tensor(window_id, dtype=torch.int32,
+                                device=state.used.device)
+    fresh = window_id != state.window_id
+    return BudgetState(total=state.total,
+                       used=torch.where(fresh, torch.zeros_like(state.used),
+                                        state.used),
+                       window_id=window_id)
+
+
 def charge_batch(state: BudgetState, costs: torch.Tensor,
                  wants_cloud: torch.Tensor
                  ) -> tuple[torch.Tensor, BudgetState]:

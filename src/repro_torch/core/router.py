@@ -4,8 +4,10 @@ Mirrors ``route`` and ``summoning_rate`` of ``repro/core/router.py``: from
 the probe's difficulty U, the safety risk, the WAN state, latency estimates
 and the hard cloud budget, each query is assigned LOCAL / SWARM / CLOUD /
 CLOUD_SAFETY / REFUSE.  Cloud admission is budget-sequential (Eq. 13, via
-``budget.charge_batch``).  Phase B (post-consensus escalation) comes with
-the swarm slice.
+``budget.charge_batch``).  Phase B (``post_consensus``): after the swarm
+round, queries whose best cluster score S(a*) < gamma escalate to the cloud
+(budget and WAN permitting) or keep the best-effort swarm answer
+(Algorithm 1 lines 15-23).
 """
 
 from __future__ import annotations
@@ -79,6 +81,29 @@ def route(u: torch.Tensor, safety_s: torch.Tensor, *, cfg: RouterConfig,
     decision = torch.where(refuse, REFUSE, decision)
     return RouteResult(decision=decision.to(torch.int32), risk=risk,
                        budget=budget)
+
+
+class PostConsensusResult(NamedTuple):
+    decision: torch.Tensor          # (B,) final decision codes
+    use_swarm_answer: torch.Tensor  # (B,) bool: keep best-effort swarm answer
+    budget: BudgetState
+
+
+def post_consensus(decision: torch.Tensor, consensus_score: torch.Tensor, *,
+                   cfg: RouterConfig, budget: BudgetState, wan_ok,
+                   est_cloud_cost: torch.Tensor) -> PostConsensusResult:
+    """Phase B: escalate under-consensus swarm queries (Alg. 1 l.15-23)."""
+    B = decision.shape[0]
+    wan_ok = torch.as_tensor(wan_ok, dtype=torch.bool,
+                             device=decision.device).expand(B)
+    was_swarm = decision == SWARM
+    weak = was_swarm & (consensus_score < cfg.gamma)
+    admitted, budget = charge_batch(budget, est_cloud_cost, weak & wan_ok)
+    escalate = weak & admitted & wan_ok
+    new_decision = torch.where(escalate, CLOUD, decision).to(torch.int32)
+    return PostConsensusResult(decision=new_decision,
+                               use_swarm_answer=was_swarm & ~escalate,
+                               budget=budget)
 
 
 def summoning_rate(decision: torch.Tensor) -> torch.Tensor:

@@ -7,9 +7,13 @@ an edited source rebuilds and an unchanged one is reused.  Nothing here runs
 at import: the CPU tests import every module, and this machine class has no
 ``nvcc``.  ``build_all`` starts one ``nvcc`` per source at once.
 
-Every C entry point takes device pointers and the stream as ``c_void_p`` and
-returns ``cudaGetLastError()`` after its launch; ``check`` turns a nonzero
-code into an exception, so a refused launch never passes silently.
+A library may hold more than one C entry point (``flash_attention.cu``
+holds the positions-mode and the grid-offset flash attention), so
+``SIGNATURES`` names entry points, each with the library it lives in, and
+``kernel`` binds an entry point.  Every C entry point takes device pointers
+and the stream as ``c_void_p`` and returns ``cudaGetLastError()`` after its
+launch; ``check`` turns a nonzero code into an exception, so a refused
+launch never passes silently.
 """
 
 from __future__ import annotations
@@ -29,18 +33,21 @@ BUILD_DIR = Path(os.environ.get(
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# C signatures: name -> (entry point, argtypes)
+# C entry points: entry point -> (library = csrc/<library>.cu, argtypes)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
-    "flash_attention": ("flash_attention_positions",
-                        [_P] * 6 + [_I] * 8 + [_F, _I, _P]),
+    "flash_attention_positions": ("flash_attention",
+                                  [_P] * 6 + [_I] * 8 + [_F, _I, _P]),
+    "flash_attention": ("flash_attention",
+                        [_P] * 4 + [_I] * 8 + [_F, _I, _P]),
     "decode_attention": ("decode_attention",
                          [_P] * 6 + [_I] * 6 + [_F, _I, _P]),
     "swarm_uncertainty": ("swarm_uncertainty",
                           [_P] * 5 + [_I] * 3 + [_I, _F, _P]),
 }
+LIBRARIES = tuple(dict.fromkeys(lib for lib, _ in SIGNATURES.values()))
 
-_loaded: dict[str, object] = {}   # name -> bound ctypes entry point
+_loaded: dict[str, object] = {}   # entry point -> bound ctypes function
 
 
 def dtype_code(t) -> int:
@@ -83,7 +90,7 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build_all(names=tuple(SIGNATURES)) -> dict[str, dict]:
+def build_all(names=LIBRARIES) -> dict[str, dict]:
     """Compile every stale library in ``names`` in parallel.  Returns, per
     name, the library path, the build seconds (0.0 if it was up to date) and
     the ``-Xptxas -v`` report.  Raises if any compile fails."""
@@ -116,16 +123,17 @@ def build_all(names=tuple(SIGNATURES)) -> dict[str, dict]:
     return out
 
 
-def kernel(name: str):
-    """The ctypes entry point of library ``name``, built on first use."""
-    fn = _loaded.get(name)
+def kernel(entry: str):
+    """The ctypes function of C entry point ``entry``, its library built on
+    first use."""
+    fn = _loaded.get(entry)
     if fn is None:
-        entry, argtypes = SIGNATURES[name]
+        name, argtypes = SIGNATURES[entry]
         lib = ctypes.CDLL(str(build_all((name,))[name]["path"]))
         fn = getattr(lib, entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _loaded[name] = fn
+        _loaded[entry] = fn
     return fn
 
 

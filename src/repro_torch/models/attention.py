@@ -1,10 +1,13 @@
-"""GQA attention for serving: cold prefill and one-token decode (PyTorch).
+"""GQA attention: the full-sequence forward, cold prefill and one-token
+decode (PyTorch).
 
-Mirrors the monolithic parts of ``repro/models/attention.py``.  Prefill
-attention runs the positions-mode flash op, decode the monolithic decode op
-(``kernels/``): the CUDA kernels on the card, their plain versions on the
-CPU.  Unlike JAX's functional ``.at[].set``, the KV cache is written IN
-PLACE (``index_put_``): ``attn_prefill`` and ``attn_decode`` mutate the
+Mirrors the monolithic parts of ``repro/models/attention.py``.  The
+full-sequence forward (``attn_block``: the safety encoder and
+``transformer.forward``) runs the grid-offset flash op, prefill the
+positions-mode flash op, decode the monolithic decode op (``kernels/``):
+the CUDA kernels on the card, their plain versions on the CPU.  Unlike
+JAX's functional ``.at[].set``, the KV cache is written IN PLACE
+(``index_put_``): ``attn_prefill`` and ``attn_decode`` mutate the
 ``KVCache`` they are given and return it.
 
 Masked scores use the finite -1e30 of the reference, never -inf: a
@@ -21,7 +24,8 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.decode_attention.ops import decode_attention
-from repro_torch.kernels.flash_attention.ops import flash_attention_positions
+from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                     flash_attention_positions)
 from repro_torch.models.common import (ModelConfig, apply_rope,
                                        frozen_zeros, rmsnorm, rope_angles)
 
@@ -111,6 +115,39 @@ def _scatter_kv(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
     return cache
 
 
+def _attn_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig,
+                  positions: torch.Tensor, local: bool, *,
+                  prefill: bool = False):
+    """Shared full-sequence body -> (x + attn(x), k, v), for the forward
+    and for prefill.  ``prefill=True`` attends through the positions-mode
+    flash op (negative positions are inert padding); the default is the
+    full-sequence forward over positions 0..S-1, through the grid-offset
+    flash op, which skips the KV tiles a causal or windowed q tile cannot
+    see."""
+    h = rmsnorm(x, p.norm, cfg.norm_eps)
+    q, k, v = _project_qkv(p, h, cfg, positions)
+    window = cfg.window if local else None
+    if prefill:
+        pos0 = positions[0].contiguous()
+        out = flash_attention_positions(
+            q, k, v, q_positions=pos0, kv_positions=pos0, causal=cfg.causal,
+            window=window)
+    else:
+        out = flash_attention(q, k, v, causal=cfg.causal, window=window)
+    return x + _out_proj(out, p.wo), k, v
+
+
+def attn_block(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
+               local: bool) -> torch.Tensor:
+    """Pre-norm residual attention over a full sequence at positions
+    0..S-1, no cache and no padding mask.  x (B,S,D)."""
+    B, S, _ = x.shape
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    out, _, _ = _attn_forward(p, x, cfg, positions, local)
+    return out
+
+
 def attn_prefill(p: Attention, x: torch.Tensor, cache: KVCache,
                  positions: torch.Tensor, cfg: ModelConfig, *, local: bool,
                  continuation: bool = False) -> tuple[torch.Tensor, KVCache]:
@@ -123,14 +160,9 @@ def attn_prefill(p: Attention, x: torch.Tensor, cache: KVCache,
     if continuation:
         raise NotImplementedError(
             "continuation prefill (warm sessions) is not ported yet")
-    h = rmsnorm(x, p.norm, cfg.norm_eps)
-    q, k, v = _project_qkv(p, h, cfg, positions)
-    pos0 = positions[0].contiguous()
-    out = flash_attention_positions(
-        q, k, v, q_positions=pos0, kv_positions=pos0, causal=cfg.causal,
-        window=cfg.window if local else None)
+    x, k, v = _attn_forward(p, x, cfg, positions, local, prefill=True)
     _scatter_kv(cache, k, v, positions, cfg, local)
-    return x + _out_proj(out, p.wo), cache
+    return x, cache
 
 
 def _write_slot(t: torch.Tensor, b: torch.Tensor, slot: torch.Tensor,

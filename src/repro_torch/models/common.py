@@ -147,6 +147,19 @@ def frozen_zeros(*shape: int, dtype, device=None) -> nn.Parameter:
                         requires_grad=False)
 
 
+def resolve_device(device, what: str) -> torch.device:
+    """``device``, or the card when None.  With no card and no ``device``
+    it raises rather than run on the CPU unasked: the port's entry points
+    run on CUDA unless the caller passes ``device="cpu"``."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"{what} runs on CUDA and no CUDA device is available; pass "
+                "device='cpu' to run on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
 def use_f32_accumulation():
     """Make CUDA products accumulate as the reference's XLA dots do: f32
     products in full f32 (no TF32) and bf16 products reduced in f32.  These

@@ -7,7 +7,9 @@ parameter tree is a copy (``repro_torch.convert``).  Only the attention +
 MLP block of the four gateway tiers is ported; other mixers raise.
 
 The functions keep the JAX signatures with the model in the ``params``
-slot.  ``prefill`` and ``decode_step`` write the KV cache in place.
+slot.  ``forward`` runs the full-sequence path (``run_layers``, shared with
+the safety encoder); ``prefill`` and ``decode_step`` write the KV cache in
+place.
 """
 
 from __future__ import annotations
@@ -54,17 +56,25 @@ class Transformer(nn.Module):
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Transformer:
-    """Random weights with the JAX init distribution: normal(0.02) drawn in
-    f32 then cast, ``wo``/``w_down`` at 0.02/sqrt(2L), norms and biases 0.
-    Draws on ``generator``'s device; the numbers differ from JAX's for the
-    same seed (tests convert JAX's weights instead)."""
-    model = Transformer(cfg, device)
+    """Random weights with the JAX init distribution (``init_weights``)
+    for a fresh ``Transformer(cfg)`` on ``device``.  Draws on
+    ``generator``'s device; the numbers differ from JAX's for the same seed
+    (tests convert JAX's weights instead)."""
+    return init_weights(Transformer(cfg, device), cfg, generator)
+
+
+def init_weights(model: nn.Module, cfg: ModelConfig,
+                 generator: torch.Generator) -> nn.Module:
+    """Fill ``model`` in place with the JAX init distribution: normal(0.02)
+    drawn in f32 then cast, ``wo``/``w_down`` at 0.02/sqrt(2L), norms and
+    biases 0.  Shared by every module built on the ``Transformer`` body
+    (the safety classifier too)."""
     std_o = 0.02 / (2 * cfg.num_layers) ** 0.5
     gdev = generator.device
     with torch.no_grad():
         for name, prm in model.named_parameters():
             leaf = name.rsplit(".", 1)[-1]
-            if leaf in ("norm", "final_norm", "bq", "bk", "bv"):
+            if leaf in ("norm", "final_norm", "bq", "bk", "bv", "head_b"):
                 continue                                   # zeros
             std = std_o if leaf in ("wo", "w_down") else 0.02
             w = torch.randn(prm.shape, generator=generator, device=gdev,
@@ -82,6 +92,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             for mixer, _ in cfg.layer_plan()]
 
 
+def grow_cache(cfg: ModelConfig, cache: list, batch: int, new_len: int,
+               device=None) -> list:
+    """A copy of every layer cache at ``new_len`` slots (>= the current
+    length): the old slots copied in, the new ones empty (k/v 0, pos -1).
+    Window-clamped ring caches that keep their size pass through."""
+    out = []
+    for tmpl, c in zip(init_cache(cfg, batch, new_len, device=device),
+                       cache):
+        if tmpl.k.shape == c.k.shape:
+            out.append(c)
+            continue
+        T = c.k.shape[1]
+        for t, old in zip(tmpl, c):
+            t[:, :T].copy_(old)
+        out.append(tmpl)
+    return out
+
+
 def embed_inputs(params: Transformer, cfg: ModelConfig,
                  batch: dict) -> torch.Tensor:
     """batch["tokens"] (B,S) -> (B,S,D) in the compute dtype."""
@@ -94,17 +122,25 @@ def _logits(params: Transformer, cfg: ModelConfig,
     return x @ params.head().to(x.dtype)
 
 
+def run_layers(layers: nn.ModuleList, x: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """Every layer's full-sequence block over x (B,S,D), in layer order: the
+    counterpart of the JAX ``_run_stage`` over all stages (attention at
+    positions 0..S-1, no cache)."""
+    for layer, (mixer, _) in zip(layers, cfg.layer_plan()):
+        x = attention.attn_block(layer.mixer, x, cfg,
+                                 local=(mixer == "attn_local"))
+        x = ffn.mlp_block(layer.ffn, x, cfg)
+    return x
+
+
 def forward(params: Transformer, cfg: ModelConfig,
             batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward -> (logits (B,S,V), moe_aux = 0).  Runs the
-    prefill path on a throwaway cache at positions 0..S-1."""
+    """Full-sequence forward -> (logits (B,S,V), moe_aux = 0)."""
     tokens = batch["tokens"]
-    B, S = tokens.shape
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=tokens.device).expand(B, S)
-    cache = init_cache(cfg, B, S, device=tokens.device)
-    logits, _ = prefill(params, cfg, tokens, cache, positions)
-    return logits, torch.zeros((), dtype=torch.float32, device=tokens.device)
+    x = run_layers(params.layers, embed_inputs(params, cfg, batch), cfg)
+    return (_logits(params, cfg, x),
+            torch.zeros((), dtype=torch.float32, device=tokens.device))
 
 
 def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,

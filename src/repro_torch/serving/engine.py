@@ -1,5 +1,6 @@
-"""Inference engine, monolithic cold path: prefill, decode loop and the
-integrated Eq. 2-4 probe (PyTorch).
+"""Inference engine, monolithic caches: prefill, decode loop, the
+integrated Eq. 2-4 probe and the session handles the gateway uses
+(PyTorch).
 
 Mirrors the monolithic, single-device branches of
 ``repro/serving/engine.py``:
@@ -13,7 +14,11 @@ Mirrors the monolithic, single-device branches of
   * **serve()** streams cold requests through the ``ContinuousBatcher``:
     admit into free slots, prefill the slot, decode a chunk over all slots,
     retire at stop token / ``max_new``, combine the Eq. 2-3 means into U at
-    retirement.
+    retirement;
+  * **sessions**: ``generate(..., return_state=True)`` hands back a
+    ``SessionState`` (the decode carry and the filled cache),
+    ``generate(None, k, state=...)`` extends it decode-only, and
+    ``state_select`` copies rows of it out.
 
 Prompt shapes are bucketed (left-padded to the next power of two); bucket
 columns get negative positions, which prefill treats as inert.  PAD=0
@@ -22,9 +27,13 @@ the reference.
 
 The engine runs on CUDA unless the caller passes ``device="cpu"``; with
 ``device=None`` and no card it raises instead of running on the CPU.
-Session state (``absorb``, ``state=``, ``return_state``), paged caches,
-meshes and fault injection are not ported yet and raise
-``NotImplementedError``.
+Continuation prefill (``state=`` with prompts), ``absorb``, warm
+``serve()`` requests, paged caches, meshes and fault injection are not
+ported yet and raise ``NotImplementedError``.
+
+Unlike JAX's immutable arrays, the port's caches are written in place: a
+``SessionState`` is single use (extending it writes its cache), and
+``state_select`` copies the rows it selects.
 """
 
 from __future__ import annotations
@@ -38,7 +47,8 @@ import torch
 from repro_torch.core import uncertainty as U
 from repro_torch.core.uncertainty import UncertaintyConfig
 from repro_torch.models import transformer as T
-from repro_torch.models.common import ModelConfig, use_f32_accumulation
+from repro_torch.models.common import (ModelConfig, resolve_device,
+                                       use_f32_accumulation)
 from repro_torch.serving.scheduler import ContinuousBatcher, Request
 
 PAD = 0
@@ -57,7 +67,52 @@ def bucket_len(s: int, granularity: int = 512, floor: int = 8) -> int:
 
 def _not_ported(what: str):
     return NotImplementedError(f"{what} is not ported to the PyTorch engine "
-                               "yet (monolithic cold serving only)")
+                               "yet")
+
+
+@dataclasses.dataclass
+class SessionState:
+    """Warm cache handle: everything needed to continue a generation.
+
+    Returned by ``generate(..., return_state=True)``; accepted back by
+    ``generate(None, k, state=...)`` (decode-only extension).  The handle is
+    engine-specific and SINGLE USE: the cache is written in place, so
+    extending a state overwrites it, and a second extension of the same
+    handle would continue from a cache the first one already wrote.  Fork
+    with ``state_select``, which copies, before extending if both
+    timelines are needed.
+
+    * ``cache`` — one ``KVCache`` per layer, populated through position
+      ``pos - 1``;
+    * ``pos`` (B,) int32 — next absolute write position per row;
+    * ``cur`` (B,) int32 — the last sampled token, not yet absorbed or
+      emitted: an extension resumes from it bitwise;
+    * ``last`` (B, V) f32 — ``cur``'s logits;
+    * ``max_len`` — cache length (slots); ``offset`` — host-side upper
+      bound of ``pos``, which sizes cache growth without a device sync;
+    * ``gen`` — the sampling generator the decode loop drew from (None for
+      greedy), so a sampled extension continues the same stream.
+    """
+    cache: list
+    pos: torch.Tensor
+    cur: torch.Tensor
+    last: torch.Tensor
+    max_len: int
+    offset: int
+    gen: torch.Generator | None = None
+
+    @property
+    def batch(self) -> int:
+        return int(self.pos.shape[0])
+
+
+def _fork(gen: torch.Generator | None) -> torch.Generator | None:
+    """An independent generator at ``gen``'s state (JAX keys are values)."""
+    if gen is None:
+        return None
+    out = torch.Generator(device=gen.device)
+    out.set_state(gen.get_state())
+    return out
 
 
 @dataclasses.dataclass
@@ -83,15 +138,16 @@ class InferenceEngine:
             raise _not_ported("the paged block-pool cache")
         if self.mesh is not None:
             raise _not_ported("mesh-sharded serving")
-        if self.device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "InferenceEngine runs on CUDA and no CUDA device is "
-                    "available; pass device='cpu' to run on the CPU")
-            self.device = "cuda"
-        self.device = torch.device(self.device)
+        self.device = resolve_device(self.device, "InferenceEngine")
         if self.device.type == "cuda":
             use_f32_accumulation()
+        # host-side dispatch accounting: cold prefills and decode-only
+        # resumes (the gateway tests assert the swarm round adds no probe
+        # prefill), whole-cache growth copies, and the failure-domain
+        # counters the gateway reads (0 here: no pool, no fault injection)
+        self.counters = {"prefill": 0, "decode_only": 0, "grow_copy": 0,
+                         "famine_deferred": 0, "shed": 0, "expired": 0,
+                         "requeued": 0, "reprefill_cold": 0}
         self.params = self.params.to(self.device)
         kvb = self.cfg.attn_kv_block
         if self.max_len > kvb and self.max_len % kvb:
@@ -112,6 +168,17 @@ class InferenceEngine:
         if need <= self.max_len:
             return self.max_len
         return self._round_len(need)
+
+    def _grown_cache(self, state: SessionState, need: int):
+        """(cache, max_len) with at least ``need`` slots: the session's own
+        cache, or a longer copy of it (new slots empty) counted in
+        ``counters["grow_copy"]``."""
+        if need <= state.max_len:
+            return state.cache, state.max_len
+        new_len = self._round_len(need)
+        self.counters["grow_copy"] += 1
+        return (T.grow_cache(self.cfg, state.cache, state.batch, new_len,
+                             device=self.device), new_len)
 
     def _bucket(self, prompts: np.ndarray) -> tuple[np.ndarray, int]:
         B, S = prompts.shape
@@ -179,8 +246,9 @@ class InferenceEngine:
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
-    def generate(self, prompts: np.ndarray, max_new: int, *,
-                 greedy: bool = True, seed: int = 0, state=None,
+    def generate(self, prompts: np.ndarray | None, max_new: int, *,
+                 greedy: bool = True, seed: int = 0,
+                 state: SessionState | None = None,
                  return_state: bool = False) -> dict:
         """prompts (B, S) int32, LEFT-padded with PAD=0.  Prefill + a decode
         loop with the probe inside it.  Returns ``{"tokens": (B, max_new)
@@ -188,27 +256,81 @@ class InferenceEngine:
         tensor on the engine's device, "h_mean"/"v_mean": (B,) raw Eq. 2-3
         means, "prompt_lengths": (B,)}``.  Sampling (``greedy=False``) draws
         from a ``torch.Generator`` seeded with ``seed``: other numbers than
-        the JAX engine's for the same seed."""
-        if state is not None or return_state:
-            raise _not_ported("session state")
-        prompts = np.asarray(prompts, np.int32)
+        the JAX engine's for the same seed.
+
+        ``return_state=True`` adds ``"state"``: a ``SessionState`` over the
+        prompt and every emitted token.  ``state=<handle>`` with
+        ``prompts=None`` is a decode-only extension: ``max_new`` more
+        tokens from the session's pending token, the ones one longer
+        generation would have emitted next (no prefill).  The extension
+        writes the handle's cache in place."""
+        if prompts is not None:
+            prompts = np.asarray(prompts, np.int32)
+        if state is not None:
+            if prompts is not None and prompts.shape[1] > 0:
+                raise _not_ported("continuation prefill (state= with "
+                                  "prompts)")
+            return self._extend(int(max_new), state, bool(greedy), seed,
+                                return_state)
         B = prompts.shape[0]
         pb, s_orig = self._bucket(prompts)
         max_len = self._cache_len(pb.shape[1], max_new)
+        self.counters["prefill"] += 1
         cur, last, cache = self._prefill_absorb(pb, s_orig, max_len)
         pos = torch.full((B,), s_orig, dtype=torch.int32, device=self.device)
-        toks, lgs, h_per, v_per, _ = self._decode(
-            cur, last, cache, pos, int(max_new), bool(greedy),
-            self._generator(greedy, seed))
+        gen = self._generator(greedy, seed)
+        toks, lgs, h_per, v_per, carry = self._decode(
+            cur, last, cache, pos, int(max_new), bool(greedy), gen)
+        res = self._result(toks, lgs, h_per, v_per,
+                           (prompts != PAD).sum(axis=1))
+        if return_state:
+            res["state"] = SessionState(cache, carry[2], carry[0], carry[1],
+                                        max_len, s_orig + int(max_new), gen)
+        return res
+
+    def _result(self, toks, lgs, h_per, v_per, prompt_lengths) -> dict:
         h, v = h_per.mean(-1), v_per.mean(-1)
         return {"tokens": toks.cpu().numpy(),
                 "u": U.combine_terms(h, v, self.ucfg).cpu().numpy(),
                 "logits": lgs,
                 "h_mean": h.cpu().numpy(), "v_mean": v.cpu().numpy(),
-                "prompt_lengths": (prompts != PAD).sum(axis=1)}
+                "prompt_lengths": prompt_lengths}
+
+    def _extend(self, max_new: int, state: SessionState, greedy: bool,
+                seed: int, return_state: bool) -> dict:
+        """Decode-only continuation from the session's pending token: the
+        tokens a longer original generation would have emitted next
+        (bitwise: the decode loop is the same sequence of steps, and the
+        carried generator resumes a sampled stream)."""
+        cache, max_len = self._grown_cache(state, state.offset + max_new)
+        self.counters["decode_only"] += 1
+        gen = state.gen if state.gen is not None else self._generator(
+            greedy, seed)
+        toks, lgs, h_per, v_per, (cur, last, pos) = self._decode(
+            state.cur, state.last, cache, state.pos, max_new, greedy, gen)
+        res = self._result(toks, lgs, h_per, v_per,
+                           np.zeros((state.batch,), np.int64))
+        if return_state:
+            res["state"] = SessionState(cache, pos, cur, last, max_len,
+                                        state.offset + max_new, gen)
+        return res
+
+    @torch.inference_mode()
+    def state_select(self, state: SessionState, idx) -> SessionState:
+        """Rows ``idx`` of a session (repeated indices fan out), as a COPY:
+        the caches are written in place, so extending the selection must
+        leave the source untouched.  The gateway hands the swarm round the
+        probe's state for just the SWARM-routed queries this way."""
+        idx = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
+        cache = [type(c)(*(t.index_select(0, idx) for t in c))
+                 for c in state.cache]
+        return SessionState(cache, state.pos.index_select(0, idx),
+                            state.cur.index_select(0, idx),
+                            state.last.index_select(0, idx), state.max_len,
+                            state.offset, _fork(state.gen))
 
     def absorb(self, prompts: np.ndarray):
-        raise _not_ported("absorb (session state)")
+        raise _not_ported("absorb (prefill-only sessions)")
 
     @torch.inference_mode()
     def generate_stepwise(self, prompts: np.ndarray, max_new: int, *,
@@ -254,6 +376,7 @@ class InferenceEngine:
               batcher: ContinuousBatcher | None = None, n_slots: int = 4,
               decode_chunk: int = 8, stop_token: int | None = None,
               greedy: bool = True, seed: int = 0, faults=None,
+              overload: str = "raise",
               step_time_ms: float | None = None) -> list[dict]:
         """Streaming entry point for cold requests: admit queued requests
         into free slots (one prefill each, copied into the slot cache), one
@@ -262,7 +385,12 @@ class InferenceEngine:
         garbage at position 0 against an empty cache; it stays finite and
         touches no other slot.  Returns ``{"rid", "tokens", "u"}`` per
         request in completion order; with ``greedy=True`` the tokens are
-        those ``generate`` gives for the same prompt row."""
+        those ``generate`` gives for the same prompt row.  ``overload``
+        ("raise" or "shed") is taken as the JAX engine takes it; a
+        monolithic engine has no block pool, so nothing is ever shed."""
+        if overload not in ("raise", "shed"):
+            raise ValueError(f"overload must be 'raise' or 'shed', got "
+                             f"{overload!r}")
         if faults is not None:
             raise _not_ported("fault injection")
         if step_time_ms is not None:
@@ -310,6 +438,7 @@ class InferenceEngine:
                 req = batcher.slots[i]
                 pb, s_orig = self._bucket(
                     np.asarray(req.prompt, np.int32)[None])
+                self.counters["prefill"] += 1
                 c1, l1, k1 = self._prefill_absorb(pb, s_orig, max_len)
                 for dst, src in zip(cache, k1):      # splice into slot i
                     for a, b in zip(dst, src):

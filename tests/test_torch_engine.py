@@ -182,8 +182,9 @@ class TestPortContracts:
 
     def test_unported_paths_raise(self, engines):
         _, te, _, _ = engines
-        with pytest.raises(NotImplementedError):
-            te.generate(PROMPTS, 2, return_state=True)
+        state = te.generate(PROMPTS, 2, return_state=True)["state"]
+        with pytest.raises(NotImplementedError):     # continuation prefill
+            te.generate(PROMPTS, 2, state=state)
         with pytest.raises(NotImplementedError):
             te.absorb(PROMPTS)
         with pytest.raises(NotImplementedError):
