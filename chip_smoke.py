@@ -5,7 +5,7 @@
 Phases (any failure exits nonzero; nothing is caught and turned into 0):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the four CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
+2. build the five CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
    per source, started together) and print ``-Xptxas -v``'s summary;
 3. hold each kernel to its plain PyTorch version on the card, in bf16, at
    the main path's shapes — phase 7's gateway: for each tier at its own
@@ -20,13 +20,24 @@ Phases (any failure exits nonzero; nothing is caught and turned into 0):
    plain version and, for attention, ``scaled_dot_product_attention`` (a
    yardstick only: the port never calls it) with CUDA events, beside each
    call's least possible time; then a 2-layer model on the card against
-   the port's CPU path, in both uncertainty modes;
+   the port's CPU path, in both uncertainty modes; the block-table decode
+   (row 5) at each tier's widths at the paged gateway's decode shape (B=50,
+   blocks of 64, 2 per row, 8 delta rows, rows sharing a prefix block, a
+   sentinel tail), with int8 and fp8 pools, a ring dispatch longer than
+   its window and a 512-slot table, its library time that of SDPA over the
+   pre-gathered linear view (same mask, the gather not timed);
 4. serve the probe tier: ``smollm-135m`` at full width and depth with
    random weights from ``torch.Generator(seed)`` — ``generate`` on 8 prompts
    of 24-200 tokens, ``serve()`` on the same requests (tie-aware equal to
    ``generate``), ``generate_stepwise`` (tie-aware equal to ``generate``),
    Phase-A ``route`` on the u's with thresholds at their 0.40/0.90
-   quantiles;
+   quantiles; then (4p) the same tier on a paged block pool: ``generate``
+   through the block-table kernel and through the gathered view (each
+   tie-aware equal to phase 4's), a ~200-token prompt absorbed once and
+   fanned out to 16 sessions continued with their own spans (one cold
+   prefill; tie-aware equal to cold generates of the concatenations; the
+   shared blocks' bytes unchanged), ``serve()`` of 16 requests on that
+   handle (no prefill), and int8/fp8 pools against the bf16 pool;
 5. ``generate`` and ``generate_stepwise`` on ``llama3-8b`` at full width,
    cut to the 4 layers of the gateway's cloud tier;
 6. the tie budget: stepwise-vs-generate readings over several prompt seeds
@@ -41,7 +52,11 @@ Phases (any failure exits nonzero; nothing is caught and turned into 0):
    at the median s of the study workload; ``answer_batch`` on the 50-query
    study workload (every route must occur, u and s in [0, 1], one probe
    prefill per batch), then ``run_edge_only`` and ``run_cloud_only``, with
-   the wall time per batch and per tier;
+   the wall time per batch and per tier; then (7p) the same gateway on
+   paged engines (``engine_kw=dict(paged=True, pool_blocks=1024)``, as the
+   reference CLI's ``--paged``): the same ``s``, ``u`` within 1e-2 and
+   every route that differs from phase 7's at a ``u`` within 1e-2 of a
+   threshold, every tier decoding through row 5 and never through row 2;
 8. ``transformer.forward`` of ``smollm-135m`` at full width (B=8, S=256)
    against the same forward with the grid-offset op's plain version
    swapped in, within the tie budget;
@@ -50,10 +65,11 @@ Phases (any failure exits nonzero; nothing is caught and turned into 0):
 Every path of phases 4-8 runs with the kernels' launch counts set to 0 just
 before it and read just after: each kernel the path runs must have launched,
 and no plain version may have run.  The ``kernels`` line gives the counts of
-the main path's run — one gateway ``answer_batch``, where all four kernels
-launch — with every path's counts beside them; its times and bounds are
-those of phase 3's case at the probe tier's gateway shape (rows 1-3) and at
-the safety encoder's (row 4), and its error the largest over all cases.
+the main path's runs — rows 1-4 from one gateway ``answer_batch``, row 5
+from one paged gateway ``answer_batch`` (7p) — with every path's counts
+beside them; its times and bounds are those of phase 3's case at the probe
+tier's gateway shape (rows 1-3 and 5) and at the safety encoder's (row 4),
+and its error the largest over all cases.
 
 Without a CUDA device, or without the repository's sources beside this
 file, it exits nonzero and prints no result.  Details of the run go to
@@ -93,8 +109,12 @@ TIE_ATOL = 0.03
 TIE_ULPS = 4
 SERVE_KERNELS = ("flash_attention_positions", "decode_attention",
                  "swarm_uncertainty")                   # one tier's generate
-KERNELS = SERVE_KERNELS + ("flash_attention",)          # + the safety gate
+MONO_KERNELS = SERVE_KERNELS + ("flash_attention",)     # + the safety gate
+KERNELS = MONO_KERNELS + ("paged_decode_attention",)
 DECODE_ONLY = ("decode_attention", "swarm_uncertainty")   # stepwise paths
+PAGED_SERVE = ("flash_attention_positions", "paged_decode_attention",
+               "swarm_uncertainty")                     # a paged generate
+PAGED_KERNELS = PAGED_SERVE + ("flash_attention",)      # the paged gateway
 
 
 def bf16_ulp(x: float) -> float:
@@ -173,6 +193,7 @@ def main():
         from repro_torch.data.workload import FACT_IS, FactWorld
         from repro_torch.launch.serve import build_gateway, tier_configs
         from repro_torch.models import attention
+        from repro_torch.models import quant as TQ
         from repro_torch.models import transformer
         from repro_torch.models.common import use_f32_accumulation
         from repro_torch.models.transformer import init_params
@@ -373,6 +394,86 @@ def main():
                         lg, tok, k=10)),
                     library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
+    def paged_case(label, B, K, G, D, *, nb=2, L=64, S=8, p0=8, N=1024,
+                   window=None, quant=None, share=4, main=False):
+        """Row 5 at one decode step of a dispatch: an N-block bf16 (or
+        int8/fp8) pool, B rows of ``nb`` table entries (rows 0..share-1
+        share their first block, the last row's tail is a sentinel), the
+        dispatch's S delta rows from position p0, the step at its last row.
+        Linear slots hold position = slot up to the step (the covered ones
+        a stale row); a ring (``window``) slot holds the latest position
+        before p0 on it.  Every row sees at least its delta rows."""
+        H, Tl = K * G, nb * L
+        q = randn(B, K, G, D)
+        kp, vp = randn(N, L, K, D), randn(N, L, K, D)
+        table = torch.randperm(N, generator=gen, device=dev)[:B * nb]
+        table = table.view(B, nb).to(torch.int32)
+        table[1:share, 0] = table[0, 0]
+        idx = torch.full((B,), p0 + S - 1, dtype=torch.int32, device=dev)
+        p0t = torch.full((B,), p0, dtype=torch.int32, device=dev)
+        sl = torch.arange(Tl, dtype=torch.int32, device=dev)
+        if window is None:
+            lin = torch.where(sl <= p0 + S - 1, sl, -1)
+        else:
+            lin = sl + Tl * torch.div(p0 - 1 - sl, Tl, rounding_mode="floor")
+            lin = lin.clamp(min=-1)
+        pos = torch.full((N, L), -1, dtype=torch.int32, device=dev)
+        pos[table.reshape(-1).long()] = lin.expand(B, Tl).reshape(B * nb, L)
+        table[-1, -1] = N                          # a sentinel tail
+        dk, dv = randn(B, S, K, D), randn(B, S, K, D)
+        dpos = (p0 + torch.arange(S, dtype=torch.int32, device=dev)).expand(
+            B, S).contiguous()
+        kw = dict(window=window, delta_k=dk, delta_v=dv, delta_pos=dpos,
+                  p0=p0t)
+        elem = 2
+        if quant is not None:
+            kp, ks = TQ.quantize_rows(kp, quant)
+            vp, vs = TQ.quantize_rows(vp, quant)
+            kw.update(k_scale=ks, v_scale=vs)
+            elem = 1
+        args = (q, kp, vp, pos, table, idx)
+        out = dops.paged_decode_attention(*args, **kw)
+        ref = dref.paged_decode_attention_ref(*args, **kw)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
+        # the library yardstick: SDPA over the same keys pre-gathered
+        # (untimed) into a monolithic bf16 view, with the same mask
+        kl, vl, pl = dref.paged_gathered_view(*args[1:], **kw)
+        kl, vl = kl.to(torch.bfloat16), vl.to(torch.bfloat16)
+        valid = (pl >= 0) & (pl <= idx[:, None])
+        if window is not None:
+            valid &= idx[:, None] - pl < window
+        check(bool(valid.any(1).all()), f"{label}: a row sees no key")
+        Tl_valid = valid[:, :Tl]
+        if window is not None and S < Tl:
+            check(bool(Tl_valid.any(1).all()),
+                  f"{label}: the ring mask lets no pool row through")
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q.reshape(B, H, 1, D), kl.transpose(1, 2), vl.transpose(1, 2),
+            attn_mask=valid[:, None, None, :], enable_gqa=True)
+        # the bound counts what this run's data needs: table, q, out,
+        # index and p0; pos of every distinct visited block; k/v (and
+        # scales) of every distinct pool row some table row attends (valid,
+        # not covered); delta pos, and delta k/v of the valid delta rows.
+        # Operations: the valid keys only
+        blocks = torch.unique(table[table < N]).numel()
+        slot_ids = (table.long().repeat_interleave(L, dim=1) * L
+                    + torch.arange(L, device=dev).repeat(nb))
+        kv_rows = torch.unique(slot_ids[Tl_valid]).numel()
+        delta_rows = int(valid[:, Tl:].sum())
+        nbytes = (4 * B * nb + 2 * 2 * B * H * D + 8 * B + blocks * L * 4
+                  + kv_rows * (2 * K * D * elem + (8 * K if quant else 0))
+                  + B * S * 4 + delta_rows * 2 * K * D * 2)
+        b_ms, b_by = bound(nbytes, 4 * H * D * int(valid.sum()), BF16_FLOPS)
+        return dict(name="paged_decode_attention", label=label, main=main,
+                    max_abs_err=err, tol=2e-2,
+                    ms=time_ms(lambda: dops.paged_decode_attention(
+                        *args, **kw)),
+                    plain_ms=time_ms(lambda: dref.paged_decode_attention_ref(
+                        *args, **kw)),
+                    library_ms=time_ms(sdpa), bound_ms=b_ms, bound_by=b_by)
+
     # the gateway's shapes, those of phase 7's counted run (the main path):
     # every tier at its own widths, the 50 study prompts of 4-6 tokens
     # bucketed to S_GW (2 padding columns), decode over the engine's
@@ -393,7 +494,13 @@ def main():
             decode_case(f"gateway {tc.name} decode B{nq} T{T_GW}", nq, T_GW,
                         K, H // K, D, main=probe_tier),
             uncertainty_case(f"gateway {tc.name} B{nq} V{tc.vocab_size}",
-                             nq, tc.vocab_size, main=probe_tier)]
+                             nq, tc.vocab_size, main=probe_tier),
+            # row 5 at the paged gateway's decode: the 128-slot cache in
+            # blocks of 64, the last of 8 steps after an 8-column prefill
+            paged_case(f"paged gateway {tc.name} decode B{nq} L64 nb2 S8",
+                       nq, K, H // K, D, main=probe_tier)]
+    pc = tier_configs()["probe"]
+    PK, PG, PD = pc.num_kv_heads, pc.num_heads // pc.num_kv_heads, pc.head_dim
     cases = [
         # the shapes of phases 4-5: the probe tier's generate and llama3-8b's
         flash_case("smollm prefill B8 S128", 8, 128, 9, 3, 64, 40),
@@ -407,6 +514,16 @@ def main():
         uncertainty_case("probe B8 V49152", 8, 49152),
         uncertainty_case("llama3 B8 V128256", 8, 128256),
         *gw_cases,
+        # row 5: quantized pools, a ring that the dispatch covers in part
+        # and one it covers whole (steps > ring length), 512 slots
+        *(paged_case(f"paged smollm {qm} pool B{nq} L64 nb2 S8", nq, PK, PG,
+                     PD, quant=qm) for qm in ("int8", "fp8")),
+        paged_case("paged smollm ring window 128 B8 nb2 S8", 8, PK, PG, PD,
+                   p0=300, window=128),
+        paged_case("paged smollm ring window 128 B8 nb2 S160", 8, PK, PG, PD,
+                   S=160, p0=300, window=128),
+        paged_case("paged smollm B8 nb8 (T512) S8", 8, PK, PG, PD, nb=8,
+                   p0=400),
         # row 4: the safety gate's own shape (the main path), then the
         # full-sequence forward at S=2048
         grid_case(f"safety encoder B{nq} S{s_raw} H4 D32 bidirectional", nq,
@@ -484,13 +601,14 @@ def main():
 
     # ---- counted paths -------------------------------------------------
     counts_of = dict(zip(KERNELS, (fops.counts, dops.counts, uops.counts,
-                                   fops.grid_counts)))
+                                   fops.grid_counts, dops.paged_counts)))
     path_launches: dict[str, dict[str, int]] = {}
 
-    def counted(path, needs, fn):
+    def counted(path, needs, fn, forbid=()):
         """Run one path with every kernel count set to 0 just before it and
         read just after: each kernel the path runs (``needs``) must have
-        launched, and no plain version may have run."""
+        launched, none of ``forbid`` may have, and no plain version may
+        have run."""
         for c in counts_of.values():
             c.reset()
         out = fn()
@@ -498,6 +616,8 @@ def main():
         got = {n: c.launches for n, c in counts_of.items()}
         for n in needs:
             check(got[n] > 0, f"{path}: {n} was never launched")
+        for n in forbid:
+            check(got[n] == 0, f"{path}: {n} launched {got[n]} times")
         for n, c in counts_of.items():
             check(c.plain == 0, f"{path}: {c.plain} calls of {n}'s plain "
                                 "version")
@@ -527,7 +647,8 @@ def main():
     t_one = time.perf_counter() - t0
     t0 = time.perf_counter()
     res = counted("smollm generate", SERVE_KERNELS,
-                  lambda: probe.generate(prompts, max_new))
+                  lambda: probe.generate(prompts, max_new),
+                  forbid=("paged_decode_attention",))
     t_gen = time.perf_counter() - t0
     per_tok = (t_gen - t_one) / (max_new - 1)
     t_prefill = t_one - per_tok
@@ -617,6 +738,135 @@ def main():
         "serve_tie_flips": flips_serve, "stepwise_tie_flips": flips_step,
         "serve_tie_reading": read_serve, "stepwise_tie_reading": read_step,
         "u": [float(x) for x in u], "route": counts}
+
+    # ---- 4p. the probe tier on a paged block pool ----------------------
+    def block_bytes(eng, ids):
+        """Every pool field's bytes at blocks ``ids``, all layers."""
+        ids = torch.as_tensor(np.asarray(ids), dtype=torch.long, device=dev)
+        return [attention.raw(t).index_select(0, ids).clone()
+                for pool in eng.pool.arrays for t in pool if t is not None]
+
+    def paged_engine(name, **kw):
+        return InferenceEngine(name, cfg, model, ucfg, paged=True,
+                               pool_blocks=256, **kw)
+
+    pprobe = paged_engine("probe-paged")
+    gather_probe = paged_engine("probe-gather", attn_decode_impl="gather")
+    for eng in (pprobe, gather_probe):
+        eng.generate(prompts[:2], 2)                # warm up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pres = counted("paged smollm generate (kernel)", PAGED_SERVE,
+                   lambda: pprobe.generate(prompts, max_new),
+                   forbid=("decode_attention",))
+    t_pgen = time.perf_counter() - t0
+    plog = pres["logits"].float().cpu().numpy()
+    paged_read = {}
+    paged_read["kernel"] = tie_aware(
+        "paged generate (kernel) vs generate", pres["tokens"], toks, logits,
+        plog)
+    t0 = time.perf_counter()
+    gres = counted("paged smollm generate (gather)", SERVE_KERNELS,
+                   lambda: gather_probe.generate(prompts, max_new),
+                   forbid=("paged_decode_attention",))
+    t_ggen = time.perf_counter() - t0
+    paged_read["gather"] = tie_aware(
+        "paged generate (gather) vs generate", gres["tokens"], toks, logits,
+        gres["logits"].float().cpu().numpy())
+    print(f"[4p] paged generate B=8 max_new={max_new}: kernel {t_pgen:.2f} "
+          f"s, gather {t_ggen:.2f} s (monolithic {t_gen:.2f} s); tie-aware "
+          "equal to generate: " + ", ".join(
+              f"{k} {f} rows diverged at a tie, logits {d:.4f} apart, "
+              f"reading {r:.3f}" for k, (f, r, d) in paged_read.items()))
+
+    sys_prompt = rng.integers(1, V, (1, 200)).astype(np.int32)
+    spans = rng.integers(1, V, (16, 12)).astype(np.int32)
+    c0 = dict(pprobe.counters)
+
+    def fan_out():
+        st = pprobe.absorb(sys_prompt)
+        shared = st.cache.tables[0].copy()
+        snap = block_bytes(pprobe, shared)
+        out = pprobe.generate(spans, 16, state=pprobe.fanout(st, 16),
+                              return_state=True)
+        return st, shared, snap, out
+    t0 = time.perf_counter()
+    st, shared, snap, fres = counted(
+        "paged absorb + fanout 16 + continue", PAGED_SERVE, fan_out,
+        forbid=("decode_attention",))
+    t_fan = time.perf_counter() - t0
+    d_cold = pprobe.counters["prefill"] - c0["prefill"]
+    d_cont = pprobe.counters["prefill_continue"] - c0["prefill_continue"]
+    check(d_cold == 1 and d_cont == 1,
+          f"fan-out: {d_cold} cold prefills and {d_cont} continuations (want "
+          "1 and 1)")
+    check(all(torch.equal(a, b)
+              for a, b in zip(snap, block_bytes(pprobe, shared))),
+          "fan-out: a shared prefix block was written through")
+    cold = probe.generate(np.concatenate([np.tile(sys_prompt, (16, 1)),
+                                          spans], axis=1), 16)
+    fan_read = tie_aware(
+        "fanned continuation vs cold concatenation", fres["tokens"],
+        cold["tokens"], cold["logits"].float().cpu().numpy(),
+        fres["logits"].float().cpu().numpy())
+    print(f"[4p] absorb 200 tokens + fanout 16 + 12-token spans + 16 new: "
+          f"{t_fan:.2f} s, {d_cold} cold prefill, {d_cont} continuation, "
+          f"{pprobe.pool.counters['cow_copies']} COW copies; shared blocks "
+          f"{shared.tolist()} unchanged; tie-aware equal to cold "
+          f"concatenations ({fan_read[0]} rows diverged at a tie, reading "
+          f"{fan_read[1]:.3f})")
+
+    oracle = pprobe.generate(None, 12, state=pprobe.fanout(st, 1))
+    c1 = dict(pprobe.counters)
+    t0 = time.perf_counter()
+    sfin = counted(
+        "paged serve, 16 requests on one handle",
+        ("paged_decode_attention", "swarm_uncertainty"),
+        lambda: pprobe.serve([Request(rid=k, prompt=[], max_new=12, state=st)
+                              for k in range(16)], n_slots=8,
+                             decode_chunk=4),
+        forbid=("decode_attention", "flash_attention_positions"))
+    t_pserve = time.perf_counter() - t0
+    check(len(sfin) == 16 and pprobe.counters["prefill"] == c1["prefill"]
+          and pprobe.counters["prefill_continue"]
+          == c1["prefill_continue"], "paged serve: a request was lost or a "
+          "prefill ran")
+    ol = oracle["logits"].float().cpu().numpy()
+    serve_read = tie_aware(
+        "paged serve on one handle vs the session's extension",
+        [r["tokens"] for r in sorted(sfin, key=lambda r: r["rid"])],
+        np.repeat(oracle["tokens"], 16, axis=0), np.repeat(ol, 16, axis=0))
+    print(f"[4p] serve 16 requests on the absorbed handle, 8 slots: "
+          f"{t_pserve:.2f} s, no prefill, tie-aware equal to the session's "
+          f"decode-only extension ({serve_read[0]} rows diverged at a tie)")
+
+    quant_read = {}
+    for qm in ("int8", "fp8"):
+        qeng = paged_engine(f"probe-{qm}", cache_quant=qm)
+        qr = counted(f"paged smollm generate ({qm} pool)", PAGED_SERVE,
+                     lambda: qeng.generate(prompts, max_new),
+                     forbid=("decode_attention",))
+        ql = qr["logits"].float().cpu().numpy()
+        check(bool(np.isfinite(ql).all()), f"{qm} pool: non-finite logits")
+        flips, _, dq = tie_reading(qr["tokens"], pres["tokens"], plog, ql)
+        agree = float((qr["tokens"] == pres["tokens"]).mean())
+        quant_read[qm] = {"max_dlogit_before_divergence": dq,
+                          "rows_diverged": flips, "token_agreement": agree,
+                          "block_bytes": qeng.pool.block_bytes}
+        print(f"[4p] {qm} pool vs bf16 pool: logits {dq:.4f} apart before "
+              f"a divergence, {flips} rows diverged, token agreement "
+              f"{agree:.3f}, {qeng.pool.block_bytes} bytes per block (bf16 "
+              f"{pprobe.pool.block_bytes})")
+        del qeng
+    report["paged_probe"] = {
+        "generate_s": {"kernel": t_pgen, "gather": t_ggen,
+                       "monolithic": t_gen},
+        "tie_readings": {k: list(v) for k, v in paged_read.items()},
+        "fanout_s": t_fan, "fanout_tie": list(fan_read),
+        "cow_copies": pprobe.pool.counters["cow_copies"],
+        "serve_s": t_pserve, "serve_tie": list(serve_read),
+        "quantized": quant_read}
+    del pprobe, gather_probe
 
     # ---- 5. the cloud tier: llama3-8b, full width, 4 layers -----------
     lcfg = dataclasses.replace(configs.get_config("llama3-8b"), num_layers=4)
@@ -780,8 +1030,9 @@ def main():
           f"{rc.sigma:.6f} (median s of the workload)")
 
     # wall time per tier: each engine's generate and the safety gate,
-    # synchronised, summed over one batch
+    # synchronised, summed over one batch; and each tier's row-5 launches
     tier_s: dict[str, float] = {}
+    tier_k5: dict[str, int] = {}
 
     @contextlib.contextmanager
     def timed_tiers(engines):
@@ -791,10 +1042,13 @@ def main():
             def run(*a, **k):
                 torch.cuda.synchronize()
                 t = time.perf_counter()
+                n5 = dops.paged_counts.launches
                 out = fn(*a, **k)
                 torch.cuda.synchronize()
                 tier_s[name] = (tier_s.get(name, 0.0)
                                 + time.perf_counter() - t)
+                tier_k5[name] = (tier_k5.get(name, 0)
+                                 + dops.paged_counts.launches - n5)
                 return out
             return run
 
@@ -815,8 +1069,9 @@ def main():
     before = dict(gprobe.counters)
     with timed_tiers(members + [gcloud]):
         t0 = time.perf_counter()
-        log = counted("gateway answer_batch", KERNELS,
-                      lambda: gw.answer_batch(queries))
+        log = counted("gateway answer_batch", MONO_KERNELS,
+                      lambda: gw.answer_batch(queries),
+                      forbid=("paged_decode_attention",))
         t_batch = time.perf_counter() - t0
     batch_tiers = dict(tier_s)
     dec = log.decision
@@ -873,6 +1128,85 @@ def main():
         "latency_sim_mean_s": float(log.latency.mean()),
         "u": [float(x) for x in log.u], "s": [float(x) for x in log.safety]}
 
+    # ---- 7p. the gateway on paged engines -------------------------------
+    # the same tiers, weights, classifier and router config, every engine
+    # on its own 1024-block pool (the reference CLI's --paged); the same
+    # warm-up-then-counted sequence as phase 7, so budgets and simulator
+    # draws match
+    pgw, pgprobe, pgcloud, _ = build_gateway(
+        **tiers, safety=(scfg, sparams), router_cfg=gw.router_cfg,
+        engine_kw=dict(paged=True, pool_blocks=1024))
+    pmembers = [pgprobe] + [m for m in pgw.swarm.members if m is not pgprobe]
+    pool_gb = sum(e.pool.pool_bytes for e in pmembers + [pgcloud]) / 1e9
+    check(all(e.paged and e.attn_decode_impl == "kernel"
+              for e in pmembers + [pgcloud]), "7p: an engine is not paged")
+    pgw.answer_batch(queries)                    # warm up, as phase 7
+    pgw.reset_fault_state()
+    before_p = dict(pgprobe.counters)
+    tier_s.clear()
+    tier_k5.clear()
+    with timed_tiers(pmembers + [pgcloud]):
+        t0 = time.perf_counter()
+        plog_gw = counted("paged gateway answer_batch", PAGED_KERNELS,
+                          lambda: pgw.answer_batch(queries),
+                          forbid=("decode_attention",))
+        t_pbatch = time.perf_counter() - t0
+    pbatch_tiers, pk5 = dict(tier_s), dict(tier_k5)
+    pdec = plog_gw.decision
+    proutes = {n: int((pdec == c).sum())
+               for c, n in enumerate(router.DECISION_NAMES)}
+    check(np.array_equal(plog_gw.safety, log.safety),
+          "7p: s differs from phase 7's")
+    du = np.abs(plog_gw.u - log.u)
+    check(float(du.max()) <= 1e-2, f"7p: |u_paged - u_mono| reaches "
+                                   f"{float(du.max())} > 1e-2")
+    near = np.minimum(np.abs(log.u - rc.tau_low), np.abs(log.u - rc.tau_high))
+    moved = np.where(pdec != dec)[0]
+    check(bool((near[moved] <= 1e-2).all()),
+          f"7p: queries {moved.tolist()} routed otherwise than in phase 7 "
+          f"at u {(near[moved]).tolist()} from a threshold")
+    for eng in pmembers + [pgcloud]:
+        if eng.name in pbatch_tiers:
+            check(pk5.get(eng.name, 0) > 0,
+                  f"7p: {eng.name} decoded without row 5")
+    d_pprefill = pgprobe.counters["prefill"] - before_p["prefill"]
+    check(d_pprefill == 1, f"7p: the paged probe ran {d_pprefill} prefills")
+    # each tier's answers, paged vs monolithic, on the study prompts
+    sp = pad_prompts([q["prompt"] for q in queries])
+    tier_read, flipped = {}, 0
+    for mono_e, pag_e in zip([gprobe] + [m for m in gw.swarm.members
+                                         if m is not gprobe] + [gcloud],
+                             pmembers + [pgcloud]):
+        a = mono_e.generate(sp, gw.max_new)
+        b = pag_e.generate(sp, gw.max_new)
+        tier_read[pag_e.name] = tie_aware(
+            f"7p: {pag_e.name} paged vs monolithic generate", b["tokens"],
+            a["tokens"], a["logits"].float().cpu().numpy(),
+            b["logits"].float().cpu().numpy())
+        flipped += tier_read[pag_e.name][0]
+    alike = pdec == dec
+    n_ans = int((plog_gw.answers[alike] != log.answers[alike]).any(1).sum())
+    check(n_ans == 0 or flipped > 0,
+          f"7p: {n_ans} queries routed alike got other answers with no tier "
+          "diverging at a tie")
+    in_use = {e.name: e.pool.blocks_in_use for e in pmembers + [pgcloud]}
+    print(f"[7p] paged gateway ({pool_gb:.2f} GB of pools): answer_batch "
+          f"{t_pbatch:.3f} s (monolithic {t_batch:.3f} s); routes {proutes} "
+          f"({len(moved)} moved); max |u_paged - u_mono| {du.max():.3e}; s "
+          f"identical; {n_ans} routed-alike answers differ ({flipped} tier "
+          f"rows diverged at a tie); tiers " + ", ".join(
+              f"{n} {t:.3f} s ({pk5.get(n, 0)} row-5 launches)"
+              for n, t in pbatch_tiers.items()) + f"; blocks in use {in_use}")
+    report["paged_gateway"] = {
+        "pool_gb": pool_gb, "answer_batch_s": t_pbatch,
+        "mono_answer_batch_s": t_batch, "tier_s": pbatch_tiers,
+        "tier_row5_launches": pk5, "routes": proutes,
+        "moved": moved.tolist(), "max_du": float(du.max()),
+        "routed_alike_answers_differ": n_ans,
+        "tier_tie_readings": {k: list(v) for k, v in tier_read.items()},
+        "blocks_in_use": in_use}
+    del pgw, pgprobe, pgcloud, pmembers
+
     # ---- 8. the full-sequence forward: kernel vs plain version ---------
     pcfg, pmodel = tiers["probe"]
     ftok = torch.randint(1, pcfg.vocab_size, (8, 256), generator=gen,
@@ -914,14 +1248,20 @@ def main():
                "src/repro/kernels/swarm_uncertainty/kernel.py:96"),
            "flash_attention": (
                "src/repro_torch/csrc/flash_attention.cu",
-               "src/repro/kernels/flash_attention/kernel.py:169")}
+               "src/repro/kernels/flash_attention/kernel.py:169"),
+           "paged_decode_attention": (
+               "src/repro_torch/csrc/decode_attention.cu",
+               "src/repro/kernels/decode_attention/kernel.py:165")}
     kernels = []
     for name in KERNELS:
         first = next(c for c in checks if c["name"] == name and c["main"])
+        main_path = ("paged gateway answer_batch"
+                     if name == "paged_decode_attention"
+                     else "gateway answer_batch")
         kernels.append({
             "name": name, "route": "cuda", "source": src[name][0],
             "replaces": src[name][1],
-            "launches": path_launches["gateway answer_batch"][name],
+            "launches": path_launches[main_path][name],
             "launches_by_path": {p: n[name]
                                  for p, n in path_launches.items()},
             "max_abs_err": max(c["max_abs_err"] for c in checks

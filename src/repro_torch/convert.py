@@ -7,6 +7,10 @@ its own layout.  bf16 leaves go through ``astype(np.float32)``, which is
 exact, then ``.to(torch.bfloat16)``, which is exact again.  The safety
 classifier's tree (``init_safety``: ``head_w``/``head_b`` and no
 ``lm_head``) converts into the port's ``SafetyClassifier``.
+
+``from_jax_paged_pool`` converts a JAX block pool (``CachePool.arrays``)
+into the port's per-layer pools, byte for byte, so tests can compare the
+two after the same calls.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.safety import SafetyClassifier
+from repro_torch.models import attention
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import Transformer
 
@@ -52,3 +57,51 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig,
         if next(layers, None) is not None:
             raise ValueError("JAX tree has fewer layers than cfg.num_layers")
     return model.to(device) if device is not None else model
+
+
+def _pool_leaf(a: np.ndarray, dtype, fill) -> torch.Tensor:
+    """One JAX pool leaf (N, ...) in ``dtype``, with the sink block
+    appended.  int8 and fp8 (a uint8 view: numpy has no fp8) cross as
+    bytes; the rest through f32, which is exact for bf16, int32 positions
+    and f32 scales."""
+    if a.dtype in (np.uint8, np.int8):
+        t = torch.from_numpy(a.view(np.uint8).copy()).view(dtype)
+    else:
+        t = torch.from_numpy(a.astype(np.float32)).to(dtype)
+    sink = torch.full((1, *t.shape[1:]), fill, dtype=torch.float32)
+    return torch.cat([attention.raw(t),
+                      attention.raw(sink.to(dtype))]).view(dtype)
+
+
+def from_jax_paged_pool(np_layers: list, cfg: ModelConfig,
+                        device=None) -> list:
+    """``np_layers``: the JAX ``CachePool.arrays`` with numpy leaves (per
+    stage a dict of ``LayerCache``, a stacked stage's leaves carrying a
+    leading repeat axis, unstacked here as ``from_jax_params`` does; fp8
+    leaves as a uint8 view).  Returns one ``attention.KVPool`` per layer
+    in the port's layout, sink block included (zeros, pos -1), on
+    ``device`` (default CPU)."""
+    out = []
+    for sc, stage in zip(np_layers, cfg.stage_plan()):
+        for r in range(stage.repeat):
+            for i in range(len(stage.blocks)):
+                kv = [None if a is None else np.asarray(a)
+                      for a in sc[f"b{i}"].kv]
+                if stage.repeat > 1:
+                    kv = [None if a is None else a[r] for a in kv]
+                k, v, pos, ks, vs = kv
+                dt = {np.dtype(np.uint8): torch.float8_e4m3fn,
+                      np.dtype(np.int8): torch.int8}.get(k.dtype, cfg.dtype)
+                out.append(attention.KVPool(
+                    *(None if a is None else _pool_leaf(a, d, f)
+                      for a, d, f in ((k, dt, 0), (v, dt, 0),
+                                      (pos, torch.int32, -1),
+                                      (ks, torch.float32, 0),
+                                      (vs, torch.float32, 0)))))
+    if len(out) != cfg.num_layers:
+        raise ValueError(f"JAX pool has {len(out)} layers, cfg "
+                         f"{cfg.num_layers}")
+    if device is None:
+        return out
+    return [attention.KVPool(*(None if t is None else t.to(device)
+                               for t in p)) for p in out]

@@ -8,7 +8,8 @@ at import: the CPU tests import every module, and this machine class has no
 ``nvcc``.  ``build_all`` starts one ``nvcc`` per source at once.
 
 A library may hold more than one C entry point (``flash_attention.cu``
-holds the positions-mode and the grid-offset flash attention), so
+holds the positions-mode and the grid-offset flash attention,
+``decode_attention.cu`` the monolithic and the block-table decode), so
 ``SIGNATURES`` names entry points, each with the library it lives in, and
 ``kernel`` binds an entry point.  Every C entry point takes device pointers
 and the stream as ``c_void_p`` and returns ``cudaGetLastError()`` after its
@@ -42,6 +43,8 @@ SIGNATURES = {
                         [_P] * 4 + [_I] * 8 + [_F, _I, _P]),
     "decode_attention": ("decode_attention",
                          [_P] * 6 + [_I] * 6 + [_F, _I, _P]),
+    "paged_decode_attention": ("decode_attention",
+                               [_P] * 13 + [_I] * 10 + [_F, _I, _I, _P]),
     "swarm_uncertainty": ("swarm_uncertainty",
                           [_P] * 5 + [_I] * 3 + [_I, _F, _P]),
 }
@@ -57,6 +60,19 @@ def dtype_code(t) -> int:
     codes = {torch.float32: 0, torch.bfloat16: 1}
     if t.dtype not in codes:
         raise TypeError(f"kernels take float32 or bfloat16, got {t.dtype}")
+    return codes[t.dtype]
+
+
+def pool_dtype_code(t) -> int:
+    """The paged decode kernel's pool element-type code: ``dtype_code``'s
+    0 = float32 and 1 = bfloat16, plus 2 = int8 and 3 = float8_e4m3fn (the
+    quantized pools, which come with f32 scales)."""
+    import torch
+    codes = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+             torch.float8_e4m3fn: 3}
+    if t.dtype not in codes:
+        raise TypeError(f"pools are float32, bfloat16, int8 or "
+                        f"float8_e4m3fn, got {t.dtype}")
     return codes[t.dtype]
 
 

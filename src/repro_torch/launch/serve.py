@@ -64,7 +64,8 @@ def calibrate_thresholds(probe: InferenceEngine, world: FactWorld,
 
 def build_gateway(*, probe: tuple, edge_1b: tuple, edge_qwen: tuple,
                   cloud: tuple, safety: tuple,
-                  router_cfg: RouterConfig | None = None, device=None):
+                  router_cfg: RouterConfig | None = None, device=None,
+                  engine_kw: dict | None = None):
     """Construct the three-tier system from ``(cfg, weights)`` per tier and
     ``(cfg, classifier)`` for the safety gate.  Returns ``(gateway, probe
     engine, cloud engine, world)`` as the reference does, over the
@@ -73,13 +74,16 @@ def build_gateway(*, probe: tuple, edge_1b: tuple, edge_qwen: tuple,
     Every engine runs on ``device`` (the card when None; no card raises
     unless ``device="cpu"``), and the safety classifier is moved to the
     same device.  Without ``router_cfg``, tau comes from
-    ``calibrate_thresholds``."""
+    ``calibrate_thresholds``.  ``engine_kw`` goes to every tier's
+    ``InferenceEngine`` (e.g. ``dict(paged=True, pool_blocks=1024)``: every
+    tier serves off its own block pool)."""
     world = FactWorld(n_ent=16, n_rel=6)
     ucfg = UncertaintyConfig(alpha=1.0, mode="distribution")
 
     def engine(name, tier):
         cfg, params = tier
-        return InferenceEngine(name, cfg, params, ucfg, device=device)
+        return InferenceEngine(name, cfg, params, ucfg, device=device,
+                               **(engine_kw or {}))
 
     probe_eng = engine("probe-smollm", probe)
     peers = [probe_eng, engine("edge-1b", edge_1b),

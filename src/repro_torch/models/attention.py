@@ -1,14 +1,28 @@
-"""GQA attention: the full-sequence forward, cold prefill and one-token
-decode (PyTorch).
+"""GQA attention: the full-sequence forward, cold and warm prefill,
+one-token decode over a monolithic cache, and the paged block pool
+(PyTorch).
 
-Mirrors the monolithic parts of ``repro/models/attention.py``.  The
-full-sequence forward (``attn_block``: the safety encoder and
-``transformer.forward``) runs the grid-offset flash op, prefill the
-positions-mode flash op, decode the monolithic decode op (``kernels/``):
-the CUDA kernels on the card, their plain versions on the CPU.  Unlike
-JAX's functional ``.at[].set``, the KV cache is written IN PLACE
-(``index_put_``): ``attn_prefill`` and ``attn_decode`` mutate the
-``KVCache`` they are given and return it.
+Mirrors ``repro/models/attention.py``.  The full-sequence forward
+(``attn_block``: the safety encoder and ``transformer.forward``) runs the
+grid-offset flash op, prefill (cold and continuation) the positions-mode
+flash op, decode the monolithic decode op, paged decode the block-table
+decode op (``kernels/``): the CUDA kernels on the card, their plain
+versions on the CPU.  Unlike JAX's functional ``.at[].set``, caches and
+pools are written IN PLACE (``index_put_``): ``attn_prefill`` and
+``attn_decode`` mutate the ``KVCache`` they are given and return it, and
+the ``paged_*`` writers mutate the ``KVPool``.
+
+**Paged pools and dropped writes.**  JAX drops out-of-range scatters
+(``mode="drop"``) and clips gathers.  On CUDA an out-of-range index is a
+device-side assert, so the port never forms one: every gather clamps its
+block ids into [0, N), and every write goes through a SINK block.  A
+``KVPool`` is allocated with N + 1 blocks; the last one, block N, serves
+nobody, and a write through a sentinel table entry (>= N: an empty serve
+slot), an untouched block or an unwritten delta row is sent there instead
+of being masked out with a host sync.  ``KVPool.served()`` is the N-block
+view the readers and the decode kernel see.  The sink's contents are
+garbage and are never read: the kernel skips sentinel entries, and the
+gathers clamp to a served block.
 
 Masked scores use the finite -1e30 of the reference, never -inf: a
 bucket-padding query (negative position, nothing to attend) then comes out
@@ -23,9 +37,11 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from repro_torch.kernels.decode_attention.ops import decode_attention
+from repro_torch.kernels.decode_attention.ops import (decode_attention,
+                                                      paged_decode_attention)
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
                                                      flash_attention_positions)
+from repro_torch.models import quant as Q
 from repro_torch.models.common import (ModelConfig, apply_rope,
                                        frozen_zeros, rmsnorm, rope_angles)
 
@@ -151,18 +167,33 @@ def attn_block(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
 def attn_prefill(p: Attention, x: torch.Tensor, cache: KVCache,
                  positions: torch.Tensor, cfg: ModelConfig, *, local: bool,
                  continuation: bool = False) -> tuple[torch.Tensor, KVCache]:
-    """Cold prompt absorption: span attention + bulk KV-cache fill.
+    """Prompt absorption: span attention + bulk KV-cache fill, in place.
 
-    x (B,S,D); positions (B,S) int32, identical across the batch, from a
-    LEFT-padded span starting at position 0 and a freshly initialised
-    cache.  Negative positions are inert bucket padding: their K/V never
-    enter the cache and every key masks them out."""
-    if continuation:
-        raise NotImplementedError(
-            "continuation prefill (warm sessions) is not ported yet")
-    x, k, v = _attn_forward(p, x, cfg, positions, local, prefill=True)
+    x (B,S,D); positions (B,S) int32, identical across the batch (the
+    caller checks, ``transformer.prefill``).  Negative positions are inert
+    bucket padding: their K/V never enter the cache and every key masks
+    them out.
+
+    ``continuation=False`` (cold): a freshly initialised cache and a
+    LEFT-padded span starting at position 0; attention runs over the span's
+    own K/V.  ``continuation=True`` (warm): the span, RIGHT-padded, goes
+    into an already-filled cache at offset positions.  Its K/V are written
+    first, then the span queries attend over the whole cache through the
+    positions-mode flash op with ``kv_positions = cache.pos[0]`` (cache.pos
+    rows are identical across the batch when positions are), so the warm
+    span sees the cached context, itself, and no empty slot."""
+    if not continuation:
+        x, k, v = _attn_forward(p, x, cfg, positions, local, prefill=True)
+        _scatter_kv(cache, k, v, positions, cfg, local)
+        return x, cache
+    h = rmsnorm(x, p.norm, cfg.norm_eps)
+    q, k, v = _project_qkv(p, h, cfg, positions)
     _scatter_kv(cache, k, v, positions, cfg, local)
-    return x, cache
+    out = flash_attention_positions(
+        q, cache.k, cache.v, q_positions=positions[0].contiguous(),
+        kv_positions=cache.pos[0].contiguous(), causal=cfg.causal,
+        window=cfg.window if local else None)
+    return x + _out_proj(out, p.wo), cache
 
 
 def _write_slot(t: torch.Tensor, b: torch.Tensor, slot: torch.Tensor,
@@ -200,3 +231,211 @@ def attn_decode(p: Attention, x: torch.Tensor, cache: KVCache,
                            window=cfg.window if ring else None)
     out = out.reshape(B, 1, cfg.num_heads, Dh).to(x.dtype)
     return x + _out_proj(out, p.wo), cache
+
+
+# ---------------------------------------------------------------------------
+# Paged (block-pool) variants: pool-shaped storage + per-slot block tables
+# ---------------------------------------------------------------------------
+
+class KVPool(NamedTuple):
+    """One attention layer's block pool: k/v (N+1, L, K, Dh) in the cache
+    dtype (int8 / float8_e4m3fn for a quantized pool, with per-row f32
+    scales k_scale/v_scale (N+1, L, K)), pos (N+1, L) int32 (-1 = empty).
+    Block N is the sink (module docstring)."""
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+    @property
+    def n_blocks(self) -> int:
+        """Blocks the pool serves (the sink not counted)."""
+        return self.k.shape[0] - 1
+
+    def served(self) -> "KVPool":
+        """The N served blocks of every field, as views (no copy)."""
+        n = self.n_blocks
+        return KVPool(*(None if t is None else t[:n] for t in self))
+
+
+def raw(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself, or a uint8 view of an fp8 tensor: pool writes, copies
+    and gathers move fp8 rows as bytes."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def init_paged_kv(cfg: ModelConfig, n_blocks: int, block_len: int,
+                  cache_quant: str | None = None, device=None) -> KVPool:
+    """A pool of ``n_blocks`` served blocks (+ the sink): k/v zero, pos -1,
+    scales zero.  Local-window layers share the geometry: the window clamp
+    happens at view time through the table slice."""
+    K, Dh = cfg.num_kv_heads, cfg.head_dim
+    n = n_blocks + 1
+    dt = cfg.dtype if cache_quant is None else Q.qdtype(cache_quant)
+
+    def scale():
+        return (None if cache_quant is None
+                else torch.zeros((n, block_len, K), dtype=torch.float32,
+                                 device=device))
+    return KVPool(
+        k=torch.zeros((n, block_len, K, Dh), dtype=dt, device=device),
+        v=torch.zeros((n, block_len, K, Dh), dtype=dt, device=device),
+        pos=torch.full((n, block_len), -1, dtype=torch.int32, device=device),
+        k_scale=scale(), v_scale=scale())
+
+
+def _gather_blocks(t: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+    return raw(t).index_select(0, flat).view(t.dtype)
+
+
+def paged_view(pool: KVPool, table: torch.Tensor,
+               view_dtype: torch.dtype) -> KVCache:
+    """Gather the slot-linear (B, nb*L, ...) view of the pool through the
+    table: elementwise the monolithic cache of length nb*L with the same
+    writes.  Sentinel entries clamp to the last served block (garbage that
+    only feeds an empty serve slot's own row).  A quantized pool is
+    dequantized to ``view_dtype`` here, so the view is always a plain
+    monolithic cache — the gather oracle of the fused paths."""
+    sv = pool.served()
+    B, nb = table.shape
+    L = sv.k.shape[1]
+    flat = table.reshape(-1).long().clamp(0, sv.k.shape[0] - 1)
+    k, v = _gather_blocks(sv.k, flat), _gather_blocks(sv.v, flat)
+    if sv.k_scale is not None:
+        k = Q.dequantize_rows(k, sv.k_scale.index_select(0, flat),
+                              view_dtype)
+        v = Q.dequantize_rows(v, sv.v_scale.index_select(0, flat),
+                              view_dtype)
+    return KVCache(k=k.reshape(B, nb * L, *k.shape[2:]),
+                   v=v.reshape(B, nb * L, *v.shape[2:]),
+                   pos=sv.pos.index_select(0, flat).reshape(B, nb * L))
+
+
+def _put_rows(pool: KVPool, dst: torch.Tensor, k, v, pos,
+              rows: bool) -> None:
+    """Write k/v/pos (and, for a quantized pool, quantize them and write
+    the scales) at ``dst``: block ids (rows=False, values (n, L, ...)) or
+    flat row ids over (N+1)*L rows (rows=True, values (n, ...))."""
+    if pool.k_scale is not None:
+        quant = Q.quant_of(pool.k.dtype)
+        k, ks = Q.quantize_rows(k, quant)
+        v, vs = Q.quantize_rows(v, quant)
+    fields = [(pool.k, k), (pool.v, v), (pool.pos, pos)]
+    if pool.k_scale is not None:
+        fields += [(pool.k_scale, ks), (pool.v_scale, vs)]
+    for t, val in fields:
+        tgt = raw(t)
+        if rows:
+            tgt = tgt.view(-1, *tgt.shape[2:])
+        tgt.index_put_((dst,), raw(val.to(t.dtype)))
+
+
+def paged_scatter_blocks(pool: KVPool, table: torch.Tensor, lin: KVCache,
+                         lo: torch.Tensor, hi: torch.Tensor, *,
+                         window: int | None = None) -> KVPool:
+    """Write the blocks covering positions [lo, hi) (B,) of the slot-linear
+    cache ``lin`` (B, nb*L) back into the pool through the table, in place.
+    Only the covering blocks are written, so a refcount-shared prefix block
+    (always below ``lo``) is never written through — the allocator's
+    copy-on-write invariant.  ``window`` set = a ring layer: the write range
+    maps to ring slots, with wrap.  Sentinel entries and untouched blocks
+    write to the sink.  A quantized pool quantizes the written rows."""
+    N, L = pool.n_blocks, pool.k.shape[1]
+    B, T = lin.pos.shape
+    nb = T // L
+    tbl = table[:, :nb]
+    jpos = torch.arange(nb, dtype=torch.int32, device=tbl.device)[None] * L
+    lo, hi = lo[:, None], hi[:, None]
+    if window is None:
+        touched = (jpos < hi) & (jpos + L > lo)
+    else:
+        s0 = lo % T
+        s1 = s0 + (hi - lo).clamp(max=T)
+        touched = (((jpos < s1) & (jpos + L > s0))
+                   | ((jpos + T < s1) & (jpos + T + L > s0)))  # ring wrap
+    dst = torch.where(touched & (tbl >= 0) & (tbl < N), tbl, N)
+    dst = dst.reshape(-1).long()
+    _put_rows(pool, dst, lin.k.reshape(B * nb, L, *lin.k.shape[2:]),
+              lin.v.reshape(B * nb, L, *lin.v.shape[2:]),
+              lin.pos.reshape(B * nb, L), rows=False)
+    return pool
+
+
+def paged_scatter_delta(pool: KVPool, table: torch.Tensor, delta: KVCache,
+                        p0: torch.Tensor, *,
+                        window: int | None = None) -> KVPool:
+    """Scatter a dispatch's decode delta buffer (``init_decode_delta``)
+    into the pool through the table, in place: O(steps) row writes per
+    batch row.  Ring layers wrap slots mod the view length nb*L; when the
+    dispatch ran more steps than that, only the LAST nb*L delta rows are
+    written (the earlier ones were superseded in the ring, and a
+    duplicate-index write has no defined order).  Rows past the table,
+    through sentinel entries or unwritten (pos -1) go to the sink.  The
+    result equals the gather path's ``paged_scatter_blocks`` writeback."""
+    N, L = pool.n_blocks, pool.k.shape[1]
+    B, steps = delta.pos.shape
+    nb = table.shape[1]
+    Tl = nb * L
+    k, v, pos = delta.k, delta.v, delta.pos
+    off = torch.arange(steps, dtype=torch.int32, device=pos.device)
+    if window is not None and steps > Tl:
+        k, v, pos, off = k[:, -Tl:], v[:, -Tl:], pos[:, -Tl:], off[-Tl:]
+        steps = Tl
+    slot = p0[:, None] + off[None]
+    if window is not None:
+        slot = slot % Tl
+    col = slot // L
+    blk = table.gather(1, col.clamp(0, nb - 1).long())
+    keep = (col < nb) & (blk >= 0) & (blk < N) & (pos >= 0)
+    flat = torch.where(keep, blk.long() * L + (slot % L).long(), N * L)
+    _put_rows(pool, flat.reshape(-1), k.reshape(B * steps, *k.shape[2:]),
+              v.reshape(B * steps, *v.shape[2:]), pos.reshape(-1), rows=True)
+    return pool
+
+
+def init_decode_delta(cfg: ModelConfig, batch: int, steps: int,
+                      device=None) -> KVCache:
+    """Per-dispatch decode write buffer: row ``t`` holds the K/V the
+    dispatch's step ``t`` produced (pos -1 = unwritten), in the cache dtype
+    even when the pool is quantized — the dispatch attends its own rows
+    unquantized, and ``paged_scatter_delta`` quantizes them once at the
+    end."""
+    K, Dh = cfg.num_kv_heads, cfg.head_dim
+    return KVCache(
+        k=torch.zeros((batch, steps, K, Dh), dtype=cfg.dtype, device=device),
+        v=torch.zeros((batch, steps, K, Dh), dtype=cfg.dtype, device=device),
+        pos=torch.full((batch, steps), -1, dtype=torch.int32, device=device))
+
+
+def attn_decode_paged(p: Attention, x: torch.Tensor, pool: KVPool,
+                      table: torch.Tensor, delta: KVCache,
+                      index: torch.Tensor, t: int, p0: torch.Tensor,
+                      cfg: ModelConfig, *,
+                      local: bool) -> tuple[torch.Tensor, KVCache]:
+    """One-token decode reading the pool IN PLACE through the block table.
+
+    ``pool`` is never written here; ``table`` (B, nb) is contiguous and
+    already cut to the window for local layers; ``delta`` holds this
+    dispatch's decode writes; ``t`` is the step within the dispatch and
+    ``p0`` (B,) the dispatch's first position (index == p0 + t).  The new
+    token's K/V go into delta row ``t`` first, then the block-table decode
+    op attends the pool (minus the slots this dispatch rewrote) and the
+    delta rows — the kernel on the card, its plain version on the CPU.  A
+    quantized pool's scales are folded into the kernel's softmax."""
+    B = x.shape[0]
+    K, Dh = cfg.num_kv_heads, cfg.head_dim
+    G = cfg.num_heads // K
+    h = rmsnorm(x, p.norm, cfg.norm_eps)
+    q, k_new, v_new = _project_qkv(p, h, cfg, index[:, None])
+    delta.k[:, t] = k_new[:, 0].to(delta.k.dtype)
+    delta.v[:, t] = v_new[:, 0].to(delta.v.dtype)
+    delta.pos[:, t] = index
+    sv = pool.served()
+    out = paged_decode_attention(
+        q.reshape(B, K, G, Dh).to(delta.k.dtype), sv.k, sv.v, sv.pos, table,
+        index, window=cfg.window if local else None, k_scale=sv.k_scale,
+        v_scale=sv.v_scale, delta_k=delta.k, delta_v=delta.v,
+        delta_pos=delta.pos, p0=p0)
+    out = out.reshape(B, 1, cfg.num_heads, Dh).to(x.dtype)
+    return x + _out_proj(out, p.wo), delta

@@ -10,6 +10,14 @@ The functions keep the JAX signatures with the model in the ``params``
 slot.  ``forward`` runs the full-sequence path (``run_layers``, shared with
 the safety encoder); ``prefill`` and ``decode_step`` write the KV cache in
 place.
+
+The paged block pool (``serving/cache_manager.py`` owns the allocator) is a
+list of one ``attention.KVPool`` per layer, and a dispatch sees it as the
+dict ``paged_cache(layers, table)``.  The JAX package keeps
+repeat-stacked pools and folds a ``layer * N`` offset into its block ids;
+the port's per-layer list has no such offset.  The port's mixers are
+attention only, so the pool holds no recurrent-state rows and the
+reference's ``reset_rows`` / ``copy_rows`` have no counterpart.
 """
 
 from __future__ import annotations
@@ -149,9 +157,18 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     """Absorb a whole span in one pass, filling every layer cache in place.
 
     tokens (B,S); positions (B,S) int32 absolute positions (negative = inert
-    bucket padding).  Cold only: a freshly initialised cache and a
-    LEFT-padded span starting at position 0.  Returns (logits (B,S,V),
-    cache)."""
+    bucket padding), identical across the batch: the attention reads one
+    position row for the whole batch.  ``continuation=False`` (cold): a
+    freshly initialised cache and a LEFT-padded span starting at position
+    0, the same row for every batch row by construction.
+    ``continuation=True`` (warm): a RIGHT-padded span absorbed into an
+    already-filled cache at offset positions, whose rows must agree (one
+    check per call, not per layer); attention then reads the whole cache.
+    Returns (logits (B,S,V), cache)."""
+    if continuation and positions.shape[0] > 1 and not torch.equal(
+            positions, positions[:1].expand_as(positions)):
+        raise ValueError("prefill needs the same positions in every batch "
+                         "row (sessions of one batch advance together)")
     x = embed_inputs(params, cfg, {"tokens": tokens})
     for layer, c, (mixer, _) in zip(params.layers, cache, cfg.layer_plan()):
         x, _ = attention.attn_prefill(layer.mixer, x, c, positions, cfg,
@@ -171,3 +188,149 @@ def decode_step(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
                                      local=(mixer == "attn_local"))
         x = ffn.mlp_block(layer.ffn, x, cfg)
     return _logits(params, cfg, x), cache
+
+
+# ---------------------------------------------------------------------------
+# Paged block pool
+# ---------------------------------------------------------------------------
+
+def is_paged(cache) -> bool:
+    """True for the paged cache dict ``{"layers", "table", "cut"}``."""
+    return isinstance(cache, dict)
+
+
+def cache_is_quantized(cache) -> bool:
+    """True when a paged cache's pools carry scales (int8/fp8 storage)."""
+    return any(c.k_scale is not None for c in cache["layers"])
+
+
+def paged_cache(layers: list, table: torch.Tensor) -> dict:
+    """One dispatch's paged cache: the engine-wide pools and this
+    dispatch's block tables (B, nb), int32 on the pools' device, uploaded
+    once per dispatch.  ``layer_table`` caches each window-cut table here,
+    so a dispatch cuts and copies it once."""
+    return {"layers": layers, "table": table, "cut": {}}
+
+
+def init_block_pool(cfg: ModelConfig, n_blocks: int, block_len: int,
+                    cache_quant: str | None = None, device=None) -> list:
+    """One ``attention.KVPool`` per layer."""
+    return [attention.init_paged_kv(cfg, n_blocks, block_len, cache_quant,
+                                    device=device)
+            for _ in cfg.layer_plan()]
+
+
+def _local_nb(cfg: ModelConfig, nb: int, block_len: int, mixer: str) -> int:
+    """Blocks a layer's slot-linear view spans: the full table, clamped to
+    the window for local-attention layers (the engine checks that
+    block_len divides the window)."""
+    if mixer == "attn_local" and cfg.window is not None:
+        return min(nb, max(cfg.window // block_len, 1))
+    return nb
+
+
+def layer_table(cfg: ModelConfig, cache: dict, mixer: str) -> torch.Tensor:
+    """The dispatch's table cut to a layer's view, contiguous; cut once per
+    dispatch and reused by every layer and step."""
+    table = cache["table"]
+    L = cache["layers"][0].k.shape[1]
+    nbl = _local_nb(cfg, table.shape[1], L, mixer)
+    if nbl == table.shape[1]:
+        return table
+    cut = cache["cut"].get(nbl)
+    if cut is None:
+        cut = cache["cut"][nbl] = table[:, :nbl].contiguous()
+    return cut
+
+
+def paged_gather(cfg: ModelConfig, cache: dict) -> list:
+    """The slot-linear MONOLITHIC view of a paged cache: per layer a
+    (B, nb*L) ``KVCache`` gathered through the (window-cut) table,
+    dequantized to ``cfg.dtype``.  With the same writes applied it equals
+    what ``init_cache`` would hold, so the unchanged monolithic prefill and
+    decode run on it (the gather path)."""
+    return [attention.paged_view(pool, layer_table(cfg, cache, mixer),
+                                 cfg.dtype)
+            for pool, (mixer, _) in zip(cache["layers"], cfg.layer_plan())]
+
+
+def paged_scatter_back(cfg: ModelConfig, cache: dict, lin: list,
+                       lo: torch.Tensor, hi: torch.Tensor) -> list:
+    """Write a dispatch's results back into the pools in place: the blocks
+    covering positions [lo, hi) per row (``attention.paged_scatter_blocks``
+    — shared prefix blocks are never touched).  Sentinel entries write to
+    the sink."""
+    for pool, view, (mixer, _) in zip(cache["layers"], lin,
+                                      cfg.layer_plan()):
+        win = cfg.window if mixer == "attn_local" else None
+        attention.paged_scatter_blocks(
+            pool, layer_table(cfg, cache, mixer), view, lo, hi, window=win)
+    return cache["layers"]
+
+
+def _block_ids(ids, device) -> torch.Tensor:
+    return torch.as_tensor(ids, dtype=torch.long, device=device)
+
+
+def reset_blocks(cfg: ModelConfig, layers: list, ids) -> list:
+    """Re-initialise pool blocks ``ids`` in every pool, in place: k/v and
+    scales 0, pos -1.  O(len(ids))."""
+    for pool in layers:
+        i = _block_ids(ids, pool.k.device)
+        for t in pool:
+            if t is not None:
+                attention.raw(t)[i] = -1 if t is pool.pos else 0
+    return layers
+
+
+def copy_blocks(cfg: ModelConfig, layers: list, src, dst) -> list:
+    """Copy pool blocks ``src`` -> ``dst`` in every pool, in place (the
+    copy-on-write copy); scales travel with their blocks."""
+    for pool in layers:
+        s = _block_ids(src, pool.k.device)
+        d = _block_ids(dst, pool.k.device)
+        for t in pool:
+            if t is not None:
+                r = attention.raw(t)
+                r[d] = r[s]
+    return layers
+
+
+def paged_decode_carry(cfg: ModelConfig, cache: dict, steps: int) -> list:
+    """Per layer an O(B * steps) delta write buffer
+    (``attention.init_decode_delta``): a dispatch's decode writes, kept out
+    of the pool until ``paged_scatter_decode``."""
+    B = cache["table"].shape[0]
+    dev = cache["table"].device
+    return [attention.init_decode_delta(cfg, B, steps, device=dev)
+            for _ in cache["layers"]]
+
+
+def paged_decode_step(params: Transformer, cfg: ModelConfig,
+                      tokens: torch.Tensor, cache: dict, delta: list,
+                      index: torch.Tensor, t: int,
+                      p0: torch.Tensor) -> tuple[torch.Tensor, list]:
+    """Block-table ``decode_step``: tokens (B,1), index (B,) -> (logits
+    (B,1,V), delta).  Attention reads each pool in place through the table
+    (``attention.attn_decode_paged``); the step's K/V go into delta row
+    ``t`` of each layer, in place."""
+    x = embed_inputs(params, cfg, {"tokens": tokens})
+    for layer, pool, d, (mixer, _) in zip(params.layers, cache["layers"],
+                                          delta, cfg.layer_plan()):
+        x, _ = attention.attn_decode_paged(
+            layer.mixer, x, pool, layer_table(cfg, cache, mixer), d, index,
+            t, p0, cfg, local=(mixer == "attn_local"))
+        x = ffn.mlp_block(layer.ffn, x, cfg)
+    return _logits(params, cfg, x), delta
+
+
+def paged_scatter_decode(cfg: ModelConfig, cache: dict, delta: list,
+                         p0: torch.Tensor) -> list:
+    """End-of-dispatch writeback: each layer's delta rows into their pool
+    slots through the table (``attention.paged_scatter_delta``), in place.
+    The pools then equal the gather path's ``paged_scatter_back``."""
+    for pool, d, (mixer, _) in zip(cache["layers"], delta, cfg.layer_plan()):
+        win = cfg.window if mixer == "attn_local" else None
+        attention.paged_scatter_delta(
+            pool, layer_table(cfg, cache, mixer), d, p0, window=win)
+    return cache["layers"]

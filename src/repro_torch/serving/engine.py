@@ -1,9 +1,7 @@
-"""Inference engine, monolithic caches: prefill, decode loop, the
-integrated Eq. 2-4 probe and the session handles the gateway uses
-(PyTorch).
+"""Inference engine: prefill, decode loop, the integrated Eq. 2-4 probe,
+warm sessions and the paged block pool (PyTorch).
 
-Mirrors the monolithic, single-device branches of
-``repro/serving/engine.py``:
+Mirrors the single-device branches of ``repro/serving/engine.py``:
 
   * **prefill** absorbs the whole (bucketed, left-padded) prompt in one
     pass that fills every layer cache;
@@ -11,34 +9,46 @@ Mirrors the monolithic, single-device branches of
     ``transformer.decode_step`` in place of the JAX ``lax.scan``; token
     ``t``'s probe terms come from the logits *entering* step ``t`` (the
     logits that chose it), through the fused uncertainty op;
-  * **serve()** streams cold requests through the ``ContinuousBatcher``:
-    admit into free slots, prefill the slot, decode a chunk over all slots,
-    retire at stop token / ``max_new``, combine the Eq. 2-3 means into U at
-    retirement;
-  * **sessions**: ``generate(..., return_state=True)`` hands back a
-    ``SessionState`` (the decode carry and the filled cache),
-    ``generate(None, k, state=...)`` extends it decode-only, and
-    ``state_select`` copies rows of it out.
+  * **sessions**: ``generate(..., return_state=True)`` and ``absorb`` hand
+    back a ``SessionState``; ``generate(span, k, state=...)`` absorbs a new
+    span by ONE continuation prefill (right-padded, the cached context
+    never re-absorbed) and ``generate(None, k, state=...)`` extends
+    decode-only; ``state_select`` / ``fanout`` fork rows of it;
+  * **serve()** streams requests through the ``ContinuousBatcher``: admit
+    into free slots (a cold prefill, a warm continuation prefill, or a pure
+    decode resume), decode a chunk over all slots, retire at stop token /
+    ``max_new``, combine the Eq. 2-3 means into U at retirement, and hand
+    sessions back (``Request.return_state``);
+  * **paged** engines (``paged=True``) keep KV in a block pool
+    (``serving/cache_manager.py``) read through per-session block tables:
+    growth appends blocks, fan-out shares a prefix copy-on-write, and
+    decode reads the pool in place through the block-table kernel
+    (``attn_decode_impl="kernel"``, the default) or through the gathered
+    monolithic view (``"gather"``, the oracle).  ``cache_quant`` stores the
+    pool int8 or fp8 with per-row scales.
 
-Prompt shapes are bucketed (left-padded to the next power of two); bucket
-columns get negative positions, which prefill treats as inert.  PAD=0
-columns inside the caller's array are real tokens at real positions, as in
-the reference.
+Prompt shapes are bucketed (left-padded to the next power of two; spans of
+a continuation right-padded); bucket columns get negative positions, which
+prefill treats as inert.  PAD=0 columns inside the caller's array are real
+tokens at real positions, as in the reference.
 
 The engine runs on CUDA unless the caller passes ``device="cpu"``; with
 ``device=None`` and no card it raises instead of running on the CPU.
-Continuation prefill (``state=`` with prompts), ``absorb``, warm
-``serve()`` requests, paged caches, meshes and fault injection are not
-ported yet and raise ``NotImplementedError``.
+Fault injection (``serve(faults=)``), the deadline clock
+(``step_time_ms``), session checkpoints, ``weight_quant`` and meshes are
+not ported yet and raise ``NotImplementedError``.
 
-Unlike JAX's immutable arrays, the port's caches are written in place: a
-``SessionState`` is single use (extending it writes its cache), and
-``state_select`` copies the rows it selects.
+Unlike JAX's immutable arrays, the port's caches and pools are written in
+place: a monolithic ``SessionState`` is single use (extending it writes its
+cache), and ``state_select`` on a monolithic engine copies the rows it
+selects; on a paged engine it is a refcounted table copy, and the first
+write COW-copies any shared block in its range.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Sequence
 
 import numpy as np
@@ -46,9 +56,14 @@ import torch
 
 from repro_torch.core import uncertainty as U
 from repro_torch.core.uncertainty import UncertaintyConfig
+from repro_torch.models import quant as Q
 from repro_torch.models import transformer as T
 from repro_torch.models.common import (ModelConfig, resolve_device,
                                        use_f32_accumulation)
+from repro_torch.serving.cache_manager import (CachePool,
+                                               EvictedSessionError,
+                                               PagedHandle)
+from repro_torch.serving.faults import PoolExhaustedError
 from repro_torch.serving.scheduler import ContinuousBatcher, Request
 
 PAD = 0
@@ -74,32 +89,40 @@ def _not_ported(what: str):
 class SessionState:
     """Warm cache handle: everything needed to continue a generation.
 
-    Returned by ``generate(..., return_state=True)``; accepted back by
-    ``generate(None, k, state=...)`` (decode-only extension).  The handle is
-    engine-specific and SINGLE USE: the cache is written in place, so
-    extending a state overwrites it, and a second extension of the same
-    handle would continue from a cache the first one already wrote.  Fork
-    with ``state_select``, which copies, before extending if both
-    timelines are needed.
+    Returned by ``generate(..., return_state=True)``, by ``absorb`` and by
+    ``serve()`` for requests with ``return_state=True``; accepted back by
+    ``generate(..., state=...)`` and by warm ``serve()`` requests
+    (``Request.state``).  The handle is engine-specific and SINGLE USE: the
+    cache is written in place, so extending a state overwrites it.  Fork
+    with ``state_select`` / ``fanout`` before extending if both timelines
+    are needed.
 
     * ``cache`` — one ``KVCache`` per layer, populated through position
-      ``pos - 1``;
+      ``pos - 1``; on a paged engine a ``PagedHandle`` (block tables into
+      the engine's pool, valid until ``engine.release`` or TTL eviction);
     * ``pos`` (B,) int32 — next absolute write position per row;
     * ``cur`` (B,) int32 — the last sampled token, not yet absorbed or
       emitted: an extension resumes from it bitwise;
     * ``last`` (B, V) f32 — ``cur``'s logits;
-    * ``max_len`` — cache length (slots); ``offset`` — host-side upper
-      bound of ``pos``, which sizes cache growth without a device sync;
+    * ``max_len`` — cache length (slots; a paged handle's logical
+      capacity, which keeps paged dispatch shapes equal to the monolithic
+      ones after the pool trims the tables); ``offset`` — host-side upper
+      bound of ``pos``, which sizes growth without a device sync;
     * ``gen`` — the sampling generator the decode loop drew from (None for
-      greedy), so a sampled extension continues the same stream.
+      greedy), so a sampled extension continues the same stream;
+    * ``exact`` — False when ``serve()`` captured the handle off a slot
+      that decoded past the request's stop token: the KV up to ``pos`` is
+      exact but ``cur``/``last`` are not, so only a continuation prefill may
+      use it.
     """
-    cache: list
+    cache: Any
     pos: torch.Tensor
     cur: torch.Tensor
     last: torch.Tensor
     max_len: int
     offset: int
     gen: torch.Generator | None = None
+    exact: bool = True
 
     @property
     def batch(self) -> int:
@@ -122,7 +145,16 @@ class InferenceEngine:
     ``params`` is the port's ``Transformer`` (from ``init_params`` or
     ``convert.from_jax_params``); it is moved to ``device``.  On a CUDA
     device, building an engine sets torch's process-wide matmul precision
-    flags (``models.common.use_f32_accumulation``)."""
+    flags (``models.common.use_f32_accumulation``).
+
+    ``paged=True`` keeps the KV cache in a block pool of ``pool_blocks``
+    blocks of ``block_len`` slots (default: 16 full-length sessions);
+    ``attn_decode_impl`` picks its decode: ``"kernel"`` (None resolves to
+    it) reads the pool in place through the block-table kernel,
+    ``"gather"`` gathers the monolithic view and runs the monolithic decode
+    (the oracle: bitwise the monolithic engine).  ``cache_quant``
+    (``"int8"`` / ``"fp8"``, paged only) stores the pool quantized with
+    per-row f32 scales."""
     name: str
     cfg: ModelConfig
     params: Any
@@ -132,35 +164,74 @@ class InferenceEngine:
     device: Any = None
     paged: bool = False
     mesh: Any = None
+    block_len: int = 64
+    pool_blocks: int | None = None
+    attn_decode_impl: str | None = None
+    cache_quant: str | None = None
 
     def __post_init__(self):
-        if self.paged:
-            raise _not_ported("the paged block-pool cache")
         if self.mesh is not None:
             raise _not_ported("mesh-sharded serving")
         self.device = resolve_device(self.device, "InferenceEngine")
         if self.device.type == "cuda":
             use_f32_accumulation()
-        # host-side dispatch accounting: cold prefills and decode-only
-        # resumes (the gateway tests assert the swarm round adds no probe
-        # prefill), whole-cache growth copies, and the failure-domain
-        # counters the gateway reads (0 here: no pool, no fault injection)
-        self.counters = {"prefill": 0, "decode_only": 0, "grow_copy": 0,
+        # host-side dispatch accounting: cold prefills, warm continuation
+        # prefills and decode-only resumes (the gateway tests assert the
+        # swarm round adds no probe prefill), whole-cache growth copies
+        # (always 0 when paged), the failure-domain counters the gateway
+        # reads (``famine_deferred`` counts injected famine, as in the
+        # reference), and the queued requests a paged serve() round left
+        # waiting for blocks (``backpressure_deferred``, the port's own)
+        self.counters = {"prefill": 0, "prefill_continue": 0,
+                         "decode_only": 0, "grow_copy": 0,
                          "famine_deferred": 0, "shed": 0, "expired": 0,
-                         "requeued": 0, "reprefill_cold": 0}
+                         "requeued": 0, "reprefill_cold": 0,
+                         "backpressure_deferred": 0}
         self.params = self.params.to(self.device)
         kvb = self.cfg.attn_kv_block
         if self.max_len > kvb and self.max_len % kvb:
             self.max_len = -(-self.max_len // kvb) * kvb
+        Q.check_quant(self.cache_quant)
+        if self.cache_quant is not None and not self.paged:
+            raise ValueError(
+                "cache_quant requires paged=True: quantization is per pool "
+                "block (scales ride the block pool); the monolithic cache "
+                "stays in the model dtype")
+        self.pool = None
+        if not self.paged:
+            return
+        L = self.block_len
+        if self.max_len % L:
+            self.max_len = self._round_len(self.max_len)
+        if (self.cfg.window is not None and self.cfg.window % L
+                and any(m == "attn_local" for m, _ in self.cfg.layer_plan())):
+            raise ValueError(
+                f"paged cache: block_len={L} must divide the local-attention "
+                f"window {self.cfg.window} (the ring view is assembled from "
+                "whole blocks)")
+        if self.attn_decode_impl is None:
+            self.attn_decode_impl = "kernel"
+        if self.attn_decode_impl not in ("kernel", "gather"):
+            raise ValueError(f"attn_decode_impl must be 'kernel' or "
+                             f"'gather', got {self.attn_decode_impl!r}")
+        n_blocks = self.pool_blocks or max(64, 16 * self.max_len // L)
+        self.pool = CachePool(self.cfg, L, n_blocks,
+                              cache_quant=self.cache_quant,
+                              device=self.device)
 
     # ------------------------------------------------------------------
     def _round_len(self, need: int) -> int:
         """Bucket a cache length: multiples of 64, and of ``attn_kv_block``
-        once the cache outgrows one KV chunk."""
-        n = -(-need // 64) * 64
+        once the cache outgrows one KV chunk; a paged engine rounds to the
+        lcm with ``block_len`` so its tables stay whole blocks (the default
+        64 leaves the lengths, and the numbers, those of the monolithic
+        engine)."""
+        g = math.lcm(64, self.block_len) if self.paged else 64
+        n = -(-need // g) * g
         kvb = self.cfg.attn_kv_block
         if n > kvb:
-            n = -(-n // kvb) * kvb
+            gk = math.lcm(kvb, self.block_len) if self.paged else kvb
+            n = -(-n // gk) * gk
         return n
 
     def _cache_len(self, s_bucket: int, max_new: int) -> int:
@@ -172,7 +243,8 @@ class InferenceEngine:
     def _grown_cache(self, state: SessionState, need: int):
         """(cache, max_len) with at least ``need`` slots: the session's own
         cache, or a longer copy of it (new slots empty) counted in
-        ``counters["grow_copy"]``."""
+        ``counters["grow_copy"]``.  Paged sessions grow by
+        ``_paged_grown`` instead."""
         if need <= state.max_len:
             return state.cache, state.max_len
         new_len = self._round_len(need)
@@ -190,22 +262,62 @@ class InferenceEngine:
         out[:, Sb - S:] = prompts
         return out, S
 
-    # ------------------------------------------------------------------
-    def _prefill_absorb(self, prompts: np.ndarray, s_orig: int,
-                        max_len: int):
-        """Cold prefill of bucketed ``prompts`` (B, Sb) into a fresh
-        (B, max_len) cache -> (first greedy token (B,) int32, its logits
-        (B, V) f32, cache)."""
+    def _bucket_right(self, prompts: np.ndarray) -> tuple[np.ndarray, int]:
+        """Bucket a continuation span RIGHT-padded, so no padding sits
+        between the cached context and the new tokens."""
         B, S = prompts.shape
-        tokens = torch.as_tensor(prompts, dtype=torch.int32,
-                                 device=self.device)
+        gran = max(self.cfg.attn_q_block, self.cfg.attn_kv_block)
+        Sb = bucket_len(S, gran)
+        if Sb == S:
+            return prompts, S
+        out = np.zeros((B, Sb), np.int32)
+        out[:, :S] = prompts
+        return out, S
+
+    def _tokens(self, prompts: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(prompts, dtype=torch.int32, device=self.device)
+
+    def _full(self, B: int, value) -> torch.Tensor:
+        return torch.full((B,), value, dtype=torch.int32, device=self.device)
+
+    # ------------------------------------------------------------------
+    # prefill and decode bodies
+    # ------------------------------------------------------------------
+
+    def _prefill_into(self, prompts: np.ndarray, s_orig: int, cache):
+        """Cold prefill of bucketed ``prompts`` (B, Sb) into ``cache`` (a
+        fresh monolithic cache or the gathered view of freshly reset pool
+        blocks) -> (first greedy token (B,) int32, its logits (B, V) f32,
+        cache)."""
+        B, S = prompts.shape
         # columns left of the caller's prompt get negative positions (inert)
         positions = (torch.arange(S, dtype=torch.int32, device=self.device)
                      - (S - s_orig)).expand(B, S)
-        cache = T.init_cache(self.cfg, B, max_len, device=self.device)
-        logits, cache = T.prefill(self.params, self.cfg, tokens, cache,
-                                  positions)
+        logits, cache = T.prefill(self.params, self.cfg,
+                                  self._tokens(prompts), cache, positions)
         last = logits[:, -1].float()
+        return last.argmax(-1).to(torch.int32), last, cache
+
+    def _prefill_absorb(self, prompts: np.ndarray, s_orig: int,
+                        max_len: int):
+        """Monolithic cold prefill into a fresh (B, max_len) cache."""
+        cache = T.init_cache(self.cfg, prompts.shape[0], max_len,
+                             device=self.device)
+        return self._prefill_into(prompts, s_orig, cache)
+
+    def _prefill_continue(self, prompts: np.ndarray, s_orig: int,
+                          start: torch.Tensor, cache):
+        """Continuation prefill: absorb a RIGHT-padded span (B, Sb) of
+        ``s_orig`` real tokens into a filled cache at positions ``start``
+        (B,) onward -> (first greedy token, its logits, cache)."""
+        B, S = prompts.shape
+        col = torch.arange(S, dtype=torch.int32, device=self.device)[None]
+        positions = torch.where(col < s_orig, start[:, None] + col, col - S)
+        logits, cache = T.prefill(self.params, self.cfg,
+                                  self._tokens(prompts), cache,
+                                  positions.to(torch.int32),
+                                  continuation=True)
+        last = logits[:, s_orig - 1].float()
         return last.argmax(-1).to(torch.int32), last, cache
 
     def _next(self, lg: torch.Tensor, greedy: bool,
@@ -216,19 +328,19 @@ class InferenceEngine:
         return torch.multinomial(probs, 1, generator=gen)[:, 0].to(
             torch.int32)
 
-    def _decode(self, cur, last, cache, pos, steps: int, greedy: bool,
-                gen, with_logits: bool = True):
-        """``steps`` decode iterations.  cur (B,) token entering the span,
-        last (B,V) its logits, pos (B,) its position.  Emits the tokens (and
-        logits) *entering* each step plus their Eq. 2-3 terms; returns
-        (tokens, logits | None, h, v, (cur, last, pos)), each (B, steps)."""
+    def _decode(self, cur, last, pos, steps: int, greedy: bool, gen, step,
+                with_logits: bool = True):
+        """``steps`` decode iterations; ``step(tokens (B,1), pos (B,), t)``
+        runs one model step and returns its logits (B,1,V).  cur (B,) token
+        entering the span, last (B,V) its logits, pos (B,) its position.
+        Emits the tokens (and logits) *entering* each step plus their Eq.
+        2-3 terms; returns (tokens, logits | None, h, v, (cur, last, pos)),
+        each (B, steps)."""
         toks, lgs, hs, vs = [], [], [], []
-        for _ in range(steps):
+        for t in range(steps):
             h, v = U.uncertainty_terms(last[:, None, :], cur[:, None],
                                        self.ucfg)
-            logits, cache = T.decode_step(self.params, self.cfg,
-                                          cur[:, None], cache, pos)
-            lg = logits[:, -1].float()
+            lg = step(cur[:, None], pos, t)[:, -1].float()
             toks.append(cur)
             hs.append(h[:, 0])
             vs.append(v[:, 0])
@@ -239,10 +351,162 @@ class InferenceEngine:
         return (stack(toks), stack(lgs) if with_logits else None, stack(hs),
                 stack(vs), (cur, last, pos))
 
+    def _decode_mono(self, cur, last, cache, pos, steps, greedy, gen,
+                     with_logits=True):
+        """Decode over a monolithic cache (or a gathered view), in place."""
+        def step(tokens, index, t):
+            return T.decode_step(self.params, self.cfg, tokens, cache,
+                                 index)[0]
+        return self._decode(cur, last, pos, steps, greedy, gen, step,
+                            with_logits)
+
     def _generator(self, greedy: bool, seed: int):
         if greedy:
             return None
         return torch.Generator(device=self.device).manual_seed(seed)
+
+    # ------------------------------------------------------------------
+    # paged dispatches
+    # ------------------------------------------------------------------
+
+    def _paged_dev_cache(self, tables: np.ndarray) -> dict:
+        """The paged cache of one dispatch: the engine's pools + this
+        dispatch's tables, uploaded once."""
+        return T.paged_cache(self.pool.arrays, torch.as_tensor(
+            np.asarray(tables, np.int32), device=self.device))
+
+    def _paged_grown(self, state: SessionState, need: int):
+        """Extend a paged session's tables to the dispatch length (fresh
+        reset blocks appended, shared blocks in the write range COW-copied)
+        — never a whole-cache copy.  Returns (dispatch cache, max_len); the
+        length follows the monolithic formula, so the shapes match."""
+        handle = state.cache
+        self.pool.check(handle)
+        disp = (state.max_len if need <= state.max_len
+                else self._round_len(need))
+        tables = self.pool.extend(handle, disp // self.block_len,
+                                  state.pos.cpu().numpy())
+        return self._paged_dev_cache(tables), disp
+
+    def _prefill_into_paged(self, prompts, s_orig: int, cache: dict):
+        """Paged cold prefill: gather -> ``_prefill_into`` -> write blocks
+        [0, s_orig) back."""
+        B = prompts.shape[0]
+        lin = T.paged_gather(self.cfg, cache)
+        cur, last, lin = self._prefill_into(prompts, s_orig, lin)
+        T.paged_scatter_back(self.cfg, cache, lin, self._full(B, 0),
+                             self._full(B, s_orig))
+        return cur, last, cache
+
+    def _prefill_continue_paged(self, prompts, s_orig: int,
+                                start: torch.Tensor, cache: dict):
+        """Paged continuation prefill: gather -> ``_prefill_continue`` ->
+        write blocks [start, start + s_orig) back."""
+        lin = T.paged_gather(self.cfg, cache)
+        cur, last, lin = self._prefill_continue(prompts, s_orig, start, lin)
+        T.paged_scatter_back(self.cfg, cache, lin, start, start + s_orig)
+        return cur, last, cache
+
+    def _decode_scan_kernel(self, cur, last, cache: dict, pos, steps: int,
+                            greedy: bool, gen, with_logits: bool = True):
+        """Kernel-first paged decode: every layer attends the pool in place
+        through the block table (``transformer.paged_decode_step``) plus
+        the dispatch's delta rows; the delta rows go into the pool once, at
+        the end of the dispatch."""
+        p0 = pos
+        delta = T.paged_decode_carry(self.cfg, cache, steps)
+
+        def step(tokens, index, t):
+            return T.paged_decode_step(self.params, self.cfg, tokens, cache,
+                                       delta, index, t, p0)[0]
+        out = self._decode(cur, last, pos, steps, greedy, gen, step,
+                           with_logits)
+        T.paged_scatter_decode(self.cfg, cache, delta, p0)
+        return out
+
+    def _decode_scan_paged(self, cur, last, cache: dict, pos, steps: int,
+                           greedy: bool, gen, with_logits: bool = True):
+        """Paged decode chunk: ``"kernel"`` reads blocks in place;
+        ``"gather"`` gathers the monolithic view, decodes it and writes
+        blocks [pos, pos + steps) back."""
+        if self.attn_decode_impl == "kernel":
+            return self._decode_scan_kernel(cur, last, cache, pos, steps,
+                                            greedy, gen, with_logits)
+        lin = T.paged_gather(self.cfg, cache)
+        out = self._decode_mono(cur, last, lin, pos, steps, greedy, gen,
+                                with_logits)
+        T.paged_scatter_back(self.cfg, cache, lin, pos, pos + steps)
+        return out
+
+    def _generate_paged(self, prompts, s_orig: int, start, cache: dict,
+                        max_new: int, greedy: bool, gen):
+        """Paged prefill (cold with ``start=None``, else continuation from
+        ``start``) + decode.  ``"kernel"``: the prefill gathers once and
+        writes its span back, then decode reads the pool in place.
+        ``"gather"``: one gather, prefill and decode on it, one writeback
+        of the whole written range."""
+        B = prompts.shape[0]
+        lin = T.paged_gather(self.cfg, cache)
+        if start is None:
+            start = self._full(B, 0)
+            cur, last, lin = self._prefill_into(prompts, s_orig, lin)
+        else:
+            cur, last, lin = self._prefill_continue(prompts, s_orig, start,
+                                                    lin)
+        pos = start + s_orig
+        if self.attn_decode_impl == "kernel":
+            T.paged_scatter_back(self.cfg, cache, lin, start, pos)
+            return self._decode_scan_kernel(cur, last, cache, pos, max_new,
+                                            greedy, gen)
+        out = self._decode_mono(cur, last, lin, pos, max_new, greedy, gen)
+        T.paged_scatter_back(self.cfg, cache, lin, start, pos + max_new)
+        return out
+
+    # ------------------------------------------------------------------
+    # session handles
+    # ------------------------------------------------------------------
+
+    def release(self, state: SessionState) -> None:
+        """Return a paged session's blocks to the pool and invalidate the
+        handle (no-op for monolithic states)."""
+        if self.paged and isinstance(state.cache, PagedHandle):
+            self.pool.release(state.cache)
+
+    def evict_idle_sessions(self, ttl_s: float) -> int:
+        """TTL sweep over registered paged sessions (see CachePool)."""
+        return self.pool.evict_idle(ttl_s) if self.paged else 0
+
+    def fanout(self, state: SessionState, n: int) -> SessionState:
+        """Fan a batch-1 session out to ``n`` rows sharing its prefix: on a
+        paged engine a refcounted table copy (no prefill, no cache copy;
+        the first write COW-copies the tail block), on a monolithic one a
+        copy of the row ``n`` times."""
+        if state.batch != 1:
+            raise ValueError(f"fanout needs a batch-1 state, got "
+                             f"{state.batch}")
+        return self.state_select(state, np.zeros((n,), np.int32))
+
+    def _state_kind_check(self, state: SessionState):
+        """A paged engine takes only PagedHandle states and a monolithic
+        one only cache lists; a paged handle must still be registered
+        (released / evicted ones raise ``EvictedSessionError``)."""
+        got = isinstance(state.cache, PagedHandle)
+        if got != self.paged:
+            raise ValueError(
+                f"session state is {'paged' if got else 'monolithic'} but "
+                f"this engine is {'paged' if self.paged else 'monolithic'}")
+        if self.paged:
+            self.pool.check(state.cache)
+
+    def _check_state(self, state: SessionState, *, extension: bool):
+        """An inexact handle (captured past a stop token) supports only a
+        continuation prefill: its pending token is not the session's."""
+        self._state_kind_check(state)
+        if not state.exact and extension:
+            raise ValueError(
+                "inexact session state (captured after a mid-chunk stop "
+                "retirement in serve()): pure decode extension needs the "
+                "pending token; continue it with a prompt instead")
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
@@ -259,33 +523,68 @@ class InferenceEngine:
         the JAX engine's for the same seed.
 
         ``return_state=True`` adds ``"state"``: a ``SessionState`` over the
-        prompt and every emitted token.  ``state=<handle>`` with
-        ``prompts=None`` is a decode-only extension: ``max_new`` more
-        tokens from the session's pending token, the ones one longer
-        generation would have emitted next (no prefill).  The extension
-        writes the handle's cache in place."""
+        prompt and every emitted token.  ``state=<handle>`` continues it:
+        ``prompts`` is the NEW span only, absorbed by one continuation
+        prefill (greedy tokens those of a cold prefill of the
+        concatenation, tie-aware); with ``prompts=None`` it is a decode-only
+        extension, the tokens one longer generation would have emitted
+        next.  Either writes the handle's cache in place."""
         if prompts is not None:
             prompts = np.asarray(prompts, np.int32)
+        max_new, greedy = int(max_new), bool(greedy)
+        if state is not None and (prompts is None or prompts.shape[1] == 0):
+            self._check_state(state, extension=True)
+            return self._extend(max_new, state, greedy, seed, return_state)
         if state is not None:
-            if prompts is not None and prompts.shape[1] > 0:
-                raise _not_ported("continuation prefill (state= with "
-                                  "prompts)")
-            return self._extend(int(max_new), state, bool(greedy), seed,
-                                return_state)
+            self._check_state(state, extension=False)
         B = prompts.shape[0]
-        pb, s_orig = self._bucket(prompts)
-        max_len = self._cache_len(pb.shape[1], max_new)
-        self.counters["prefill"] += 1
-        cur, last, cache = self._prefill_absorb(pb, s_orig, max_len)
-        pos = torch.full((B,), s_orig, dtype=torch.int32, device=self.device)
         gen = self._generator(greedy, seed)
-        toks, lgs, h_per, v_per, carry = self._decode(
-            cur, last, cache, pos, int(max_new), bool(greedy), gen)
+        if state is None:
+            pb, s_orig = self._bucket(prompts)
+            max_len = self._cache_len(pb.shape[1], max_new)
+            self.counters["prefill"] += 1
+            if self.paged:
+                cache = self.pool.alloc(B, max_len // self.block_len)
+                out = self._generate_paged(
+                    pb, s_orig, None,
+                    self._paged_dev_cache(cache.tables),
+                    max_new, greedy, gen)
+            else:
+                cur, last, cache = self._prefill_absorb(pb, s_orig, max_len)
+                out = self._decode_mono(cur, last, cache,
+                                        self._full(B, s_orig), max_new,
+                                        greedy, gen)
+            offset = s_orig + max_new
+        else:
+            if state.batch != B:
+                raise ValueError(f"state batch {state.batch} != prompt "
+                                 f"batch {B}")
+            pb, s_orig = self._bucket_right(prompts)
+            need = state.offset + pb.shape[1] + max_new
+            self.counters["prefill_continue"] += 1
+            if self.paged:
+                cache = state.cache
+                dev, max_len = self._paged_grown(state, need)
+                out = self._generate_paged(pb, s_orig, state.pos, dev,
+                                           max_new, greedy, gen)
+            else:
+                cache, max_len = self._grown_cache(state, need)
+                cur, last, cache = self._prefill_continue(
+                    pb, s_orig, state.pos, cache)
+                out = self._decode_mono(cur, last, cache,
+                                        state.pos + s_orig, max_new, greedy,
+                                        gen)
+            offset = state.offset + s_orig + max_new
+        toks, lgs, h_per, v_per, (cur, last, pos) = out
         res = self._result(toks, lgs, h_per, v_per,
                            (prompts != PAD).sum(axis=1))
+        if self.paged and not return_state and state is None:
+            self.pool.release(cache)        # one-shot: blocks back now
+        elif self.paged:
+            self.pool.trim(cache, -(-offset // self.block_len))
         if return_state:
-            res["state"] = SessionState(cache, carry[2], carry[0], carry[1],
-                                        max_len, s_orig + int(max_new), gen)
+            res["state"] = SessionState(cache, pos, cur, last, max_len,
+                                        offset, gen)
         return res
 
     def _result(self, toks, lgs, h_per, v_per, prompt_lengths) -> dict:
@@ -302,43 +601,103 @@ class InferenceEngine:
         tokens a longer original generation would have emitted next
         (bitwise: the decode loop is the same sequence of steps, and the
         carried generator resumes a sampled stream)."""
-        cache, max_len = self._grown_cache(state, state.offset + max_new)
+        need = state.offset + max_new
+        if self.paged:
+            cache, max_len = self._paged_grown(state, need)
+        else:
+            cache, max_len = self._grown_cache(state, need)
         self.counters["decode_only"] += 1
         gen = state.gen if state.gen is not None else self._generator(
             greedy, seed)
-        toks, lgs, h_per, v_per, (cur, last, pos) = self._decode(
+        run = self._decode_scan_paged if self.paged else self._decode_mono
+        toks, lgs, h_per, v_per, (cur, last, pos) = run(
             state.cur, state.last, cache, state.pos, max_new, greedy, gen)
         res = self._result(toks, lgs, h_per, v_per,
                            np.zeros((state.batch,), np.int64))
+        offset = state.offset + max_new
+        if self.paged:
+            cache = state.cache
+            self.pool.trim(cache, -(-offset // self.block_len))
         if return_state:
             res["state"] = SessionState(cache, pos, cur, last, max_len,
-                                        state.offset + max_new, gen)
+                                        offset, gen)
         return res
 
     @torch.inference_mode()
+    def absorb(self, prompts: np.ndarray, *,
+               state: SessionState | None = None) -> SessionState:
+        """Prefill only: absorb a context into a fresh (or, with ``state``,
+        a live) cache and return the session handle; no decode step runs.
+        The handle's pending token is the prefill argmax, so
+        ``generate(None, n, state=eng.absorb(p))`` emits the greedy tokens
+        ``generate(p, n)`` would.  Cache a shared context once and fan
+        generations out of it (``fanout``)."""
+        prompts = np.asarray(prompts, np.int32)
+        B = prompts.shape[0]
+        if state is None:
+            pb, s_orig = self._bucket(prompts)
+            max_len = self._cache_len(pb.shape[1], 0)
+            self.counters["prefill"] += 1
+            if self.paged:
+                cache = self.pool.alloc(B, max_len // self.block_len)
+                cur, last, _ = self._prefill_into_paged(
+                    pb, s_orig,
+                    self._paged_dev_cache(cache.tables))
+            else:
+                cur, last, cache = self._prefill_absorb(pb, s_orig, max_len)
+            pos, offset = self._full(B, s_orig), s_orig
+        else:
+            if state.batch != B:
+                raise ValueError(f"state batch {state.batch} != prompt "
+                                 f"batch {B}")
+            self._state_kind_check(state)
+            pb, s_orig = self._bucket_right(prompts)
+            need = state.offset + pb.shape[1]
+            self.counters["prefill_continue"] += 1
+            if self.paged:
+                cache = state.cache
+                dev, max_len = self._paged_grown(state, need)
+                cur, last, _ = self._prefill_continue_paged(
+                    pb, s_orig, state.pos, dev)
+            else:
+                cache, max_len = self._grown_cache(state, need)
+                cur, last, cache = self._prefill_continue(
+                    pb, s_orig, state.pos, cache)
+            pos, offset = state.pos + s_orig, state.offset + s_orig
+        if self.paged:
+            self.pool.trim(cache, -(-offset // self.block_len))
+        return SessionState(cache, pos, cur, last, max_len, offset)
+
+    @torch.inference_mode()
     def state_select(self, state: SessionState, idx) -> SessionState:
-        """Rows ``idx`` of a session (repeated indices fan out), as a COPY:
-        the caches are written in place, so extending the selection must
-        leave the source untouched.  The gateway hands the swarm round the
-        probe's state for just the SWARM-routed queries this way."""
-        idx = torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
-        cache = [type(c)(*(t.index_select(0, idx) for t in c))
-                 for c in state.cache]
+        """Rows ``idx`` of a session (repeated indices fan out).  The
+        gateway hands the swarm round the probe's state for just the
+        SWARM-routed queries this way.  Monolithic: a COPY of the rows (the
+        caches are written in place, so extending the selection must leave
+        the source untouched).  Paged: a refcounted table copy
+        (``CachePool.select``); the selection's first write COW-copies any
+        shared block in its range, so the source's blocks stay as they
+        were."""
+        idx_np = np.asarray(idx, np.int64)
+        idx = torch.as_tensor(idx_np, device=self.device)
+        if self.paged:
+            self._state_kind_check(state)
+            cache = self.pool.select(state.cache, idx_np)
+        else:
+            cache = [type(c)(*(t.index_select(0, idx) for t in c))
+                     for c in state.cache]
         return SessionState(cache, state.pos.index_select(0, idx),
                             state.cur.index_select(0, idx),
                             state.last.index_select(0, idx), state.max_len,
-                            state.offset, _fork(state.gen))
-
-    def absorb(self, prompts: np.ndarray):
-        raise _not_ported("absorb (prefill-only sessions)")
+                            state.offset, _fork(state.gen), state.exact)
 
     @torch.inference_mode()
     def generate_stepwise(self, prompts: np.ndarray, max_new: int, *,
                           greedy: bool = True, seed: int = 0) -> dict:
-        """One-token-at-a-time absorption (S + max_new decode steps): the
-        port's own oracle for ``generate``.  The cache length comes from the
-        same bucket ``generate`` uses; only the real S columns are
-        absorbed."""
+        """One-token-at-a-time absorption (S + max_new decode steps) over a
+        monolithic cache: the port's own oracle for ``generate``.  The
+        cache length comes from the same bucket ``generate`` uses; only the
+        real S columns are absorbed."""
         prompts = np.asarray(prompts, np.int32)
         B, S = prompts.shape
         pb, _ = self._bucket(prompts)
@@ -346,13 +705,11 @@ class InferenceEngine:
                                                           max_new),
                              device=self.device)
         gen = self._generator(greedy, seed)
-        tok = torch.as_tensor(prompts, dtype=torch.int32, device=self.device)
+        tok = self._tokens(prompts)
 
         def step(tokens, index, greedy):
-            logits, _ = T.decode_step(
-                self.params, self.cfg, tokens, cache,
-                torch.full((B,), index, dtype=torch.int32,
-                           device=self.device))
+            logits, _ = T.decode_step(self.params, self.cfg, tokens, cache,
+                                      self._full(B, index))
             lg = logits[:, -1].float()
             return self._next(lg, greedy, gen), lg
 
@@ -375,19 +732,40 @@ class InferenceEngine:
     def serve(self, requests: Sequence[Request] | None = None, *,
               batcher: ContinuousBatcher | None = None, n_slots: int = 4,
               decode_chunk: int = 8, stop_token: int | None = None,
-              greedy: bool = True, seed: int = 0, faults=None,
+              greedy: bool = True, seed: int = 0,
+              session_ttl_s: float | None = None, faults=None,
               overload: str = "raise",
               step_time_ms: float | None = None) -> list[dict]:
-        """Streaming entry point for cold requests: admit queued requests
-        into free slots (one prefill each, copied into the slot cache), one
-        decode chunk over ALL slots, record tokens, retire finished slots
-        (stop token or max_new), repeat until idle.  Empty slots decode
-        garbage at position 0 against an empty cache; it stays finite and
-        touches no other slot.  Returns ``{"rid", "tokens", "u"}`` per
-        request in completion order; with ``greedy=True`` the tokens are
-        those ``generate`` gives for the same prompt row.  ``overload``
-        ("raise" or "shed") is taken as the JAX engine takes it; a
-        monolithic engine has no block pool, so nothing is ever shed."""
+        """Streaming entry point: admit queued requests into free slots,
+        decode one chunk over ALL slots, record tokens, retire finished
+        slots (stop token or max_new), repeat until idle.  Returns
+        ``{"rid", "tokens", "u"}`` per request in completion order (plus
+        ``"state"`` for ``return_state`` requests and ``"shed": True`` for
+        shed ones); with ``greedy=True`` the tokens are those ``generate``
+        gives for the same prompt row.  Empty slots decode garbage that
+        stays finite and touches no other slot.
+
+        Admission: a cold request is one prefill into its slot; a warm one
+        (``Request.state``) one continuation prefill of its new span over
+        the session's cache, or with an empty prompt a pure decode resume.
+        The decode chunk is clamped to a ``return_state`` request's
+        remaining budget, so its handle is captured at its last step
+        (``SessionState.exact``).
+
+        Paged engines: slots read the pool through per-slot tables (empty
+        slots hold sentinels, whose reads are skipped or clamped and whose
+        writes land in the sink); admission asks the pool for blocks
+        (requests that do not fit wait, counted per round in
+        ``counters["backpressure_deferred"]``); a warm admission is a refcounted
+        table copy off the handle, so N queued requests carrying one
+        absorbed handle fan out with no extra prefill; retirement frees the
+        slot's blocks, and ``return_state`` is a table adoption trimmed to
+        the covered length.  When nothing decodes and nothing fits,
+        ``session_ttl_s`` evicts idle sessions (sparing handles still
+        queued), then ``overload="shed"`` sheds the least urgent request or
+        ``"raise"`` raises ``PoolExhaustedError``.  A warm request whose
+        handle was evicted re-admits cold from ``Request.cold_prompt`` (or
+        its prompt), counted in ``counters["reprefill_cold"]``."""
         if overload not in ("raise", "shed"):
             raise ValueError(f"overload must be 'raise' or 'shed', got "
                              f"{overload!r}")
@@ -405,53 +783,173 @@ class InferenceEngine:
             raise ValueError("serve() requires an un-admitted batcher: "
                              "submit requests to the queue only")
         pending = list(batcher.queue)
-        if any(r.state is not None or r.return_state or r.cold_prompt
-               for r in pending):
-            raise _not_ported("warm requests (session state)")
         if not pending:
             return []
         n_slots = batcher.n_slots
         gran = max(self.cfg.attn_q_block, self.cfg.attn_kv_block)
-        max_len = max(self._cache_len(bucket_len(len(r.prompt), gran),
-                                      r.max_new) for r in pending)
+
+        def need(r: Request) -> int:
+            # warm requests need room for the session so far + the new span
+            off = r.state.offset if r.state is not None else 0
+            sb = bucket_len(len(r.prompt), gran) if r.prompt else 0
+            n = self._cache_len(off + sb, r.max_new)
+            if r.cold_prompt:
+                # the slot must also fit the cold re-prefill fallback
+                n = max(n, self._cache_len(
+                    bucket_len(len(r.cold_prompt), gran), r.max_new))
+            return max(n, r.state.max_len) if r.state is not None else n
+
+        max_len = max(need(r) for r in pending)
+        paged = self.paged
         dev = self.device
         cur = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
         last = torch.zeros((n_slots, self.cfg.vocab_size),
                            dtype=torch.float32, device=dev)
         pos = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
-        cache = T.init_cache(self.cfg, n_slots, max_len, device=dev)
+        if paged:
+            nb = max_len // self.block_len
+            slot_tables = np.full((n_slots, nb), self.pool.n_blocks,
+                                  np.int32)
+            slot_run: list = [None] * n_slots      # the blocks a slot owns
+            cache = None
+        else:
+            cache = T.init_cache(self.cfg, n_slots, max_len, device=dev)
         gen = self._generator(greedy, seed)
         acc: dict[int, list] = {}           # rid -> [sum_h, sum_v, n]
+        states: dict[int, SessionState] = {}
+        pos0: dict[int, int] = {}           # slot -> position at admission
         results: list[dict] = []
 
         def drain():
             for req in batcher.drain_finished():
                 h, v, n = acc.pop(req.rid, (0.0, 0.0, 0))
                 d = max(n, 1)
-                results.append({
-                    "rid": req.rid,
-                    "tokens": np.asarray(req.generated, np.int32),
-                    "u": float(U.combine_terms(h / d, v / d, self.ucfg))})
+                out = {"rid": req.rid,
+                       "tokens": np.asarray(req.generated, np.int32),
+                       "u": float(U.combine_terms(h / d, v / d, self.ucfg))}
+                if req.shed:
+                    out["shed"] = True
+                if req.rid in states:
+                    out["state"] = states.pop(req.rid)
+                results.append(out)
+
+        promised = [0]          # slots admitted this round, not yet funded
+
+        def fits(r: Request) -> bool:
+            # a cold request needs a full run, a warm one at most that;
+            # count the slots admit() already promised this round
+            ok = self.pool.can_alloc((promised[0] + 1) * nb)
+            promised[0] += ok
+            return ok
 
         while not batcher.idle:
-            for i in batcher.admit():
+            promised[0] = 0
+            admitted = batcher.admit(fits=fits if paged else None)
+            if paged and not admitted and not batcher.active() \
+                    and batcher.queue:
+                # famine with nothing decoding: TTL-evict idle sessions
+                # (sparing the handles queued requests reference), retry
+                if session_ttl_s is not None:
+                    keep = {r.state.cache.sid for r in batcher.queue
+                            if r.state is not None
+                            and isinstance(r.state.cache, PagedHandle)}
+                    self.pool.evict_idle(session_ttl_s, exclude=keep)
+                promised[0] = 0
+                admitted = batcher.admit(fits=fits)
+                if not admitted:
+                    if overload == "shed" and batcher.shed_one() is not None:
+                        self.counters["shed"] += 1
+                        continue
+                    raise PoolExhaustedError(
+                        f"cache pool exhausted: {self.pool.blocks_in_use}/"
+                        f"{self.pool.n_blocks} blocks "
+                        f"({self.pool._famine_detail()}) held by "
+                        f"{self.pool.live_sessions} sessions and no slot "
+                        "can admit — grow pool_blocks, release sessions, or "
+                        "pass session_ttl_s")
+            if paged and batcher.queue and None in batcher.slots:
+                # backpressure: queued requests wait for retirements
+                self.counters["backpressure_deferred"] += len(batcher.queue)
+            for i in admitted:
                 req = batcher.slots[i]
-                pb, s_orig = self._bucket(
-                    np.asarray(req.prompt, np.int32)[None])
-                self.counters["prefill"] += 1
-                c1, l1, k1 = self._prefill_absorb(pb, s_orig, max_len)
-                for dst, src in zip(cache, k1):      # splice into slot i
-                    for a, b in zip(dst, src):
-                        a[i].copy_(b[0])
+                st = req.state
+                if st is not None:
+                    try:
+                        self._check_state(st, extension=not req.prompt)
+                    except EvictedSessionError:
+                        # the handle is gone: re-admit COLD from the full
+                        # conversation instead of failing the request
+                        req.state = st = None
+                        if req.cold_prompt is not None:
+                            req.prompt = list(req.cold_prompt)
+                        if not req.prompt:
+                            req.done = req.shed = True
+                            batcher.finished.append(req)
+                            batcher.slots[i] = None
+                            self.counters["shed"] += 1
+                            continue
+                        self.counters["reprefill_cold"] += 1
+                if paged:
+                    run = (self.pool.admit_row(st.cache, nb, int(st.pos[0]))
+                           if st is not None
+                           else self.pool.alloc_blocks(nb))
+                    slot_tables[i, :] = run
+                    slot_run[i] = run
+                    c1g = self._paged_dev_cache(slot_tables[i:i + 1])
+                elif st is not None:
+                    c1g, _ = self._grown_cache(st, max_len)
+                if st is not None and req.prompt:
+                    # warm admission: continuation prefill of the new span
+                    pb, s_orig = self._bucket_right(
+                        np.asarray(req.prompt, np.int32)[None])
+                    self.counters["prefill_continue"] += 1
+                    fn = (self._prefill_continue_paged if paged
+                          else self._prefill_continue)
+                    c1, l1, k1 = fn(pb, s_orig, st.pos, c1g)
+                    p0 = st.offset + s_orig
+                elif st is not None:                 # pure decode resume
+                    self.counters["decode_only"] += 1
+                    c1, l1, k1 = st.cur, st.last, c1g
+                    p0 = st.offset
+                else:
+                    pb, s_orig = self._bucket(
+                        np.asarray(req.prompt, np.int32)[None])
+                    self.counters["prefill"] += 1
+                    if paged:
+                        c1, l1, k1 = self._prefill_into_paged(pb, s_orig,
+                                                              c1g)
+                    else:
+                        c1, l1, k1 = self._prefill_absorb(pb, s_orig,
+                                                          max_len)
+                    p0 = s_orig
+                if not paged:                        # splice into slot i
+                    for dst, src in zip(cache, k1):
+                        for a, b in zip(dst, src):
+                            a[i].copy_(b[0])
                 cur[i] = c1[0]
                 last[i] = l1[0]
-                pos[i] = s_orig
-            toks, _, h_per, v_per, (cur, last, pos) = self._decode(
-                cur, last, cache, pos, int(decode_chunk), bool(greedy), gen,
-                with_logits=False)
+                pos[i] = p0
+                pos0[i] = p0
+
+            # a return_state request's last step lands on a chunk boundary,
+            # so its slot state is captured exactly
+            chunk = min([int(decode_chunk)] +
+                        [r.max_new - len(r.generated)
+                         for _, r in batcher.active() if r.return_state])
+            if paged:
+                toks, _, h_per, v_per, (cur, last, pos) = \
+                    self._decode_scan_paged(
+                        cur, last, self._paged_dev_cache(slot_tables),
+                        pos, chunk, bool(greedy), gen, with_logits=False)
+            else:
+                toks, _, h_per, v_per, (cur, last, pos) = self._decode_mono(
+                    cur, last, cache, pos, chunk, bool(greedy), gen,
+                    with_logits=False)
             toks_np = toks.cpu().numpy()
             h_np, v_np = h_per.cpu().numpy(), v_per.cpu().numpy()
-            for t in range(int(decode_chunk)):
+            slot_of = {r.rid: i for i, r in batcher.active()}
+            retired_at: dict[int, int] = {}
+            for t in range(chunk):
                 active = batcher.active()
                 if not active:
                     break
@@ -461,6 +959,40 @@ class InferenceEngine:
                     a[1] += float(v_np[i, t])
                     a[2] += 1
                 batcher.record_tokens(toks_np[:, t], stop_token)
+                for i, req in active:
+                    if req.done:
+                        retired_at.setdefault(req.rid, t)
+            for req in batcher.finished:          # retired this chunk
+                i = slot_of.get(req.rid)
+                if i is None:
+                    continue
+                want_state = req.return_state and req.rid not in states
+                end = pos0.pop(i) + len(req.generated)
+                # a stop-token retirement mid-chunk left the slot decoding
+                # past the stop: its pending token is not the session's
+                exact = retired_at.get(req.rid) == chunk - 1
+                if want_state:
+                    handle = None
+                    if not paged:
+                        handle = [type(c)(*(t[i:i + 1].clone() for t in c))
+                                  for c in cache]
+                    elif slot_run[i] is not None:
+                        handle = self.pool.adopt(
+                            slot_run[i], -(-end // self.block_len))
+                        slot_run[i] = None
+                    states[req.rid] = SessionState(
+                        handle, self._full(1, end), cur[i:i + 1].clone(),
+                        last[i:i + 1].clone(), max_len, end, exact=exact)
+                if paged:
+                    if slot_run[i] is not None:
+                        self.pool.free_blocks(slot_run[i])
+                        slot_run[i] = None
+                    # sentinels: the slot's garbage decode writes the sink
+                    slot_tables[i, :] = self.pool.n_blocks
             drain()
         drain()
         return results
+
+    # ------------------------------------------------------------------
+    def token_count(self, prompts: np.ndarray, max_new: int) -> np.ndarray:
+        return (np.asarray(prompts) != PAD).sum(axis=1) + max_new

@@ -72,8 +72,7 @@ class CloudUnavailableError(ServingFault):
 class PoolExhaustedError(ServingFault):
     """Block pool famine: no admission possible even after TTL eviction.
 
-    Replaces the bare ``RuntimeError`` previously raised by
-    ``CachePool.alloc_blocks``/``alloc_rows`` and ``serve()``.
+    Raised by ``CachePool.alloc_blocks`` and ``serve()``.
     """
 
 

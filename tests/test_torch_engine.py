@@ -181,17 +181,17 @@ class TestPortContracts:
             np.testing.assert_allclose(fin[i]["u"], tres["u"][i], atol=1e-4)
 
     def test_unported_paths_raise(self, engines):
+        """What the port does not serve yet raises: fault injection, the
+        deadline clock and meshes (warm sessions and paged pools are
+        ported: tests/test_torch_continuation.py, test_torch_paged.py)."""
         _, te, _, _ = engines
-        state = te.generate(PROMPTS, 2, return_state=True)["state"]
-        with pytest.raises(NotImplementedError):     # continuation prefill
-            te.generate(PROMPTS, 2, state=state)
-        with pytest.raises(NotImplementedError):
-            te.absorb(PROMPTS)
-        with pytest.raises(NotImplementedError):
-            te.serve([Request(rid=0, prompt=[1, 2], max_new=2,
-                              return_state=True)])
-        with pytest.raises(NotImplementedError):
-            TEngine("x", te.cfg, te.params, device="cpu", paged=True)
+        reqs = [Request(rid=0, prompt=[1, 2], max_new=2)]
+        with pytest.raises(NotImplementedError, match="fault injection"):
+            te.serve(reqs, faults=object())
+        with pytest.raises(NotImplementedError, match="deadline clock"):
+            te.serve(reqs, step_time_ms=1.0)
+        with pytest.raises(NotImplementedError, match="mesh"):
+            TEngine("x", te.cfg, te.params, device="cpu", mesh=object())
 
 
 def test_engine_without_device_refuses_cpu():
