@@ -6,7 +6,10 @@ Phases (any failure exits nonzero; nothing is caught and turned into 0):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build the five CUDA kernels from ``src/repro_torch/csrc`` (one ``nvcc``
-   per source, started together) and print ``-Xptxas -v``'s summary;
+   per source, started together), print ``-Xptxas -v``'s registers, shared
+   memory and spills per instantiation, and fail unless each bf16 flash
+   instantiation's SASS (``cuobjdump -sass``) holds ``HGMMA`` (wgmma) and
+   ``UTMALDG`` (TMA loads);
 3. hold each kernel to its plain PyTorch version on the card, in bf16, at
    the main path's shapes — phase 7's gateway: for each tier at its own
    widths (``smollm-135m``, ``swarm-edge-1b``, ``qwen1.5-110b``,
@@ -16,15 +19,17 @@ Phases (any failure exits nonzero; nothing is caught and turned into 0):
    the shapes of phases 4-5, with a fully masked padding row, duplicate top-k
    logits and likely chosen tokens (Eq. 2's term held at a relative
    tolerance); the grid-offset flash attention also at S=2048 causal
-   (smollm and llama3 widths), windowed and bidirectional; time kernel,
-   plain version and, for attention, ``scaled_dot_product_attention`` (a
-   yardstick only: the port never calls it) with CUDA events, beside each
-   call's least possible time; then a 2-layer model on the card against
-   the port's CPU path, in both uncertainty modes; the block-table decode
-   (row 5) at each tier's widths at the paged gateway's decode shape (B=50,
-   blocks of 64, 2 per row, 8 delta rows, rows sharing a prefix block, a
-   sentinel tail), with int8 and fp8 pools, a ring dispatch longer than
-   its window and a 512-slot table, its library time that of SDPA over the
+   (smollm and llama3 widths), windowed and bidirectional, and the
+   positions-mode flash over a warm 320-slot cache (phase 4p's
+   continuation spans); time kernel, plain version and, for attention,
+   ``scaled_dot_product_attention`` (a yardstick only: the port never
+   calls it) with CUDA events, beside each call's least possible time and,
+   for attention, its achieved TFLOP/s; then a 2-layer model on the card
+   against the port's CPU path, in both uncertainty modes; the block-table
+   decode (row 5) at each tier's widths at the paged gateway's decode shape
+   (B=50, blocks of 64, 2 per row, 8 delta rows, rows sharing a prefix
+   block, a sentinel tail), with int8 and fp8 pools, a ring dispatch longer
+   than its window and a 512-slot table, its library time that of SDPA over the
    pre-gathered linear view (same mask, the gather not timed);
 4. serve the probe tier: ``smollm-135m`` at full width and depth with
    random weights from ``torch.Generator(seed)`` — ``generate`` on 8 prompts
@@ -117,6 +122,56 @@ PAGED_SERVE = ("flash_attention_positions", "paged_decode_attention",
 PAGED_KERNELS = PAGED_SERVE + ("flash_attention",)      # the paged gateway
 
 
+def demangle(names: list[str]) -> dict[str, str]:
+    """C++ names through ``c++filt`` where the machine has it."""
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60,
+                             check=True).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        out = names
+    return dict(zip(names, out)) if len(out) == len(names) else {
+        n: n for n in names}
+
+
+def ptxas_lines(report: str) -> list[tuple[str, str]]:
+    """(kernel, line) for each ``-Xptxas -v`` line of registers, shared
+    memory or spills, named by the entry function it belongs to."""
+    import re
+    fn, rows = "?", []
+    for ln in report.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)", ln)
+        if m:
+            fn = m.group(1)
+        elif "Used" in ln or "spill" in ln:
+            rows.append((fn, ln.strip()))
+    names = demangle(sorted({fn for fn, _ in rows}))
+    return [(names[fn].replace("(anonymous namespace)::", ""), ln)
+            for fn, ln in rows]
+
+
+def sass_ops(lib, nvcc: str, ops: tuple) -> dict:
+    """Per function of the shared library ``lib``: how many SASS
+    instructions start with each of ``ops`` (``cuobjdump -sass``)."""
+    import re
+    tool = Path(nvcc).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    out, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            out[fn] = dict.fromkeys(ops, 0)
+        elif fn is not None:
+            m = re.search(r"\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", ln)
+            if m:
+                for op in ops:
+                    out[fn][op] += m.group(1).startswith(op)
+    return out
+
+
 def bf16_ulp(x: float) -> float:
     """Spacing of bf16 values at magnitude ``x`` (8 significant bits)."""
     return 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - 7)
@@ -133,12 +188,14 @@ def check(cond: bool, msg: str):
 
 
 def tie_reading(out_tokens, ref_tokens, ref_logits, out_logits=None):
-    """Compare two greedy runs tie-aware (tests/test_continuation.py's rule):
-    tokens agree up to the first mismatch, the logits before it differ by at
-    most atol, and at it the reference's top-2 logit gap is at most 2 * atol
-    (atol per row as TIE_ATOL above says).
+    """Compare two greedy runs tie-aware (tests/test_continuation.py's rule,
+    with the flip's own logits held too): tokens agree up to the first
+    mismatch, the logits up to and at it differ by at most atol (those at
+    it come from the same tokens in both runs), and at it the reference's
+    top-2 logit gap is at most 2 * atol (atol per row as TIE_ATOL above
+    says).
 
-    Returns (rows that diverged, reading, largest logit difference before a
+    Returns (rows that diverged, reading, largest logit difference up to a
     flip): the reading is, over rows, the largest ratio of the least atol
     that passes the row to the row's atol.  The runs agree when it is <= 1."""
     import numpy as np
@@ -151,8 +208,9 @@ def tie_reading(out_tokens, ref_tokens, ref_logits, out_logits=None):
         mism = np.where(o[:n] != r[:n])[0]
         m = mism[0] if len(mism) else n
         need = 0.0
-        if out_logits is not None and m:
-            need = float(np.abs(out_logits[b, :m] - ref_logits[b, :m]).max())
+        if out_logits is not None and min(m + 1, n):
+            k = min(m + 1, n)              # the logits up to and at the flip
+            need = float(np.abs(out_logits[b, :k] - ref_logits[b, :k]).max())
             dmax = max(dmax, need)
         if len(mism):
             top2 = np.sort(ref_logits[b, m])[-2:]
@@ -228,10 +286,22 @@ def main():
     print(f"[2] built {len(built)} libraries ({len(build.SIGNATURES)} "
           f"kernel entry points) in {t_build:.1f} s")
     for k, info in built.items():
-        for line in sorted({ln.strip() for ln in info["ptxas"].splitlines()
-                            if "Used" in ln or "spill" in ln}):
-            print(f"[2] {k}: {line}")
+        print(f"[2] {k}: {info['seconds']:.1f} s")
+        for fn, line in ptxas_lines(info["ptxas"]):
+            print(f"[2] {k} {fn}: {line}")
+    # the bf16 flash bodies must run on wgmma (HGMMA) fed by TMA (UTMALDG)
+    sass = sass_ops(built["flash_attention"]["path"], build.nvcc(),
+                    ("HGMMA", "UTMALDG"))
+    tc_fns = {fn: ops for fn, ops in sass.items() if "flash_tc" in fn}
+    check(len(tc_fns) == 6, f"flash library: {len(tc_fns)} tensor-core "
+                            "instantiations, want 6 (D 64/128/256 x 2 modes)")
+    for fn, ops in tc_fns.items():
+        print(f"[2] SASS {fn}: {ops['HGMMA']} HGMMA, {ops['UTMALDG']} "
+              "UTMALDG")
+        check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0,
+              f"{fn}: no HGMMA or no UTMALDG in its SASS")
     report["build_s"] = t_build
+    report["flash_sass"] = tc_fns
 
     # ---- 3. kernels vs plain versions ----------------------------------
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > L2
@@ -290,11 +360,39 @@ def main():
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=mask_sd, enable_gqa=True)
         nbytes = 2 * (2 * B * S * H * D + 2 * B * S * K * D) + 8 * S
-        b_ms, b_by = bound(nbytes, 4 * D * n_valid * H * B, BF16_FLOPS)
+        nops = 4 * D * n_valid * H * B
+        b_ms, b_by = bound(nbytes, nops, BF16_FLOPS)
+        ms = time_ms(lambda: fops.flash_attention_positions(q, k, v, **kw))
         return dict(name="flash_attention_positions", label=label, main=main,
-                    max_abs_err=err, tol=2e-2,
-                    ms=time_ms(lambda: fops.flash_attention_positions(
+                    max_abs_err=err, tol=2e-2, ms=ms, tflops=nops / ms / 1e9,
+                    plain_ms=time_ms(lambda: fref.flash_attention_positions_ref(
                         q, k, v, **kw)),
+                    library_ms=time_ms(sdpa), bound_ms=b_ms, bound_by=b_by)
+
+    def continuation_case(label, B, S, T, H, K, D, p0):
+        """Row 1 over a warm cache (the fan-out's continuation): S span
+        queries at positions p0.., a T-slot cache holding positions
+        0..p0+S-1, its tail slots empty (-1)."""
+        q, k, v = randn(B, S, H, D), randn(B, T, K, D), randn(B, T, K, D)
+        ar = torch.arange(T, device=dev, dtype=torch.int32)
+        kvpos = torch.where(ar < p0 + S, ar, -1).to(torch.int32)
+        qpos = torch.arange(p0, p0 + S, device=dev, dtype=torch.int32)
+        kw = dict(q_positions=qpos, kv_positions=kvpos)
+        out = fops.flash_attention_positions(q, k, v, **kw)
+        ref = fref.flash_attention_positions_ref(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((out.float() - ref.float()).abs().max())
+        check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
+        mask = (kvpos[None] >= 0) & (qpos[:, None] >= kvpos[None])
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)
+        nbytes = 2 * (2 * B * S * H * D + 2 * B * T * K * D) + 4 * (S + T)
+        nops = 4 * D * int(mask.sum()) * H * B
+        b_ms, b_by = bound(nbytes, nops, BF16_FLOPS)
+        ms = time_ms(lambda: fops.flash_attention_positions(q, k, v, **kw))
+        return dict(name="flash_attention_positions", label=label, main=False,
+                    max_abs_err=err, tol=2e-2, ms=ms, tflops=nops / ms / 1e9,
                     plain_ms=time_ms(lambda: fref.flash_attention_positions_ref(
                         q, k, v, **kw)),
                     library_ms=time_ms(sdpa), bound_ms=b_ms, bound_by=b_by)
@@ -321,10 +419,11 @@ def main():
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             enable_gqa=True, **sd)
         nbytes = 2 * (2 * B * S * H * D + 2 * B * S * K * D)
-        b_ms, b_by = bound(nbytes, 4 * D * n_valid * H * B, BF16_FLOPS)
+        nops = 4 * D * n_valid * H * B
+        b_ms, b_by = bound(nbytes, nops, BF16_FLOPS)
+        ms = time_ms(lambda: fops.flash_attention(q, k, v, **kw))
         return dict(name="flash_attention", label=label, main=main,
-                    max_abs_err=err, tol=2e-2,
-                    ms=time_ms(lambda: fops.flash_attention(q, k, v, **kw)),
+                    max_abs_err=err, tol=2e-2, ms=ms, tflops=nops / ms / 1e9,
                     plain_ms=time_ms(lambda: fref.flash_attention_ref(
                         q, k, v, **kw)),
                     library_ms=time_ms(sdpa), bound_ms=b_ms, bound_by=b_by)
@@ -507,6 +606,9 @@ def main():
         flash_case("smollm prefill B8 S256 (generate bucket)", 8, 256, 9, 3,
                    64, 56),
         flash_case("llama3 prefill B8 S256", 8, 256, 32, 8, 128, 56),
+        # phase 4p's fan-out: 12-token spans over a 320-slot warm cache
+        continuation_case("smollm continuation B16 S12 T320", 16, 12, 320,
+                          9, 3, 64, 200),
         decode_case("smollm decode B8 T256", 8, 256, 3, 3, 64),
         decode_case("smollm decode B8 T320 (generate cache)", 8, 320, 3, 3,
                     64),
@@ -544,8 +646,9 @@ def main():
                else f"{c['library_ms']:.4f}")
         rel = (f", h relative {c['h_rel_err']:.2e} (rtol 1e-4)"
                if "h_rel_err" in c else "")
+        rate = (f" ({c['tflops']:.1f} TFLOP/s)" if "tflops" in c else "")
         print(f"[3] {c['label']}: err {c['max_abs_err']:.2e} (tol "
-              f"{c['tol']:g}{rel}) kernel {c['ms']:.4f} ms plain "
+              f"{c['tol']:g}{rel}) kernel {c['ms']:.4f} ms{rate} plain "
               f"{c['plain_ms']:.4f} ms library {lib} ms bound "
               f"{c['bound_ms']:.4f} ms ({c['bound_by']})")
         checks.append(c)

@@ -5,9 +5,17 @@ CUDA tensor the kernels cannot take raises.
 
 Each entry point keeps its own launch count, so a run can tell them apart:
 ``counts`` for ``flash_attention_positions``, ``grid_counts`` for
-``flash_attention``."""
+``flash_attention``.
+
+``launch_plan`` decides, for a CUDA call, which body of
+``csrc/flash_attention.cu`` runs, how its blocks map to output rows and its
+tiles; the wrapper passes the plan to the C entry point, and
+``LaunchPlan.block_rows`` mirrors the kernel's block -> rows decode, so the
+CPU tests reach every decision the card makes."""
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -18,6 +26,93 @@ counts = build.LaunchCounts()          # flash_attention_positions
 grid_counts = build.LaunchCounts()     # flash_attention
 
 _DTYPES = (torch.float32, torch.bfloat16)
+
+WG_ROWS = 64         # query rows of one consumer warpgroup (wgmma's M)
+MAX_WARPGROUPS = 2   # consumer warpgroups per block
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one CUDA call covers its (B, S, H) output rows.
+
+    ``body``: ``"wgmma"`` (bf16: the tensor-core body) or ``"simt"`` (f32:
+    the CUDA-core body).  ``packed``: one row tile holds the (s, g) pairs of
+    the ``G`` query heads that read one KV head (row r -> s = r // G, head
+    kv * G + r % G); else each tile holds one head's rows.  ``gp`` is the
+    query heads per row group (``G`` packed, 1 per head), ``tile_rows`` the
+    rows of a block (64 per consumer warpgroup), ``bk`` the K/V slots per
+    tile, ``dp`` the head width padded to the 128-byte swizzle rows,
+    ``stages`` the K/V ring's depth, ``grid`` the CUDA grid (1-D for the
+    wgmma body, whose causal grid-mode row tiles run heaviest first)."""
+
+    body: str
+    packed: bool
+    gp: int
+    tile_rows: int
+    warpgroups: int
+    bk: int
+    dp: int
+    stages: int
+    grid: tuple
+    B: int
+    S: int
+    H: int
+    heaviest_first: bool
+
+    def block_rows(self, block: int):
+        """(b, s, h) index tensors of the output rows block ``block`` (in
+        ``range(prod(grid))``, x fastest) stores: the kernel's decode."""
+        if self.body == "simt":                  # grid (S tiles, H, B)
+            nx, ny = self.grid[0], self.grid[1]
+            x, y, z = block % nx, block // nx % ny, block // (nx * ny)
+            s = torch.arange(x * self.tile_rows,
+                             min((x + 1) * self.tile_rows, self.S))
+            return (torch.full_like(s, z), s, torch.full_like(s, y))
+        rows = self.S * self.gp
+        n_hb = self.H // self.gp
+        n_rt = -(-rows // self.tile_rows)
+        per = n_hb * self.B
+        rt = block // per
+        if self.heaviest_first:
+            rt = n_rt - 1 - rt
+        hb, b = block % per % n_hb, block % per // n_hb
+        r = torch.arange(rt * self.tile_rows,
+                         min((rt + 1) * self.tile_rows, rows))
+        return (torch.full_like(r, b), r // self.gp,
+                hb * self.gp + r % self.gp)
+
+
+def launch_plan(B: int, S: int, T: int, H: int, K: int, D: int, dtype, *,
+                grid_mode: bool, causal: bool = True) -> LaunchPlan:
+    """The launch of ``flash_attention`` (``grid_mode``) or
+    ``flash_attention_positions`` on the card.
+
+    bf16 takes the tensor-core body: D a multiple of 16 (wgmma's k-step),
+    padded to 64, 128 or 256; K/V tiles of 128 slots (64 at D > 128).  When
+    the S * G rows of one KV head fit a block (128 rows), they share one
+    row tile (the gateway's S=8 prefill: K/V loaded once per KV head, not G
+    times); longer spans take per-head tiles of 64 or 128 rows.  f32 takes
+    the CUDA-core body: (S/64, H, B) blocks of 64 rows."""
+    G = H // K
+    if dtype == torch.float32:
+        return LaunchPlan("simt", False, 1, WG_ROWS, 1, 32, D, 1,
+                          (-(-S // WG_ROWS), H, B), B, S, H, False)
+    if dtype != torch.bfloat16:
+        raise TypeError(f"flash kernels take float32 or bfloat16, got {dtype}")
+    if D % 16 or D > 256:
+        raise ValueError(f"head_dim {D}: the bf16 kernel takes multiples of "
+                         f"16 up to 256 (wgmma's k-step is 16)")
+    packed = G > 1 and S * G <= MAX_WARPGROUPS * WG_ROWS
+    gp = G if packed else 1
+    rows = S * gp
+    nwg = 1 if rows <= WG_ROWS else MAX_WARPGROUPS
+    dp = 64 if D <= 64 else 128 if D <= 128 else 256
+    bk = 64 if dp == 256 else 128
+    tile_rows = nwg * WG_ROWS
+    n_blocks = -(-rows // tile_rows) * (H // gp) * B
+    stages = min(-(-T // bk), 2)       # a K/V ring of two tiles
+    return LaunchPlan("wgmma", packed, gp, tile_rows, nwg, bk, dp, stages,
+                      (n_blocks,), B, S, H, grid_mode and causal)
 
 
 def _check_qkv(q, k, v):
@@ -39,6 +134,10 @@ def _check_launch(tensors, D: int):
         raise ValueError("operands must be contiguous")
     if D > 256:
         raise ValueError(f"head_dim {D} > 256 is not supported by the kernel")
+    if tensors[0].dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 for t in tensors[:3]):
+        raise ValueError("bf16 q/k/v must start on 16 bytes (TMA, 16-byte "
+                         "loads)")
 
 
 def flash_attention_positions(q, k, v, *, q_positions, kv_positions,
@@ -62,12 +161,15 @@ def flash_attention_positions(q, k, v, *, q_positions, kv_positions,
             q, k, v, q_positions=q_positions, kv_positions=kv_positions,
             causal=causal, window=window)
     _check_launch(tensors, D)
+    plan = launch_plan(B, S, T, H, K, D, q.dtype, grid_mode=False,
+                       causal=causal)
     out = torch.empty_like(q)
     fn = build.kernel("flash_attention_positions")
     build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    q_positions.data_ptr(), kv_positions.data_ptr(),
                    out.data_ptr(), B, S, T, H, K, D, int(causal),
                    int(window or 0), float(D ** -0.5), build.dtype_code(q),
+                   plan.gp, plan.warpgroups, plan.stages,
                    build.stream_ptr(q)), "flash_attention_positions")
     counts.launches += 1
     return out
@@ -96,11 +198,14 @@ def flash_attention(q, k, v, *, causal=True, window=None):
         grid_counts.plain += 1
         return R.flash_attention_ref(q, k, v, causal=causal, window=window)
     _check_launch((q, k, v), D)
+    plan = launch_plan(B, S, T, H, K, D, q.dtype, grid_mode=True,
+                       causal=causal)
     out = torch.empty_like(q)
     fn = build.kernel("flash_attention")
     build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    B, S, T, H, K, D, int(causal), int(window or 0),
-                   float(D ** -0.5), build.dtype_code(q),
-                   build.stream_ptr(q)), "flash_attention")
+                   float(D ** -0.5), build.dtype_code(q), plan.gp,
+                   plan.warpgroups, plan.stages, build.stream_ptr(q)),
+                "flash_attention")
     grid_counts.launches += 1
     return out

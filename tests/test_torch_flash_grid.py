@@ -1,14 +1,20 @@
 """The port's grid-offset flash attention (``flash_attention``, the
 safety encoder's and ``transformer.forward``'s attention) against the JAX
 package's ``flash_attention_ref`` and ``flash_attention_pallas`` (interpret
-mode), and the kernel table of ``kernels/build.py``.
+mode), the kernel table of ``kernels/build.py``, and the launch plan both
+flash entry points take on the card (``ops.launch_plan``: body, row
+mapping, tiles, grid), whose block -> rows decode must cover every output
+row exactly once.
 
 On the CPU the wrapper runs its plain version; the ``gpu`` tests hold the
 CUDA kernel to it on the card and skip where there is none.  The sweep
 covers causal, windowed and bidirectional masks, G = 1, 2, 3, S != T, S not
 a multiple of the kernel's 64-row tile, and head widths 32 and 64 (the
-safety encoder's D = 32 among them).  A query row that sees no key (a
-window with S - T >= window) is refused by the wrapper: there the reference
+safety encoder's D = 32 among them); on the card also the packed mapping
+(S=8, G=8), S and T ragged against the bf16 body's 128-slot K/V tiles with
+S < T and S > T, windows across tile edges, and D = 16 and 256.  A query
+row that sees no key (a window with S - T >= window) is refused by the
+wrapper: there the reference
 gives the mean of V over all T, while the kernels (Pallas and CUDA) skip
 the tiles no row of the tile can see.
 
@@ -159,10 +165,80 @@ def test_signatures_name_entry_points():
         build.SIGNATURES["flash_attention_positions"][0]
 
 
+# (B, S, T, H, K, D): G = 1, 3, 4, 8 at the gateway's S = 6..8, S * G just
+# above one warpgroup's 64 rows and a block's 128, and S = T = 2048
+PLAN_SHAPES = [
+    (3, 6, 6, 4, 4, 32), (3, 7, 7, 9, 3, 64), (3, 8, 8, 16, 4, 64),
+    (3, 8, 8, 64, 8, 128), (2, 17, 17, 8, 2, 64), (2, 22, 22, 9, 3, 64),
+    (2, 33, 33, 8, 2, 64), (2, 43, 43, 9, 3, 64), (2, 12, 320, 9, 3, 64),
+    (2, 2048, 2048, 9, 3, 64), (1, 2048, 2048, 32, 8, 128),
+]
+PLAN_MODES = {"positions": dict(grid_mode=False, causal=True),
+              "grid-causal": dict(grid_mode=True, causal=True),
+              "grid-bidir": dict(grid_mode=True, causal=False)}
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES,
+                         ids=lambda s: "B{}-S{}-T{}-H{}-K{}-D{}".format(*s))
+@pytest.mark.parametrize("mode", sorted(PLAN_MODES))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_launch_plan_covers_every_row_once(shape, mode, dtype):
+    """Every (b, s, h) output row is stored by exactly one block, and every
+    row of a block reads one KV head."""
+    B, S, T, H, K, D = shape
+    plan = fops.launch_plan(B, S, T, H, K, D, DTYPES[dtype],
+                            **PLAN_MODES[mode])
+    assert plan.body == ("wgmma" if dtype == "bfloat16" else "simt")
+    seen = torch.zeros((B, S, H), dtype=torch.int32)
+    for block in range(int(np.prod(plan.grid))):
+        b, s, h = plan.block_rows(block)
+        assert 0 < len(s) <= plan.tile_rows
+        assert len(set((h // (H // K)).tolist())) == 1
+        seen.index_put_((b, s, h), torch.ones_like(s, dtype=torch.int32),
+                        accumulate=True)
+    assert bool((seen == 1).all())
+    if plan.body == "wgmma":
+        assert plan.packed == (H > K and S * (H // K) <= 128)
+        assert plan.tile_rows == (64 if S * plan.gp <= 64 else 128)
+        assert plan.stages == min(-(-T // plan.bk), 2)
+
+
+@pytest.mark.parametrize("tier", ["probe", "edge_1b", "edge_qwen", "cloud"])
+def test_launch_plan_packs_gateway_shapes(tier):
+    """The gateway's prefill (50 prompts bucketed to S=8) takes the packed
+    mapping at every tier's widths: one block per (prompt, KV head), K/V
+    loaded once, not G times."""
+    from repro_torch.launch.serve import tier_configs
+    tc = tier_configs()[tier]
+    H, K, D = tc.num_heads, tc.num_kv_heads, tc.head_dim
+    plan = fops.launch_plan(50, 8, 8, H, K, D, torch.bfloat16,
+                            grid_mode=False)
+    assert plan.packed and plan.gp == H // K and plan.grid == (50 * K,)
+    assert plan.tile_rows == 64 and plan.stages == 1     # one K/V tile
+
+
+@pytest.mark.parametrize("D", [8, 24, 40, 264])
+def test_launch_plan_refuses_bf16_head_dims(D):
+    """The tensor-core body steps D by wgmma's 16; f32 takes any D."""
+    with pytest.raises(ValueError, match="multiples of 16"):
+        fops.launch_plan(1, 8, 8, 4, 2, D, torch.bfloat16, grid_mode=True)
+    if D <= 256:
+        assert fops.launch_plan(1, 8, 8, 4, 2, D, torch.float32,
+                                grid_mode=True).body == "simt"
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", SWEEP + [(50, 6, 6, 4, 4, 32, False, None),
-                                          (2, 300, 300, 32, 8, 128, True,
-                                           None)], ids=_ids)
+@pytest.mark.parametrize("case", SWEEP + [
+    (50, 6, 6, 4, 4, 32, False, None),     # the safety gate at B=50
+    (2, 300, 300, 32, 8, 128, True, None),
+    (4, 8, 8, 64, 8, 128, True, None),     # packed, G=8
+    (1, 130, 300, 4, 2, 64, True, None),   # ragged against BK, S < T
+    (1, 300, 130, 4, 2, 64, True, None),   # ragged, S > T
+    (1, 300, 300, 8, 2, 64, True, 100),    # a window across tile edges
+    (1, 260, 260, 8, 2, 64, False, 150),   # window without causal
+    (2, 70, 70, 4, 2, 16, True, None),     # D = 16
+    (1, 200, 200, 4, 2, 256, True, None),  # D = 256 (K/V tiles of 64)
+], ids=_ids)
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_kernel_matches_plain(cuda, case, dtype):
     B, S, T, H, K, D, causal, window = case

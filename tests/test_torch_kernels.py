@@ -273,22 +273,70 @@ class TestFlashPositions:
                 q_positions=pos, kv_positions=pos)
             torch.testing.assert_close(out[:, :, h:h + 1], one)
 
-    @pytest.mark.gpu
-    @pytest.mark.parametrize("B,S,H,K,D", [(8, 128, 9, 3, 64),
-                                           (2, 256, 32, 8, 128),
-                                           (1, 100, 4, 2, 64)])
-    @pytest.mark.parametrize("dtype", sorted(DTYPES))
-    def test_kernel_matches_plain(self, cuda, B, S, H, K, D, dtype):
-        rng = np.random.default_rng(S)
-        qt = _torch(rng.standard_normal((B, S, H, D)), dtype)
-        kt = _torch(rng.standard_normal((B, S, K, D)), dtype)
-        vt = _torch(rng.standard_normal((B, S, K, D)), dtype)
-        pos = torch.arange(S, dtype=torch.int32) - 7      # 7 padding rows
+    def test_packed_shape_matches_jax(self):
+        """The gateway-like shape the card runs with packed GQA row tiles
+        (S * G = 64 rows of one KV head in one tile), 2 padding columns:
+        the plain version against the JAX oracle and interpret-mode
+        Pallas."""
+        B, S, H, K, D = 4, 8, 16, 2, 128
+        (qj, qt), (kj, kt), (vj, vt) = _flash_inputs(B, S, S, H, K, D,
+                                                     "float32", 13)
+        pos = (np.arange(S) - 2).astype(np.int32)
         out = fops.flash_attention_positions(
-            qt.to(cuda), kt.to(cuda), vt.to(cuda), q_positions=pos.to(cuda),
-            kv_positions=pos.to(cuda))
-        ref = fref.flash_attention_positions_ref(qt, kt, vt, q_positions=pos,
-                                                 kv_positions=pos)
+            qt, kt, vt, q_positions=torch.from_numpy(pos),
+            kv_positions=torch.from_numpy(pos))
+        jpos = jnp.asarray(pos)
+        _close(out, flash_attention_positions_ref(
+            qj, kj, vj, q_positions=jpos, kv_positions=jpos), 2e-5)
+        _close(out, flash_attention_positions_pallas(
+            qj, kj, vj, q_positions=jpos, kv_positions=jpos, bq=8, bk=8,
+            interpret=True), 2e-5)
+
+    @pytest.mark.gpu
+    @pytest.mark.parametrize("B,S,T,H,K,D,layout,window", [
+        (8, 128, 128, 9, 3, 64, "pad7", None),
+        (2, 256, 256, 32, 8, 128, "pad7", None),
+        (1, 100, 100, 4, 2, 64, "pad7", None),
+        (4, 8, 8, 64, 8, 128, "pad2", None),        # packed, G=8
+        (4, 12, 320, 16, 2, 128, "continuation", None),   # packed, 96 rows
+        (16, 12, 320, 9, 3, 64, "continuation", 64),
+        (1, 130, 300, 4, 2, 64, "tail", None),     # ragged against BK
+        (1, 300, 300, 8, 2, 64, "pad7", 100),      # window across tiles
+        (2, 70, 70, 4, 2, 16, "pad7", None),       # D = 16
+        (2, 70, 70, 4, 4, 32, "pad7", None),       # D = 32
+        (1, 200, 200, 4, 2, 256, "pad7", None),    # D = 256
+    ])
+    @pytest.mark.parametrize("dtype", sorted(DTYPES))
+    def test_kernel_matches_plain(self, cuda, B, S, T, H, K, D, layout,
+                                  window, dtype):
+        """Layouts: ``padN`` a cold prefill with N left-padding rows;
+        ``continuation`` a warm span at positions 300..311 over a 320-slot
+        cache with empty (-1) slots in the middle and at the tail; ``tail``
+        the last S positions of a full cache."""
+        rng = np.random.default_rng(S + T)
+        qt = _torch(rng.standard_normal((B, S, H, D)), dtype)
+        kt = _torch(rng.standard_normal((B, T, K, D)), dtype)
+        vt = _torch(rng.standard_normal((B, T, K, D)), dtype)
+        if layout.startswith("pad"):
+            qpos = kvpos = torch.arange(S, dtype=torch.int32) - int(
+                layout[3:])
+        elif layout == "continuation":
+            kvpos = torch.arange(T, dtype=torch.int32)
+            kvpos[100:140] = -1
+            kvpos[312:] = -1
+            qpos = torch.arange(300, 300 + S, dtype=torch.int32)
+        else:
+            kvpos = torch.arange(T, dtype=torch.int32)
+            qpos = kvpos[T - S:].clone()
+        kw = dict(window=window)
+        fops.counts.reset()
+        out = fops.flash_attention_positions(
+            qt.to(cuda), kt.to(cuda), vt.to(cuda), q_positions=qpos.to(cuda),
+            kv_positions=kvpos.to(cuda), **kw)
+        torch.cuda.synchronize()
+        assert fops.counts.launches == 1 and fops.counts.plain == 0
+        ref = fref.flash_attention_positions_ref(qt, kt, vt, q_positions=qpos,
+                                                 kv_positions=kvpos, **kw)
         _close(out.cpu(), ref, 2e-5 if dtype == "float32" else 2e-2)
 
 
