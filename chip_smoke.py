@@ -9,13 +9,17 @@ Phases (any failure exits nonzero; nothing is caught and turned into 0):
    per source, started together), print ``-Xptxas -v``'s registers, shared
    memory and spills per instantiation, and fail unless each bf16 flash
    instantiation's SASS (``cuobjdump -sass``) holds ``HGMMA`` (wgmma) and
-   ``UTMALDG`` (TMA loads);
+   ``UTMALDG`` (TMA loads), and each bf16 decode instantiation's (rows 2
+   and 5, bf16/int8/fp8 pools) ``HMMA`` (mma.sync) and ``LDGSTS``
+   (cp.async);
 3. hold each kernel to its plain PyTorch version on the card, in bf16, at
    the main path's shapes — phase 7's gateway: for each tier at its own
    widths (``smollm-135m``, ``swarm-edge-1b``, ``qwen1.5-110b``,
    ``llama3-8b``), prefill of the 50 study prompts bucketed to S=8, decode
    over the 128-slot cache and the uncertainty terms at the tier's
-   vocabulary, and the safety encoder's bidirectional attention — and at
+   vocabulary (row 2 also at the gateway's real fill: index 8-15 of the
+   128 slots, the bucket's padding slots at -1), and the safety encoder's
+   bidirectional attention — and at
    the shapes of phases 4-5, with a fully masked padding row, duplicate top-k
    logits and likely chosen tokens (Eq. 2's term held at a relative
    tolerance); the grid-offset flash attention also at S=2048 causal
@@ -300,8 +304,22 @@ def main():
               "UTMALDG")
         check(ops["HGMMA"] > 0 and ops["UTMALDG"] > 0,
               f"{fn}: no HGMMA or no UTMALDG in its SASS")
+    # the bf16 decode bodies must run on mma.sync (HMMA) fed by cp.async
+    # (LDGSTS): rows 2 and 5 at D 32/64/128/256, row 5 for bf16, int8 and
+    # fp8 pools
+    sass = sass_ops(built["decode_attention"]["path"], build.nvcc(),
+                    ("HMMA", "LDGSTS"))
+    dec_fns = {fn: ops for fn, ops in sass.items() if "decode_tc" in fn}
+    check(len(dec_fns) == 16, f"decode library: {len(dec_fns)} tensor-core "
+                              "instantiations, want 16 (D 32/64/128/256 x "
+                              "row 2 and row 5's three pool types)")
+    for fn, ops in dec_fns.items():
+        print(f"[2] SASS {fn}: {ops['HMMA']} HMMA, {ops['LDGSTS']} LDGSTS")
+        check(ops["HMMA"] > 0 and ops["LDGSTS"] > 0,
+              f"{fn}: no HMMA or no LDGSTS in its SASS")
     report["build_s"] = t_build
     report["flash_sass"] = tc_fns
+    report["decode_sass"] = dec_fns
 
     # ---- 3. kernels vs plain versions ----------------------------------
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > L2
@@ -428,13 +446,21 @@ def main():
                         q, k, v, **kw)),
                     library_ms=time_ms(sdpa), bound_ms=b_ms, bound_by=b_by)
 
-    def decode_case(label, B, T, K, G, D, main=False):
+    def decode_case(label, B, T, K, G, D, main=False, fill=None):
+        """Row 2 over a T-slot cache: slots 0..index hold their positions,
+        the rest are empty (-1), row 0 sees no key.  The index is drawn
+        from [T/2, T), or with ``fill`` = (n_pad, lo, hi) from [lo, hi)
+        with the first n_pad slots padding (-1): the gateway's cache at a
+        decode step."""
         q, k, v = randn(B, K, G, D), randn(B, T, K, D), randn(B, T, K, D)
-        idx = torch.randint(T // 2, T, (B,), generator=gen, device=dev,
+        lo, hi = (T // 2, T) if fill is None else fill[1:]
+        idx = torch.randint(lo, hi, (B,), generator=gen, device=dev,
                             dtype=torch.int32)
         ar = torch.arange(T, device=dev, dtype=torch.int32)
         pos = torch.where(ar[None] <= idx[:, None], ar[None],
                           -1).to(torch.int32).contiguous()
+        if fill is not None:
+            pos[:, :fill[0]] = -1                    # bucket padding
         pos[0] = -1                                  # a row with no valid slot
         out = dops.decode_attention(q, k, v, pos, idx)
         ref = dref.decode_attention_ref(q, k, v, pos, idx)
@@ -448,11 +474,16 @@ def main():
         sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q.reshape(B, K * G, 1, D), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=vmask[:, None, None, :], enable_gqa=True)
-        nbytes = 2 * (2 * B * K * G * D + 2 * B * T * K * D) + 4 * (B * T + B)
+        # the bound counts what this run's data needs: q, out, every
+        # position and index, and k/v of the valid slots only; the
+        # full-cache bytes (every slot's k/v) give the old bound beside it
+        nbytes = 2 * (2 * B * K * G * D + 2 * n_valid * K * D) + 4 * (B * T
+                                                                      + B)
+        full = 2 * (2 * B * K * G * D + 2 * B * T * K * D) + 4 * (B * T + B)
         b_ms, b_by = bound(nbytes, 4 * D * n_valid * K * G, BF16_FLOPS)
         return dict(name="decode_attention", label=label, main=main,
                     max_abs_err=err,
-                    tol=2e-2,
+                    tol=2e-2, bound_full_ms=full / HBM_BPS * 1e3,
                     ms=time_ms(lambda: dops.decode_attention(q, k, v, pos,
                                                              idx)),
                     plain_ms=time_ms(lambda: dref.decode_attention_ref(
@@ -592,6 +623,9 @@ def main():
                        H, K, D, S_GW - s_raw, main=probe_tier),
             decode_case(f"gateway {tc.name} decode B{nq} T{T_GW}", nq, T_GW,
                         K, H // K, D, main=probe_tier),
+            decode_case(f"gateway {tc.name} decode B{nq} T{T_GW} fill 8-15",
+                        nq, T_GW, K, H // K, D,
+                        fill=(S_GW - s_raw, S_GW, S_GW + 8)),
             uncertainty_case(f"gateway {tc.name} B{nq} V{tc.vocab_size}",
                              nq, tc.vocab_size, main=probe_tier),
             # row 5 at the paged gateway's decode: the 128-slot cache in
@@ -647,10 +681,12 @@ def main():
         rel = (f", h relative {c['h_rel_err']:.2e} (rtol 1e-4)"
                if "h_rel_err" in c else "")
         rate = (f" ({c['tflops']:.1f} TFLOP/s)" if "tflops" in c else "")
+        full = (f", full-cache bound {c['bound_full_ms']:.4f} ms"
+                if "bound_full_ms" in c else "")
         print(f"[3] {c['label']}: err {c['max_abs_err']:.2e} (tol "
               f"{c['tol']:g}{rel}) kernel {c['ms']:.4f} ms{rate} plain "
               f"{c['plain_ms']:.4f} ms library {lib} ms bound "
-              f"{c['bound_ms']:.4f} ms ({c['bound_by']})")
+              f"{c['bound_ms']:.5f} ms ({c['bound_by']}){full}")
         checks.append(c)
     report["kernel_checks"] = checks
 

@@ -43,9 +43,10 @@ SIGNATURES = {
     "flash_attention": ("flash_attention",
                         [_P] * 4 + [_I] * 8 + [_F] + [_I] * 4 + [_P]),
     "decode_attention": ("decode_attention",
-                         [_P] * 6 + [_I] * 6 + [_F, _I, _P]),
+                         [_P] * 6 + [_I] * 6 + [_F] + [_I] * 4 + [_P]),
     "paged_decode_attention": ("decode_attention",
-                               [_P] * 13 + [_I] * 10 + [_F, _I, _I, _P]),
+                               [_P] * 13 + [_I] * 10 + [_F] + [_I] * 5
+                               + [_P]),
     "swarm_uncertainty": ("swarm_uncertainty",
                           [_P] * 5 + [_I] * 3 + [_I, _F, _P]),
 }

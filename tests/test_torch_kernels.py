@@ -414,22 +414,37 @@ class TestDecodeAttention:
                                   torch.from_numpy(idx))
 
     @pytest.mark.gpu
-    @pytest.mark.parametrize("B,T,K,G,D", [(8, 256, 3, 3, 64),
-                                           (8, 256, 8, 4, 128),
-                                           (3, 100, 2, 8, 64)])
+    @pytest.mark.parametrize("B,T,K,G,D,fill", [
+        (8, 256, 3, 3, 64, "half"), (8, 256, 8, 4, 128, "half"),
+        (3, 100, 2, 8, 64, "half"),
+        # splits over keys: B=1 and B=8, T up to 2048 (row 0 of every case
+        # sees no key, so the B=2 case is a split launch with such a row)
+        (1, 2048, 8, 4, 128, "half"), (2, 2048, 8, 4, 128, "half"),
+        (8, 2048, 3, 3, 64, "half"), (8, 320, 3, 3, 64, "half"),
+        # the gateway's fill: index 8-15 of 128 slots, most tiles empty
+        (50, 128, 3, 3, 64, "gateway"), (50, 128, 8, 8, 128, "gateway"),
+        # G 8 and 16 at D 128; D 32 and 256
+        (4, 256, 2, 8, 128, "half"), (2, 300, 1, 16, 128, "half"),
+        (3, 100, 2, 8, 32, "half"), (2, 512, 2, 4, 256, "half")])
     @pytest.mark.parametrize("dtype", sorted(DTYPES))
-    def test_kernel_matches_plain(self, cuda, B, T, K, G, D, dtype):
+    def test_kernel_matches_plain(self, cuda, B, T, K, G, D, fill, dtype):
         rng = np.random.default_rng(T)
         qt = _torch(rng.standard_normal((B, K, G, D)), dtype)
         kt = _torch(rng.standard_normal((B, T, K, D)), dtype)
         vt = _torch(rng.standard_normal((B, T, K, D)), dtype)
-        it = torch.from_numpy(rng.integers(T // 2, T, (B,)).astype(np.int32))
+        lo, hi = (T // 2, T) if fill == "half" else (8, 16)
+        it = torch.from_numpy(rng.integers(lo, hi, (B,)).astype(np.int32))
         ar = torch.arange(T, dtype=torch.int32)
         pt = torch.where(ar[None] <= it[:, None], ar[None], -1).to(
             torch.int32)
+        if fill == "gateway":
+            pt[:, :2] = -1                           # bucket padding
         pt[0] = -1                                   # a row with no valid slot
+        dops.counts.reset()
         out = dops.decode_attention(qt.to(cuda), kt.to(cuda), vt.to(cuda),
                                     pt.to(cuda), it.to(cuda))
+        torch.cuda.synchronize()
+        assert dops.counts.launches == 1
         ref = dref.decode_attention_ref(qt, kt, vt, pt, it)
         _close(out.cpu(), ref, 2e-5 if dtype == "float32" else 2e-2)
 

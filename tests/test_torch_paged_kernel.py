@@ -235,7 +235,16 @@ def test_counts_plain_calls_and_refuses_bad_operands():
 # the CUDA kernel against the plain version, on the card
 # ---------------------------------------------------------------------------
 
-GPU_SHAPES = [(8, 3, 3, 64), (4, 8, 4, 128), (3, 2, 8, 32)]  # B, K, G, D
+# B, K, G, D: every shape splits over its 4 table entries (B*K < 132); G 8
+# and 16 at D 128, D 32 and 256
+GPU_SHAPES = [(8, 3, 3, 64), (4, 8, 4, 128), (3, 2, 8, 32), (2, 1, 16, 128),
+              (2, 2, 4, 256)]
+# beyond CASES: eight table entries (up to 8 splits), a 160-row dispatch
+# over a 128-slot ring under a window of 128, and rows with no valid key
+# (index below every position) in a split launch
+GPU_CASES = {**CASES, "eight-entries": dict(nb=8, S=8),
+             "ring-160": dict(S=160, window=128, nb=2, L=64),
+             "no-key": dict(S=0, no_key=True)}
 
 
 def _torch_pools(c, quant, device):
@@ -250,11 +259,14 @@ def _torch_pools(c, quant, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("pool", ["float32", "bfloat16", "int8", "fp8"])
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", sorted(GPU_CASES))
 @pytest.mark.parametrize("B,K,G,D", GPU_SHAPES)
 def test_kernel_matches_plain(cuda, B, K, G, D, name, pool):
-    c = paged_case(B=B, K=K, G=G, D=D, N=4 * B + 4,
-                   **{"nb": 4, "L": 64 if D != 32 else 8, **CASES[name]})
+    kw = {"nb": 4, "L": 64 if D != 32 else 8, **GPU_CASES[name]}
+    no_key = kw.pop("no_key", False)
+    c = paged_case(B=B, K=K, G=G, D=D, N=B * kw["nb"] + 4, **kw)
+    if no_key:                  # no sentinel here, so the plain version's
+        c["idx"][:] = -1        # mean and the kernel's cover the same slots
     dtype = torch.float32 if pool == "float32" else torch.bfloat16
     pools = None
     if pool in ("int8", "fp8"):
