@@ -21,14 +21,16 @@ Phases (any failure exits nonzero; nothing is caught and turned into 0):
    128 slots, the bucket's padding slots at -1), and the safety encoder's
    bidirectional attention — and at
    the shapes of phases 4-5, with a fully masked padding row, duplicate top-k
-   logits and likely chosen tokens (Eq. 2's term held at a relative
-   tolerance); the grid-offset flash attention also at S=2048 causal
-   (smollm and llama3 widths), windowed and bidirectional, and the
-   positions-mode flash over a warm 320-slot cache (phase 4p's
-   continuation spans); time kernel, plain version and, for attention,
-   ``scaled_dot_product_attention`` (a yardstick only: the port never
-   calls it) with CUDA events, beside each call's least possible time and,
-   for attention, its achieved TFLOP/s; then a 2-layer model on the card
+   logits, tied maxima across a split boundary and likely chosen tokens
+   (Eq. 2's term held at a relative tolerance), row 3 also at an odd
+   vocabulary (50257), k = 1 and 16 and bf16 logits, every row of 32000
+   logits or more split over a cluster; the grid-offset flash attention
+   also at S=2048 causal (smollm and llama3 widths), windowed and
+   bidirectional, and the positions-mode flash over a warm 320-slot cache
+   (phase 4p's continuation spans); time kernel, plain version and, for
+   attention, ``scaled_dot_product_attention`` (a yardstick only: the port
+   never calls it) with CUDA events, beside each call's least possible time
+   and, for attention, its achieved TFLOP/s; then a 2-layer model on the card
    against the port's CPU path, in both uncertainty modes; the block-table
    decode (row 5) at each tier's widths at the paged gateway's decode shape
    (B=50, blocks of 64, 2 per row, 8 delta rows, rows sharing a prefix
@@ -65,7 +67,8 @@ Phases (any failure exits nonzero; nothing is caught and turned into 0):
    paged engines (``engine_kw=dict(paged=True, pool_blocks=1024)``, as the
    reference CLI's ``--paged``): the same ``s``, ``u`` within 1e-2 and
    every route that differs from phase 7's at a ``u`` within 1e-2 of a
-   threshold, every tier decoding through row 5 and never through row 2;
+   threshold, every tier decoding through row 5 and never through row 2,
+   the probe's pool back at its blocks in use after each batch;
 8. ``transformer.forward`` of ``smollm-135m`` at full width (B=8, S=256)
    against the same forward with the grid-offset op's plain version
    swapped in, within the tie budget;
@@ -475,37 +478,45 @@ def main():
             q.reshape(B, K * G, 1, D), k.transpose(1, 2), v.transpose(1, 2),
             attn_mask=vmask[:, None, None, :], enable_gqa=True)
         # the bound counts what this run's data needs: q, out, every
-        # position and index, and k/v of the valid slots only; the
-        # full-cache bytes (every slot's k/v) give the old bound beside it
+        # position and index, and k/v of the valid slots only
         nbytes = 2 * (2 * B * K * G * D + 2 * n_valid * K * D) + 4 * (B * T
                                                                       + B)
-        full = 2 * (2 * B * K * G * D + 2 * B * T * K * D) + 4 * (B * T + B)
         b_ms, b_by = bound(nbytes, 4 * D * n_valid * K * G, BF16_FLOPS)
         return dict(name="decode_attention", label=label, main=main,
-                    max_abs_err=err,
-                    tol=2e-2, bound_full_ms=full / HBM_BPS * 1e3,
+                    max_abs_err=err, tol=2e-2,
                     ms=time_ms(lambda: dops.decode_attention(q, k, v, pos,
                                                              idx)),
                     plain_ms=time_ms(lambda: dref.decode_attention_ref(
                         q, k, v, pos, idx)),
                     library_ms=time_ms(sdpa), bound_ms=b_ms, bound_by=b_by)
 
-    def uncertainty_case(label, B, V, main=False):
+    def uncertainty_case(label, B, V, main=False, dtype=torch.float32,
+                         k=10):
+        """Row 3 over (B, 1, V) logits: row 0 holds 12 duplicates of its
+        maximum, row 4 six tied maxima across its first split boundary."""
         lg = randn(B, 1, V, dtype=torch.float32, scale=3.0)
         lg[0, 0, :12] = lg[0, 0].max()              # duplicate top-k values
+        plan = uops.uncertainty_plan(B, V, k, dtype)
+        check(plan.splits > 1 or V < 32000,
+              f"{label}: a row of {V} logits is not split")
+        edge = plan.bounds(1)[0] if plan.splits > 1 else V // 2
+        lg[4, 0, edge - 3:edge + 3] = lg[4, 0].max() + 1.0
+        lg = lg.to(dtype)
         tok = torch.randint(0, V, (B, 1), generator=gen, device=dev,
                             dtype=torch.int32)
-        # rows 0-3 choose a likely token (one of row 0's tied maxima, row
-        # 1's argmax, rows 2-3's 2nd and 5th largest), so Eq. 2's -p log p
-        # is ~0.1 there, not the ~1e-6 of a random token; it is held at a
-        # relative tolerance, and a wrong chosen logit or log p cannot pass
-        top = torch.topk(lg[:, 0], 5, dim=-1).indices
+        # rows 0-4 choose a likely token (one of row 0's tied maxima, row
+        # 1's argmax, rows 2-3's 2nd and 5th largest, row 4's tied maximum
+        # right of the boundary), so Eq. 2's -p log p is ~0.1, not the ~1e-6
+        # of a random token; it is held at a relative tolerance, and a
+        # wrong chosen logit or log p cannot pass
+        top = torch.topk(lg[:, 0].float(), 5, dim=-1).indices
         tok[0, 0] = 3
         tok[1:4, 0] = top[[1, 2, 3], [0, 1, 4]].to(torch.int32)
-        out = uops.uncertainty(lg, tok, k=10)
-        ref = uref.uncertainty_ref(lg, tok, k=10)
+        tok[4, 0] = edge
+        out = uops.uncertainty(lg, tok, k=k)
+        ref = uref.uncertainty_ref(lg, tok, k=k)
         torch.cuda.synchronize()
-        check(float(ref[0][:4].min()) > 1e-3, f"{label}: chosen tokens "
+        check(float(ref[0][:5].min()) > 1e-3, f"{label}: chosen tokens "
                                               "unlikely")
         h_rel = float(((out[0] - ref[0]).abs()
                        / (ref[0].abs() + 1e-7 / 1e-4)).max())
@@ -515,13 +526,14 @@ def main():
         errs = [float((o - r).abs().max()) for o, r in zip(out, ref)]
         for e, t, n in zip(errs[1:], (5e-3, 1e-4), ("v", "h_dist")):
             check(e <= t, f"{label}: {n} error {e} > {t}")
-        nbytes = 4 * B * V + 4 * B + 12 * B
+        nbytes = lg.element_size() * B * V + 4 * B + 12 * B
         b_ms, b_by = bound(nbytes, 6 * B * V, F32_FLOPS)
         return dict(name="swarm_uncertainty", label=label, main=main,
                     max_abs_err=max(errs), tol=5e-3, h_rel_err=h_rel,
-                    ms=time_ms(lambda: uops.uncertainty(lg, tok, k=10)),
+                    splits=plan.splits, chunk=plan.chunk,
+                    ms=time_ms(lambda: uops.uncertainty(lg, tok, k=k)),
                     plain_ms=time_ms(lambda: uref.uncertainty_ref(
-                        lg, tok, k=10)),
+                        lg, tok, k=k)),
                     library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
     def paged_case(label, B, K, G, D, *, nb=2, L=64, S=8, p0=8, N=1024,
@@ -649,6 +661,13 @@ def main():
         decode_case("llama3 decode B8 T320", 8, 320, 8, 4, 128),
         uncertainty_case("probe B8 V49152", 8, 49152),
         uncertainty_case("llama3 B8 V128256", 8, 128256),
+        # row 3's edge cases: an odd vocabulary (no row starts 16-byte
+        # aligned), k = 1 and 16 (the generic list), bf16 logits
+        uncertainty_case(f"odd vocabulary B{nq} V50257", nq, 50257),
+        uncertainty_case(f"probe B{nq} V49152 k=1", nq, 49152, k=1),
+        uncertainty_case(f"probe B{nq} V49152 k=16", nq, 49152, k=16),
+        uncertainty_case(f"probe B{nq} V49152 bf16", nq, 49152,
+                         dtype=torch.bfloat16),
         *gw_cases,
         # row 5: quantized pools, a ring that the dispatch covers in part
         # and one it covers whole (steps > ring length), 512 slots
@@ -681,12 +700,12 @@ def main():
         rel = (f", h relative {c['h_rel_err']:.2e} (rtol 1e-4)"
                if "h_rel_err" in c else "")
         rate = (f" ({c['tflops']:.1f} TFLOP/s)" if "tflops" in c else "")
-        full = (f", full-cache bound {c['bound_full_ms']:.4f} ms"
-                if "bound_full_ms" in c else "")
+        split = (f", {c['splits']} splits of {c['chunk']}"
+                 if "splits" in c else "")
         print(f"[3] {c['label']}: err {c['max_abs_err']:.2e} (tol "
               f"{c['tol']:g}{rel}) kernel {c['ms']:.4f} ms{rate} plain "
               f"{c['plain_ms']:.4f} ms library {lib} ms bound "
-              f"{c['bound_ms']:.5f} ms ({c['bound_by']}){full}")
+              f"{c['bound_ms']:.5f} ms ({c['bound_by']}){split}")
         checks.append(c)
     report["kernel_checks"] = checks
 
@@ -1279,7 +1298,10 @@ def main():
     pool_gb = sum(e.pool.pool_bytes for e in pmembers + [pgcloud]) / 1e9
     check(all(e.paged and e.attn_decode_impl == "kernel"
               for e in pmembers + [pgcloud]), "7p: an engine is not paged")
+    p_base = pgprobe.pool.blocks_in_use
     pgw.answer_batch(queries)                    # warm up, as phase 7
+    check(pgprobe.pool.blocks_in_use == p_base,
+          "7p: the probe's pool kept blocks after a batch")
     pgw.reset_fault_state()
     before_p = dict(pgprobe.counters)
     tier_s.clear()
@@ -1291,6 +1313,9 @@ def main():
                           forbid=("decode_attention",))
         t_pbatch = time.perf_counter() - t0
     pbatch_tiers, pk5 = dict(tier_s), dict(tier_k5)
+    check(pgprobe.pool.blocks_in_use == p_base
+          and pgprobe.pool.live_sessions == 0,
+          "7p: the probe's pool kept blocks or handles after a batch")
     pdec = plog_gw.decision
     proutes = {n: int((pdec == c).sum())
                for c, n in enumerate(router.DECISION_NAMES)}

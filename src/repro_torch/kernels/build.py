@@ -48,7 +48,7 @@ SIGNATURES = {
                                [_P] * 13 + [_I] * 10 + [_F] + [_I] * 5
                                + [_P]),
     "swarm_uncertainty": ("swarm_uncertainty",
-                          [_P] * 5 + [_I] * 3 + [_I, _F, _P]),
+                          [_P] * 5 + [_I] * 5 + [_I, _F, _P]),
 }
 LIBRARIES = tuple(dict.fromkeys(lib for lib, _ in SIGNATURES.values()))
 

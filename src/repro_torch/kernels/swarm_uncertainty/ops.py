@@ -1,9 +1,19 @@
 """Fused uncertainty probe: the CUDA kernel for CUDA tensors, the plain
 version (``ref.py``) for CPU tensors.  No fallback: a CUDA tensor the kernel
-cannot take raises."""
+cannot take raises.
+
+``uncertainty_plan`` decides, for a CUDA call, how many blocks (one
+thread-block cluster) split each row over the vocabulary and how many
+logits each takes; the wrapper passes it to the C entry point.
+``UncertaintyPlan.parts`` and ``UncertaintyPlan.owned`` mirror which logits
+each block and each of its threads reads (scalar head, 16-byte vector body,
+scalar tail), and ``split_merge`` mirrors the kernel's arithmetic over that
+walk (partial states per thread, merged per warp, then over the cluster's
+warps), so the CPU tests reach every decision the card makes."""
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -15,6 +25,104 @@ counts = build.LaunchCounts()
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_K = 16              # largest top-k the kernel keeps in registers
+SMS = 132               # the H100's streaming multiprocessors
+MAX_SPLITS = 8          # blocks per row: the portable cluster size
+MIN_CHUNK = 2048        # logits a block streams at least
+TARGET_BLOCKS = 3 * SMS  # ~3 blocks an SM; the kernel fits 4: one wave
+CHUNK_ALIGN = 8         # chunk starts keep the row's 16-byte phase
+THREADS = 256           # csrc/swarm_uncertainty.cu's block
+WARPS = THREADS // 32
+NEG = -1e30             # the reference's finite mask value
+L2E = 1.4426950408889634
+
+
+@dataclasses.dataclass(frozen=True)
+class UncertaintyPlan:
+    """How one CUDA call covers its ``rows`` rows of ``V`` logits:
+    ``splits`` blocks per row (one cluster), block ``r`` over logits
+    [r * chunk, min(V, (r + 1) * chunk)); ``vec`` logits per 16-byte load
+    (4 in f32, 8 in bf16)."""
+
+    rows: int
+    V: int
+    splits: int
+    chunk: int
+    vec: int
+
+    @property
+    def grid(self) -> int:
+        return self.splits * self.rows
+
+    def bounds(self, split: int) -> tuple[int, int]:
+        c0 = min(self.V, split * self.chunk)
+        return c0, min(self.V, c0 + self.chunk)
+
+    def parts(self, row: int, split: int, base: int = 0):
+        """(c0, b0, b1, c1): block ``split`` of ``row`` reads [c0, b0) and
+        [b1, c1) as scalars and [b0, b1) as 16-byte vectors.  ``base`` is
+        the element offset of the tensor's first logit from a 16-byte
+        boundary (0 for a fresh allocation): the kernel aligns on the
+        address."""
+        c0, c1 = self.bounds(split)
+        mis = (base + row * self.V + c0) % self.vec
+        b0 = min(c1, c0 + (self.vec - mis) % self.vec)
+        b1 = b0 + (c1 - b0) // self.vec * self.vec
+        return c0, b0, b1, c1
+
+    def owned(self, row: int, split: int, base: int = 0) -> torch.Tensor:
+        """(THREADS, n) int64: the logit indices thread t of the block
+        reads, -1 where it has fewer: its head element c0 + t, the
+        elements of vectors t, t + THREADS, ... of the body, its tail
+        element b1 + t."""
+        c0, b0, b1, c1 = self.parts(row, split, base)
+        t = torch.arange(THREADS)
+        nvec = (b1 - b0) // self.vec
+        per = -(-nvec // THREADS)
+        v = t[:, None] + THREADS * torch.arange(per)[None]
+        el = b0 + self.vec * v[..., None] + torch.arange(self.vec)
+        el = torch.where((v < nvec)[..., None], el, -1).reshape(THREADS, -1)
+        head = torch.where(c0 + t < b0, c0 + t, -1)
+        tail = torch.where(b1 + t < c1, b1 + t, -1)
+        return torch.cat([head[:, None], el, tail[:, None]], 1)
+
+
+def uncertainty_plan(rows: int, V: int, k: int, dtype) -> UncertaintyPlan:
+    """The launch plan of a CUDA call, or raise: as many splits (at most
+    ``MAX_SPLITS``) as it takes for ``rows * splits`` to reach
+    ``TARGET_BLOCKS``, while a block keeps at least ``MIN_CHUNK`` logits;
+    the chunk a multiple of ``CHUNK_ALIGN`` that leaves no block empty."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"logits must be float32/bfloat16, got {dtype}")
+    if not 1 <= k <= min(V, MAX_K):
+        raise ValueError(f"top-k {k} outside [1, min(V={V}, {MAX_K})]: not "
+                         "supported by the kernel")
+    if rows < 1:
+        raise ValueError(f"rows {rows} < 1")
+    splits = max(1, min(MAX_SPLITS, V // MIN_CHUNK, -(-TARGET_BLOCKS // rows)))
+    while True:
+        chunk = -(-V // splits)
+        chunk = -(-chunk // CHUNK_ALIGN) * CHUNK_ALIGN
+        if (splits - 1) * chunk < V:
+            break
+        splits -= 1
+    return UncertaintyPlan(rows, V, splits, chunk, _vec(dtype))
+
+
+def _vec(dtype) -> int:
+    """Logits in one 16-byte load."""
+    return 16 // (4 if dtype == torch.float32 else 2)
+
+
+def _check_plan(plan: UncertaintyPlan, rows: int, V: int, dtype):
+    if (plan.rows, plan.V, plan.vec) != (rows, V, _vec(dtype)):
+        raise ValueError(f"plan {plan} is not one for {rows} rows of {V} "
+                         f"{dtype} logits")
+    if not (1 <= plan.splits <= MAX_SPLITS and plan.chunk % CHUNK_ALIGN == 0
+            and (plan.splits - 1) * plan.chunk < V <= plan.splits
+            * plan.chunk):
+        raise ValueError(f"plan {plan}: splits in [1, {MAX_SPLITS}], a "
+                         f"chunk multiple of {CHUNK_ALIGN}, every block "
+                         "non-empty and V covered")
 
 
 def uncertainty(logits, tokens, *, k: int = 10):
@@ -38,16 +146,21 @@ def uncertainty(logits, tokens, *, k: int = 10):
         raise ValueError(f"unsupported device {logits.device}")
     if not (logits.is_contiguous() and tokens.is_contiguous()):
         raise ValueError("operands must be contiguous")
-    if k > MAX_K:
-        raise ValueError(f"top-k {k} > {MAX_K} is not supported by the kernel")
-    lead = tokens.shape
-    rows = tokens.numel()
-    h, v, hd = (torch.empty(lead, dtype=torch.float32, device=logits.device)
-                for _ in range(3))
+    return _launch(logits, tokens, k,
+                   uncertainty_plan(tokens.numel(), V, k, logits.dtype))
+
+
+def _launch(logits, tokens, k: int, plan: UncertaintyPlan):
+    """One launch of the kernel on contiguous CUDA operands, with ``plan``
+    (the tests give it other plans than ``uncertainty_plan``'s)."""
+    V = logits.shape[-1]
+    _check_plan(plan, tokens.numel(), V, logits.dtype)
+    h, v, hd = (torch.empty(tokens.shape, dtype=torch.float32,
+                            device=logits.device) for _ in range(3))
     fn = build.kernel("swarm_uncertainty")
     build.check(fn(logits.data_ptr(), tokens.data_ptr(), h.data_ptr(),
-                   v.data_ptr(), hd.data_ptr(), rows, V, k,
-                   build.dtype_code(logits), math.log(V),
+                   v.data_ptr(), hd.data_ptr(), plan.rows, V, k, plan.splits,
+                   plan.chunk, build.dtype_code(logits), math.log(V),
                    build.stream_ptr(logits)), "swarm_uncertainty")
     counts.launches += 1
     return h, v, hd
@@ -59,3 +172,67 @@ def uncertainty_terms(logits, tokens, *, k: int = 10, mode: str = "token"):
     the full-softmax entropy."""
     h, v, hd = uncertainty(logits, tokens, k=k)
     return (h if mode == "token" else hd), v
+
+
+# ---------------------------------------------------------------------------
+# the mirror of the kernel's split-then-merge arithmetic (CPU, f32)
+# ---------------------------------------------------------------------------
+
+def _partial(z: torch.Tensor, mask: torch.Tensor, k: int):
+    """The state of each row of ``z`` (..., n) over its ``mask``ed
+    entries: (m, l = sum e^(z-m), s = sum z e^(z-m), its k largest,
+    descending, padded with NEG), as a thread's online loop ends."""
+    zm = torch.where(mask, z, torch.full_like(z, NEG))
+    m = zm.max(-1).values
+    e = torch.where(mask, torch.exp2((z - m[..., None]) * L2E),
+                    torch.zeros_like(z))
+    pad = max(0, k - z.shape[-1])
+    zp = torch.nn.functional.pad(zm, (0, pad), value=NEG)
+    return m, e.sum(-1), (e * torch.where(mask, z, 0.0)).sum(-1), \
+        zp.topk(k, -1).values
+
+
+def _merge(m, l, s, top, k: int):
+    """Merge states over their last group dim (m, l, s (..., g); top
+    (..., g, k)): a warp over its lanes, rank 0 over the cluster's
+    warps."""
+    M = m.max(-1).values
+    c = torch.exp2((m - M[..., None]) * L2E)
+    return M, (l * c).sum(-1), (s * c).sum(-1), \
+        top.flatten(-2).topk(k, -1).values
+
+
+def split_merge(logits: torch.Tensor, tokens: torch.Tensor, *, k: int = 10,
+                plan: UncertaintyPlan | None = None):
+    """(h_token, v_topk, h_dist) as the kernel computes them, in f32 on the
+    CPU: each thread's partial state over the logits ``plan.owned`` gives
+    it, merged per warp, then the row's warps of every block of the
+    cluster merged by rank 0, and its epilogue.  The kernel takes a warp's
+    top-k through a candidate buffer filtered against a lower bound of its
+    k-th value: the same values as the k largest of its threads' lists,
+    which the mirror merges.  ``plan`` defaults to ``uncertainty_plan``'s."""
+    V = logits.shape[-1]
+    lf = logits.detach().float().cpu().reshape(-1, V)
+    tok = tokens.detach().cpu().reshape(-1).long()
+    rows = lf.shape[0]
+    if plan is None:
+        plan = uncertainty_plan(rows, V, k, logits.dtype)
+    _check_plan(plan, rows, V, logits.dtype)
+    h, v, hd = (torch.empty(rows) for _ in range(3))
+    for r in range(rows):
+        warps = []
+        for sp in range(plan.splits):
+            idx = plan.owned(r, sp)
+            mask = idx >= 0
+            st = _partial(lf[r][idx.clamp(min=0)], mask, k)     # threads
+            warps.append(_merge(*(t.reshape(WARPS, 32, *t.shape[1:])
+                                  for t in st), k))              # warps
+        m, l, s, top = _merge(*(torch.cat(t) for t in zip(*warps)), k)
+        chosen = lf[r, tok[r]] if 0 <= tok[r] < V else torch.tensor(NEG)
+        log_l = torch.log(l.clamp(min=1e-30))
+        logp = chosen - m - log_l
+        h[r] = -logp.exp() * logp
+        hd[r] = (log_l + m - s / l.clamp(min=1e-30)) / math.log(V)
+        v[r] = ((top - top.mean()) ** 2).mean()
+    lead = tokens.shape
+    return h.reshape(lead), v.reshape(lead), hd.reshape(lead)

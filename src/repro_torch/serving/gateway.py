@@ -157,7 +157,21 @@ class Gateway:
         Eq. 14 consensus scores, final answers and correctness — the
         record the Table III/IV/V metrics and Eq. 15-17 privacy terms are
         computed from.
+
+        Every session handle the batch opens on the probe (its warm
+        state, the swarm round's ``state_select`` forks) is released
+        before it returns or raises, so a paged probe's pool holds no
+        blocks between batches.  The reference never releases them.
         """
+        opened: list = []
+        try:
+            return self._answer_batch(queries, seed, opened)
+        finally:
+            for state in opened:
+                self.probe.release(state)
+
+    def _answer_batch(self, queries: list[dict], seed: int,
+                      opened: list) -> GatewayLog:
         B = len(queries)
         prompts = pad_prompts([q["prompt"] for q in queries])
         plen = (prompts != 0).sum(axis=1)
@@ -199,6 +213,7 @@ class Gateway:
         # the probe's prefill a second time
         probe_res = self.probe.generate(prompts, self.max_new, seed=seed,
                                         return_state=True)
+        opened.append(probe_res["state"])
         u = probe_res["u"]
         probe_lat = self.sim.edge_latency(plen + self.max_new)
 
@@ -240,6 +255,7 @@ class Gateway:
                    if m is self.probe}
             states = {j: self.probe.state_select(probe_res["state"], idx)
                       for j in pre}
+            opened.extend(states.values())
             # membership = simulator availability AND health: a member
             # past its consecutive-failure threshold is skipped until its
             # next half-open recovery probe (faults.HealthRegistry)

@@ -42,6 +42,18 @@ from repro_torch.launch.serve import build_gateway  # noqa: E402
 ENGINE_KW = dict(paged=True, pool_blocks=1024)
 
 
+def _port_gateway(tgw, engine_kw):
+    """The port's gateway ``tgw`` rebuilt with ``engine_kw`` engines."""
+    tm = tgw.swarm.members
+    gw, _, _, _ = build_gateway(
+        probe=(tm[0].cfg, tm[0].params), edge_1b=(tm[1].cfg, tm[1].params),
+        edge_qwen=(tm[2].cfg, tm[2].params),
+        cloud=(tgw.cloud.cfg, tgw.cloud.params),
+        safety=(tgw.safety_cfg, tgw.safety_params),
+        router_cfg=tgw.router_cfg, device="cpu", engine_kw=engine_kw)
+    return gw
+
+
 @pytest.fixture(scope="module")
 def paged(f32):
     """Both gateways of ``f32`` rebuilt on paged engines (same weights,
@@ -57,14 +69,8 @@ def paged(f32):
         cloud=jeng(jgw.cloud), safety_params=jgw.safety_params,
         safety_cfg=jgw.safety_cfg, router_cfg=jgw.router_cfg,
         sim=JNS(JSC(), JLP(), 3), budget_total=1.0)
-    tm = tgw.swarm.members
-    tpaged, _, _, _ = build_gateway(
-        probe=(tm[0].cfg, tm[0].params), edge_1b=(tm[1].cfg, tm[1].params),
-        edge_qwen=(tm[2].cfg, tm[2].params),
-        cloud=(tgw.cloud.cfg, tgw.cloud.params),
-        safety=(tgw.safety_cfg, tgw.safety_params),
-        router_cfg=tgw.router_cfg, device="cpu", engine_kw=ENGINE_KW)
-    return {"jax": jpaged, "port": tpaged, "mono": tgw}
+    return {"jax": jpaged, "port": _port_gateway(tgw, ENGINE_KW),
+            "mono": tgw}
 
 
 def test_engines_are_paged(paged):
@@ -112,3 +118,33 @@ def test_paged_swarm_round_issues_zero_probe_prefill(paged):
     assert probe.counters["decode_only"] == before["decode_only"]
     assert probe.counters["grow_copy"] == 0
     assert probe.pool.counters["row_copies"] > copies      # select ran
+
+
+def test_paged_batches_release_their_handles(paged):
+    """21 batches through a paged port gateway whose probe pool would run
+    out if the batches kept their handles (the reference's gateway keeps
+    them): after every batch the probe's blocks in use are back at their
+    baseline, no ``PoolExhaustedError`` is raised, and each batch's log
+    equals the JAX paged gateway's, batch for batch."""
+    n_blocks = 48
+    small = _port_gateway(paged["mono"], dict(paged=True,
+                                               pool_blocks=n_blocks))
+    probe = small.probe
+    at_release = []       # per batch: blocks in use at each release
+    release = probe.release
+
+    def counting_release(state):
+        at_release[-1].append(probe.pool.blocks_in_use)
+        release(state)
+    probe.release = counting_release
+    base = probe.pool.blocks_in_use
+    for _ in range(21):
+        at_release.append([])
+        j, t = _run_both({"jax": paged["jax"], "port": small},
+                         queries=QUERIES[:10])
+        _assert_logs_equal(j, t)
+        assert probe.pool.blocks_in_use == base
+        assert probe.pool.live_sessions == 0
+    assert (t.decision == SWARM).any()
+    # what the batches' handles held: more than the pool has
+    assert sum(b[0] - base for b in at_release) > n_blocks - base
