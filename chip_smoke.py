@@ -55,8 +55,8 @@ Phases (any failure exits nonzero; nothing is caught and turned into 0):
    for both models must lie inside it, and a generate whose decode never
    writes its K/V to the cache must lie outside it (milder wrong paths are
    read and reported);
-7. Algorithm 1: the gateway (``launch/serve.build_gateway``) at published
-   widths — probe ``smollm-135m`` (30 layers), peers the probe,
+7. Algorithm 1: the gateway (``launch/serve.gateway_from_weights``) at
+   published widths — probe ``smollm-135m`` (30 layers), peers the probe,
    ``swarm-edge-1b`` (22 layers) and ``qwen1.5-110b`` (2 layers), cloud
    ``llama3-8b`` (4 layers), the safety classifier — with random weights
    from ``torch.Generator`` seeds; tau from ``calibrate_thresholds``, sigma
@@ -72,7 +72,35 @@ Phases (any failure exits nonzero; nothing is caught and turned into 0):
 8. ``transformer.forward`` of ``smollm-135m`` at full width (B=8, S=256)
    against the same forward with the grid-offset op's plain version
    swapped in, within the tie budget;
+T1. training at published width: ``training.train.build_train_step`` on
+   ``smollm-135m`` (30 layers) and ``llama3-8b`` cut to the cloud tier's 4
+   layers (vocabulary 128256), AdamW lr 3e-4, batch 8, seq 128, 30 steps of
+   ``SyntheticLMPipeline`` batches: the loss must fall (mean of the last 5
+   below the first 5), every parameter must change, and no kernel and no
+   plain version may run (training attends through ``chunked_attention``);
+   ms per step, tokens/s, model TFLOP/s (6 N tokens / time) beside 989,
+   peak memory and the device busy share of a step (``torch.profiler``);
+T2. checkpoint and restart through the CLI: ``python -m
+   repro_torch.launch.train --arch smollm-135m --steps 40 --batch 8 --seq
+   128 --ckpt-every 20`` run to its end, and the same run killed once it
+   prints ``[train] checkpoint @ 20`` and restarted with ``--resume``: the
+   two ``step_40`` checkpoints must hold bitwise-equal parameters and
+   optimizer state; save and restore seconds and bytes of one checkpoint;
+T3. the trained gateway, the paper's study: ``launch.serve.build_gateway(
+   train_steps=400)`` (the reference CLI's default) trains the four smoke
+   tiers (vocabulary 512) and the classifier and calibrates tau; every
+   tier's final loss must be finite and below its first, ``answer_batch``
+   on the study workload must take every route with ``u`` spanning more
+   than 100x the random-weight span (1e-2) and launch rows 1-4 and no plain
+   version; then the same weights on paged engines (``engine_kw=dict(
+   paged=True, pool_blocks=1024)``): the same ``s``, ``u`` within 1e-2, row
+   5 launched and row 2 not; Tables III-V of both, ``run_edge_only`` and
+   ``run_cloud_only`` beside them, the training seconds per tier;
 9. the ``kernels`` line, then the result line.
+
+Phase 3 also holds rows 1-3 and 5 at the trained gateway's shapes (every
+smoke tier's heads at head_dim 16, B=50, S=8, T=128, V=512) before T3
+serves them.
 
 Every path of phases 4-8 runs with the kernels' launch counts set to 0 just
 before it and read just after: each kernel the path runs must have launched,
@@ -93,8 +121,11 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import gc
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -256,7 +287,14 @@ def main():
         from repro_torch.kernels.swarm_uncertainty import ops as uops
         from repro_torch.kernels.swarm_uncertainty import ref as uref
         from repro_torch.data.workload import FACT_IS, FactWorld
-        from repro_torch.launch.serve import build_gateway, tier_configs
+        from repro_torch.data.pipeline import (SyntheticLMPipeline,
+                                               device_put_batch)
+        from repro_torch.launch import serve as serve_mod
+        from repro_torch.launch.serve import (TIERS, gateway_from_weights,
+                                              tier_configs)
+        from repro_torch.training import checkpoint as ck
+        from repro_torch.training import optimizer as opt
+        from repro_torch.training import train as TR
         from repro_torch.models import attention
         from repro_torch.models import quant as TQ
         from repro_torch.models import transformer
@@ -644,6 +682,22 @@ def main():
             # blocks of 64, the last of 8 steps after an 8-column prefill
             paged_case(f"paged gateway {tc.name} decode B{nq} L64 nb2 S8",
                        nq, K, H // K, D, main=probe_tier)]
+    # the trained gateway's shapes (T3): every tier at its smoke widths
+    # (head_dim 16) and vocabulary 512, the same batch, buckets and caches
+    for name, (arch, _) in TIERS.items():
+        tc = dataclasses.replace(configs.get_smoke(arch), vocab_size=512)
+        H, K, D = tc.num_heads, tc.num_kv_heads, tc.head_dim
+        S_TR = bucket_len(s_raw, max(tc.attn_q_block, tc.attn_kv_block))
+        T_TR = InferenceEngine.max_len
+        gw_cases += [
+            flash_case(f"trained {tc.name} prefill B{nq} S{S_TR}", nq, S_TR,
+                       H, K, D, S_TR - s_raw),
+            decode_case(f"trained {tc.name} decode B{nq} T{T_TR} fill 8-15",
+                        nq, T_TR, K, H // K, D,
+                        fill=(S_TR - s_raw, S_TR, S_TR + 8)),
+            uncertainty_case(f"trained {tc.name} B{nq} V512", nq, 512),
+            paged_case(f"paged trained {tc.name} decode B{nq} L64 nb2 S8",
+                       nq, K, H // K, D)]
     pc = tier_configs()["probe"]
     PK, PG, PD = pc.num_kv_heads, pc.num_heads // pc.num_kv_heads, pc.head_dim
     cases = [
@@ -1171,7 +1225,7 @@ def main():
     print(f"[7] tiers initialised in {time.perf_counter() - t0:.1f} s: "
           + ", ".join(f"{n} {tcfgs[n].name} {tcfgs[n].num_layers} layers "
                       f"{gb:.2f} GB" for n, gb in weight_gb.items()))
-    gw, gprobe, gcloud, world = build_gateway(
+    gw, gprobe, gcloud, world = gateway_from_weights(
         **tiers, safety=(scfg, sparams))
     check(gprobe.device.type == "cuda"
           and gw.safety_params.embed.device.type == "cuda",
@@ -1291,7 +1345,7 @@ def main():
     # on its own 1024-block pool (the reference CLI's --paged); the same
     # warm-up-then-counted sequence as phase 7, so budgets and simulator
     # draws match
-    pgw, pgprobe, pgcloud, _ = build_gateway(
+    pgw, pgprobe, pgcloud, _ = gateway_from_weights(
         **tiers, safety=(scfg, sparams), router_cfg=gw.router_cfg,
         engine_kw=dict(paged=True, pool_blocks=1024))
     pmembers = [pgprobe] + [m for m in pgw.swarm.members if m is not pgprobe]
@@ -1398,7 +1452,296 @@ def main():
           f"{f_atol:.4f}), argmax agreement {f_agree:.4f}")
     report["forward"] = {"max_dlogit": f_diff, "atol": f_atol,
                          "argmax_agreement": f_agree}
-    del tiers, gw, gprobe, gcloud, pmodel, sparams
+    del tiers, gw, gprobe, gcloud, pmodel, sparams, members, eng, mono_e, \
+        pag_e, fk, fp, ftok
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- T1. training at published width --------------------------------
+    t_phase = time.perf_counter()
+    held_gb = torch.cuda.memory_allocated() / 1e9   # left by phases 1-8
+    # the reference CLI's AdamW (lr 3e-4, warm-up a tenth of the steps),
+    # batch 8, seq 128; the loss and no kernel through all 30 steps, then
+    # two profiled steps for the device's busy share
+    n_train = 30
+    train_rep: dict = {}
+    for arch, layers in (("smollm-135m", None), ("llama3-8b", 4)):
+        tcfg = configs.get_config(arch)
+        if layers is not None:
+            tcfg = dataclasses.replace(tcfg, num_layers=layers)
+        tmodel = init_params(tcfg, torch.Generator(device=dev).manual_seed(
+            SEED + 30), device=dev)
+        before = [p.detach().to("cpu", copy=True) for p in tmodel.parameters()]
+        tstate = opt.init(tmodel)
+        step_fn = TR.build_train_step(tcfg, opt.AdamWConfig(
+            lr=3e-4, total_steps=n_train, warmup_steps=max(n_train // 10, 1)))
+        pipe = SyntheticLMPipeline(8, 128, seed=SEED)
+        batches = [device_put_batch(pipe.get_batch(i), dev)
+                   for i in range(n_train + 2)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_s, losses = [], []
+
+        def train_run():
+            for i in range(n_train):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                _, _, m = step_fn(tmodel, tstate, batches[i])
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t)
+                losses.append(m["loss"])
+
+        counted(f"train {tcfg.name}", (), train_run, forbid=KERNELS)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = torch.stack(losses).tolist()
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        check(bool(np.isfinite(losses).all()) and last < first,
+              f"T1 {tcfg.name}: the loss did not fall ({first} -> {last})")
+        same = [n for (n, p), b in zip(tmodel.named_parameters(), before)
+                if torch.equal(p.detach().cpu(), b)]
+        check(not same, f"T1 {tcfg.name}: parameters unchanged: {same[:5]}")
+        del before
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for i in (n_train, n_train + 1):
+                step_fn(tmodel, tstate, batches[i])
+            torch.cuda.synchronize()
+        ka = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_us = sum(e.self_device_time_total for e in ka)
+        top = sorted(((e.self_device_time_total, e.key, e.count)
+                      for e in ka), reverse=True)[:6]
+        ms = float(np.median(step_s[3:])) * 1e3
+        # N: every weight in a product, the LM head included (the embedding
+        # lookup is not a product; a tied head is the embedding table)
+        n_prod = sum(p.numel() for n, p in tmodel.named_parameters()
+                     if p.ndim >= 2 and n != "embed")
+        if tcfg.tie_embeddings:
+            n_prod += tmodel.embed.numel()
+        tokens = 8 * 128
+        tflops = 6 * n_prod * tokens / (ms / 1e3) / 1e12
+        busy = dev_us / 2 / 1e3 / ms if dev_us > 0 else None
+        print(f"[T1] train {tcfg.name} ({tcfg.num_layers} layers, "
+              f"{n_prod / 1e9:.3f} B weights in products): loss "
+              f"{first:.4f} -> {last:.4f} (mean of the first/last 5 of "
+              f"{n_train}), {ms:.2f} ms/step, {tokens / ms * 1e3:.0f} "
+              f"tokens/s, model {tflops:.2f} TFLOP/s ({tflops / 989 * 100:.2f}"
+              f"% of 989), peak {peak_gb:.2f} GB ({held_gb:.2f} GB held "
+              f"before the phase), busy share "
+              f"{'not measured' if busy is None else f'{busy:.3f}'}")
+        for us, key, n in top:
+            print(f"[T1]   2 steps: {us / 1e3:9.3f} ms in {n:5d} x "
+                  f"{key[:70]}")
+        train_rep[tcfg.name] = {
+            "layers": tcfg.num_layers, "weights_in_products": n_prod,
+            "losses": losses, "ms_per_step": ms,
+            "tokens_per_s": tokens / ms * 1e3, "model_tflops": tflops,
+            "peak_gb": peak_gb, "step_device_ms": dev_us / 2 / 1e3,
+            "busy_share": busy,
+            "profile_top_2steps": [(us / 1e3, key, n) for us, key, n in top]}
+        del tmodel, tstate, batches, step_fn, prof
+        torch.cuda.empty_cache()
+    t_t1 = time.perf_counter() - t_phase
+    print(f"[T1] phase {t_t1:.1f} s")
+    report["train"] = dict(train_rep, phase_s=t_t1, held_gb=held_gb)
+
+    # ---- T2. checkpoint and restart through the CLI ---------------------
+    t_phase = time.perf_counter()
+    ck_root = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ck_root, ignore_errors=True)
+    ck_root.mkdir(parents=True)
+    try:
+        c135 = configs.get_config("smollm-135m")
+        m135 = init_params(c135, torch.Generator(device=dev).manual_seed(
+            SEED), device=dev)
+        tree = {"params": m135, "opt": opt.init(m135)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = Path(ck.save(str(ck_root / "timing"), 1, tree))
+        t_save = time.perf_counter() - t0
+        ck_bytes = sum(f.stat().st_size for f in path.iterdir())
+        t0 = time.perf_counter()
+        ck.restore(str(ck_root / "timing"), 1, tree)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        del m135, tree
+        torch.cuda.empty_cache()
+
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        cli = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+               "smollm-135m", "--steps", "40", "--batch", "8", "--seq",
+               "128", "--ckpt-every", "20", "--ckpt-dir"]
+        d1, d2 = str(ck_root / "straight"), str(ck_root / "restarted")
+        t0 = time.perf_counter()
+        r1 = subprocess.run(cli + [d1], env=env, capture_output=True,
+                            text=True, timeout=400)
+        t_straight = time.perf_counter() - t0
+        check(r1.returncode == 0, f"T2: the straight run failed: "
+                                  f"{r1.stderr[-2000:]}")
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cli + [d2], env=env, stdout=subprocess.PIPE,
+                                stderr=subprocess.DEVNULL, text=True)
+        try:
+            for line in proc.stdout:
+                if line.startswith("[train] checkpoint @ 20"):
+                    break
+        finally:
+            proc.kill()
+            proc.wait(timeout=60)
+            proc.stdout.close()
+        check(ck.latest_step(d2) == 20, f"T2: the killed run left "
+                                        f"checkpoint {ck.latest_step(d2)}")
+        r2 = subprocess.run(cli + [d2, "--resume"], env=env,
+                            capture_output=True, text=True, timeout=400)
+        t_restart = time.perf_counter() - t0
+        check(r2.returncode == 0 and "[train] resumed from step 20"
+              in r2.stdout, f"T2: the resumed run failed: "
+                            f"{r2.stdout[-1000:]} {r2.stderr[-2000:]}")
+        a, _ = ck.load_leaves(d1, 40)
+        b, _ = ck.load_leaves(d2, 40)
+        check(sorted(a) == sorted(b), "T2: the checkpoints hold other leaves")
+
+        def bits(x):
+            if isinstance(x, int):
+                return torch.tensor([x])
+            return x.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                           8: torch.int64}[x.element_size()])
+
+        differ = [k for k in a if not torch.equal(bits(a[k]), bits(b[k]))]
+        check(not differ, f"T2: step_40 of the restarted run differs from "
+                          f"the straight run's in {len(differ)} leaves: "
+                          f"{differ[:5]}")
+    finally:
+        shutil.rmtree(ck_root, ignore_errors=True)
+    print(f"[T2] checkpoint of smollm-135m + AdamW state: {ck_bytes / 1e9:.3f}"
+          f" GB, save {t_save:.2f} s, restore {t_restore:.2f} s; CLI 40 "
+          f"steps straight {t_straight:.1f} s, killed at step 20 and resumed "
+          f"{t_restart:.1f} s: step_40 bitwise equal in all {len(a)} leaves")
+    t_t2 = time.perf_counter() - t_phase
+    print(f"[T2] phase {t_t2:.1f} s")
+    report["checkpoint"] = {"phase_s": t_t2, "bytes": ck_bytes,
+                            "save_s": t_save,
+                            "restore_s": t_restore, "leaves": len(a),
+                            "straight_s": t_straight,
+                            "restarted_s": t_restart}
+
+    # ---- T3. the trained gateway (the paper's study) ---------------------
+    t_phase = time.perf_counter()
+    train_s, tier_losses = {}, {}
+
+    def timed_train(fn, key):
+        def run(*a, **k):
+            rec = []
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, losses=rec, **k)
+            torch.cuda.synchronize()
+            name = key(a)
+            train_s[name] = time.perf_counter() - t
+            tier_losses[name] = torch.stack(rec).tolist()
+            return out
+        return run
+
+    orig_lm, orig_safety = serve_mod.train_lm, serve_mod.train_safety
+    serve_mod.train_lm = timed_train(orig_lm, lambda a: a[0])
+    serve_mod.train_safety = timed_train(orig_safety, lambda a: "safety")
+    try:
+        t0 = time.perf_counter()
+        tgw, tprobe, tcloud, tworld = serve_mod.build_gateway(train_steps=400)
+        t_build = time.perf_counter() - t0
+    finally:
+        serve_mod.train_lm, serve_mod.train_safety = orig_lm, orig_safety
+    for name, ls in tier_losses.items():
+        check(bool(np.isfinite(ls).all()) and ls[-1] < ls[0],
+              f"T3: {name} loss {ls[0]} -> {ls[-1]}")
+    print(f"[T3] build_gateway(train_steps=400): {t_build:.1f} s; "
+          + ", ".join(f"{n} {len(ls)} steps {train_s[n]:.1f} s loss "
+                      f"{ls[0]:.3f} -> {ls[-1]:.3f}"
+                      for n, ls in tier_losses.items()))
+    tq = tworld.study_workload()
+    t0 = time.perf_counter()
+    tlog = counted("trained gateway answer_batch", MONO_KERNELS,
+                   lambda: tgw.answer_batch(tq),
+                   forbid=("paged_decode_attention",))
+    t_tbatch = time.perf_counter() - t0
+    tdec = tlog.decision
+    troutes = {n: int((tdec == c).sum())
+               for c, n in enumerate(router.DECISION_NAMES)}
+    check(troutes["local"] > 0 and troutes["swarm"] > 0
+          and troutes["cloud"] + troutes["cloud_safety"] > 0,
+          f"T3: not every route occurs: {troutes}")
+    u_span = float(tlog.u.max() - tlog.u.min())
+    check(u_span > 100 * 1e-4, f"T3: u spans only {u_span}")
+    tedge = counted("trained run_edge_only", SERVE_KERNELS,
+                    lambda: gateway_mod.run_edge_only(
+                        tq, tprobe, tgw.sim, stop_token=FACT_IS))
+    tcl = counted("trained run_cloud_only", SERVE_KERNELS,
+                  lambda: gateway_mod.run_cloud_only(
+                      tq, tcloud, tgw.sim, stop_token=FACT_IS))
+    trc = tgw.router_cfg
+    print(f"[T3] tau {trc.tau_low:.4f}/{trc.tau_high:.4f} (calibrated), u "
+          f"spans {u_span:.4f}; answer_batch {t_tbatch:.3f} s; routes "
+          f"{troutes}")
+    print(serve_mod.tables(tedge, tcl, tlog))
+
+    # the same weights on paged engines (the reference CLI's --paged)
+    eng = {e.name: e for e in tgw.swarm.members}
+    ptgw, ptprobe, ptcloud, _ = gateway_from_weights(
+        probe=(tprobe.cfg, tprobe.params),
+        edge_1b=(eng["edge-1b"].cfg, eng["edge-1b"].params),
+        edge_qwen=(eng["edge-qwen"].cfg, eng["edge-qwen"].params),
+        cloud=(tcloud.cfg, tcloud.params),
+        safety=(tgw.safety_cfg, tgw.safety_params), router_cfg=trc,
+        world=tworld, engine_kw=dict(paged=True, pool_blocks=1024))
+    t0 = time.perf_counter()
+    ptlog = counted("trained paged gateway answer_batch", PAGED_KERNELS,
+                    lambda: ptgw.answer_batch(tq),
+                    forbid=("decode_attention",))
+    t_ptbatch = time.perf_counter() - t0
+    check(np.array_equal(ptlog.safety, tlog.safety),
+          "T3: the paged gateway's s differs")
+    tdu = float(np.abs(ptlog.u - tlog.u).max())
+    check(tdu <= 1e-2, f"T3: |u_paged - u_mono| reaches {tdu} > 1e-2")
+    ptedge = gateway_mod.run_edge_only(tq, ptprobe, ptgw.sim,
+                                       stop_token=FACT_IS)
+    ptcl = gateway_mod.run_cloud_only(tq, ptcloud, ptgw.sim,
+                                      stop_token=FACT_IS)
+    tmoved = int((ptlog.decision != tdec).sum())
+    print(f"[T3] paged: answer_batch {t_ptbatch:.3f} s (monolithic "
+          f"{t_tbatch:.3f} s); max |u_paged - u_mono| {tdu:.3e}; s identical;"
+          f" {tmoved} decisions differ")
+    print(serve_mod.tables(ptedge, ptcl, ptlog))
+
+    def table_rows(edge_, cl_, lg):
+        out = {}
+        for name, x in (("edge_only", edge_), ("cloud_only", cl_),
+                        ("swarm_llm", lg)):
+            out[name] = {"latency_mean_s": float(x.latency.mean()),
+                         "latency_p95_s": float(np.percentile(x.latency, 95)),
+                         "cloud_usage": x.cloud_usage(),
+                         "accuracy": x.accuracy(),
+                         "accuracy_easy": x.accuracy("easy"),
+                         "accuracy_hard": x.accuracy("hard")}
+        out["privacy"] = {k: float(v) for k, v in lg.privacy()._asdict(
+            ).items()}
+        return out
+
+    report["trained_gateway"] = {
+        "build_s": t_build, "train_s": train_s,
+        "first_last_loss": {n: (ls[0], ls[-1])
+                            for n, ls in tier_losses.items()},
+        "tau_low": trc.tau_low, "tau_high": trc.tau_high,
+        "sigma": trc.sigma, "u_span": u_span, "routes": troutes,
+        "answer_batch_s": t_tbatch, "paged_answer_batch_s": t_ptbatch,
+        "paged_max_du": tdu, "paged_moved": tmoved,
+        "tables": table_rows(tedge, tcl, tlog),
+        "paged_tables": table_rows(ptedge, ptcl, ptlog),
+        "u": [float(x) for x in tlog.u]}
+    del tgw, tprobe, tcloud, ptgw, ptprobe, ptcloud, eng
+    t_t3 = time.perf_counter() - t_phase
+    print(f"[T3] phase {t_t3:.1f} s")
+    report["trained_gateway"]["phase_s"] = t_t3
 
     # ---- 9. kernels line and result ------------------------------------
     src = {"flash_attention_positions": (

@@ -10,7 +10,9 @@ classifier's tree (``init_safety``: ``head_w``/``head_b`` and no
 
 ``from_jax_paged_pool`` converts a JAX block pool (``CachePool.arrays``)
 into the port's per-layer pools, byte for byte, so tests can compare the
-two after the same calls.
+two after the same calls.  ``from_jax_opt_state`` carries an AdamW state
+across (master, m and v through the same mapping as the parameters, in
+f32; the step as an int), ``from_jax_lora`` a LoRA adapter tree.
 """
 
 from __future__ import annotations
@@ -22,10 +24,47 @@ from repro_torch.core.safety import SafetyClassifier
 from repro_torch.models import attention
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import Transformer
+from repro_torch.training.optimizer import OptState
 
 
 def _tensor(a, dtype) -> torch.Tensor:
     return torch.from_numpy(np.asarray(a).astype(np.float32)).to(dtype)
+
+
+def _layer_blocks(stages, cfg: ModelConfig):
+    """(port layer index, the JAX block subtree, repeat index or None) of
+    every layer, unstacking the scanned stages; ``stages`` is a list, or a
+    dict keyed "0", "1", ... (a LoRA tree)."""
+    if isinstance(stages, dict):
+        stages = [stages.get(str(i), {}) for i in range(len(stages))]
+    layer = 0
+    for sp, stage in zip(stages, cfg.stage_plan()):
+        for r in range(stage.repeat):
+            for i in range(len(stage.blocks)):
+                yield layer, sp.get(f"b{i}", {}), (
+                    r if stage.repeat > 1 else None)
+                layer += 1
+
+
+def _named_leaves(np_tree: dict, cfg: ModelConfig):
+    """(port parameter name, numpy leaf) of a JAX ``init_params`` /
+    ``init_safety`` tree, repeat axes unstacked."""
+    safety = "head_w" in np_tree
+    top = ["embed", "final_norm"]
+    top += ["head_w", "head_b"] if safety else (
+        [] if cfg.tie_embeddings else ["lm_head"])
+    for name in top:
+        yield name, np.asarray(np_tree[name])
+    n = 0
+    for layer, blk, r in _layer_blocks(np_tree["stages"], cfg):
+        for part in ("mixer", "ffn"):
+            for name, leaf in blk[part].items():
+                a = np.asarray(leaf)
+                yield f"layers.{layer}.{part}.{name}", (a if r is None
+                                                        else a[r])
+        n = layer + 1
+    if n != cfg.num_layers:
+        raise ValueError(f"JAX tree has {n} layers, cfg {cfg.num_layers}")
 
 
 def from_jax_params(np_tree: dict, cfg: ModelConfig,
@@ -34,29 +73,40 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig,
     numpy leaves (``jax.tree.map(np.asarray, params)``).  Returns the port's
     ``Transformer`` (or ``SafetyClassifier``) on ``device`` (default
     CPU)."""
-    safety = "head_w" in np_tree
-    model = SafetyClassifier(cfg) if safety else Transformer(cfg)
-    top = ["embed", "final_norm"]
-    top += ["head_w", "head_b"] if safety else (
-        [] if cfg.tie_embeddings else ["lm_head"])
+    model = (SafetyClassifier(cfg) if "head_w" in np_tree
+             else Transformer(cfg))
+    named = dict(model.named_parameters())
     with torch.no_grad():
-        for name in top:
-            getattr(model, name).copy_(_tensor(np_tree[name], cfg.dtype))
-        layers = iter(model.layers)
-        for sp, stage in zip(np_tree["stages"], cfg.stage_plan()):
-            for r in range(stage.repeat):
-                for i in range(len(stage.blocks)):
-                    layer = next(layers)
-                    for part in ("mixer", "ffn"):
-                        mod = getattr(layer, part)
-                        for name, leaf in sp[f"b{i}"][part].items():
-                            a = np.asarray(leaf)
-                            if stage.repeat > 1:
-                                a = a[r]
-                            getattr(mod, name).copy_(_tensor(a, cfg.dtype))
-        if next(layers, None) is not None:
-            raise ValueError("JAX tree has fewer layers than cfg.num_layers")
+        for name, a in _named_leaves(np_tree, cfg):
+            named[name].copy_(_tensor(a, cfg.dtype))
     return model.to(device) if device is not None else model
+
+
+def from_jax_opt_state(np_state, cfg: ModelConfig, device=None) -> OptState:
+    """``np_state``: a JAX ``optimizer.OptState`` with numpy leaves.
+    Returns the port's ``OptState``: master, m and v in f32 under the
+    parameter names ``from_jax_params`` gives, the step as an int."""
+    def conv(tree):
+        return {n: torch.from_numpy(np.array(a, np.float32)).to(device)
+                for n, a in _named_leaves(tree, cfg)}
+    return OptState(step=int(np.asarray(np_state.step)),
+                    master=conv(np_state.master), m=conv(np_state.m),
+                    v=conv(np_state.v))
+
+
+def from_jax_lora(np_tree: dict, cfg: ModelConfig, device=None) -> dict:
+    """``np_tree``: a JAX ``lora.init_lora`` tree with numpy leaves.
+    Returns the port's adapter tree {parameter name: {"a", "b"}} (f32
+    tensors, repeat axes unstacked)."""
+    out = {}
+    for layer, blk, r in _layer_blocks(np_tree.get("stages", {}), cfg):
+        for part, sub in blk.items():
+            for name, ab in sub.items():
+                out[f"layers.{layer}.{part}.{name}"] = {
+                    k: torch.from_numpy(np.array(
+                        a if r is None else a[r], np.float32)).to(device)
+                    for k, a in ab.items()}
+    return out
 
 
 def _pool_leaf(a: np.ndarray, dtype, fill) -> torch.Tensor:

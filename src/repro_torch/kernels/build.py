@@ -78,6 +78,22 @@ def pool_dtype_code(t) -> int:
     return codes[t.dtype]
 
 
+def refuse_autograd(name: str, *tensors):
+    """Raise when grad mode is on and an operand requires grad.  The
+    kernels (and the wrappers' plain versions with them, so the CPU and the
+    card behave alike) have no backward formula: an output without a
+    ``grad_fn`` would cut the graph there and leave every parameter before
+    it untrained.  Training attends through
+    ``models.attention.chunked_attention``."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: an operand requires grad in grad mode. "
+            "Call it under torch.no_grad()/inference_mode(), or train "
+            "through the training route (attn_block(..., train=True))")
+
+
 class LaunchCounts:
     """Per-wrapper counters: kernel launches, and calls that ran the plain
     PyTorch version instead (CPU tensors)."""

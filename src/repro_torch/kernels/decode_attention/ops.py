@@ -322,6 +322,7 @@ def decode_attention(q, k, v, pos, index, *, window=None):
     tensors = (q, k, v, pos, index)
     if len({t.device for t in tensors}) != 1:
         raise ValueError("all operands must be on one device")
+    build.refuse_autograd("decode_attention", q, k, v)
     if q.device.type == "cpu":
         counts.plain += 1
         return R.decode_attention_ref(q, k, v, pos, index, window=window)
@@ -411,6 +412,8 @@ def paged_decode_attention(q, k_pool, v_pool, pos_pool, table, index, *,
         raise ValueError("all operands must be on one device")
     kw = dict(window=window, k_scale=k_scale, v_scale=v_scale,
               delta_k=delta_k, delta_v=delta_v, delta_pos=delta_pos, p0=p0)
+    build.refuse_autograd("paged_decode_attention", q, k_pool, v_pool,
+                          k_scale, v_scale, delta_k, delta_v)
     if q.device.type == "cpu":
         paged_counts.plain += 1
         return R.paged_decode_attention_ref(q, k_pool, v_pool, pos_pool,

@@ -155,6 +155,7 @@ def flash_attention_positions(q, k, v, *, q_positions, kv_positions,
     tensors = (q, k, v, q_positions, kv_positions)
     if len({t.device for t in tensors}) != 1:
         raise ValueError("all operands must be on one device")
+    build.refuse_autograd("flash_attention_positions", q, k, v)
     if q.device.type == "cpu":
         counts.plain += 1
         return R.flash_attention_positions_ref(
@@ -194,6 +195,7 @@ def flash_attention(q, k, v, *, causal=True, window=None):
                          f"T + window - 1 on see no key")
     if len({t.device for t in (q, k, v)}) != 1:
         raise ValueError("all operands must be on one device")
+    build.refuse_autograd("flash_attention", q, k, v)
     if q.device.type == "cpu":
         grid_counts.plain += 1
         return R.flash_attention_ref(q, k, v, causal=causal, window=window)

@@ -139,6 +139,7 @@ def uncertainty(logits, tokens, *, k: int = 10):
         raise ValueError(f"top-k {k} outside [1, V={V}]")
     if logits.device != tokens.device:
         raise ValueError("logits and tokens must be on one device")
+    build.refuse_autograd("swarm_uncertainty", logits)
     if logits.device.type == "cpu":
         counts.plain += 1
         return R.uncertainty_ref(logits, tokens, k=k)

@@ -7,10 +7,13 @@ Mirrors ``repro/models/attention.py``.  The full-sequence forward
 grid-offset flash op, prefill (cold and continuation) the positions-mode
 flash op, decode the monolithic decode op, paged decode the block-table
 decode op (``kernels/``): the CUDA kernels on the card, their plain
-versions on the CPU.  Unlike JAX's functional ``.at[].set``, caches and
-pools are written IN PLACE (``index_put_``): ``attn_prefill`` and
-``attn_decode`` mutate the ``KVCache`` they are given and return it, and
-the ``paged_*`` writers mutate the ``KVPool``.
+versions on the CPU.  Training (``attn_block(..., train=True)``) runs
+``chunked_attention`` instead, plain PyTorch differentiated by autograd,
+as the reference trains through XLA: the kernels have no backward and
+refuse operands that require grad.  Unlike JAX's functional
+``.at[].set``, caches and pools are written IN PLACE (``index_put_``):
+``attn_prefill`` and ``attn_decode`` mutate the ``KVCache`` they are
+given and return it, and the ``paged_*`` writers mutate the ``KVPool``.
 
 **Paged pools and dropped writes.**  JAX drops out-of-range scatters
 (``mode="drop"``) and clips gathers.  On CUDA an out-of-range index is a
@@ -131,15 +134,76 @@ def _scatter_kv(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
     return cache
 
 
+NEG_INF = -1e30
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                      causal: bool, window: int | None, q_block: int,
+                      kv_block: int) -> torch.Tensor:
+    """q (B,S,H,Dh); k,v (B,T,K,Dh); positions (S,)/(T,).  Returns
+    (B,S,H,Dh) in q's dtype.  The training attention, differentiated by
+    autograd: the reference's XLA ``chunked_attention``, block for block.
+
+    It rounds where the reference does, forward and backward: q, k and v
+    to bf16, and P to bf16 before P.V; the products of those bf16 values
+    and the streaming softmax run in f32.  Each block product reads its
+    bf16 operand block afresh (``.float()`` per use), so the gradient of a
+    block arrives in bf16 per use and sums in bf16 over the blocks that
+    read it, as the reference's scans accumulate the cotangents of their
+    bf16 operands.  The reference wraps each q block in ``jax.checkpoint``;
+    at the sequence lengths trained here (S <= 128) the blocks' activations
+    are kept instead."""
+    B, S, H, Dh = q.shape
+    T, K = k.shape[1], k.shape[2]
+    G = H // K
+    qb, kb = min(q_block, S), min(kv_block, T)
+    if S % qb or T % kb:
+        raise ValueError(f"S={S} and T={T} must be multiples of the blocks "
+                         f"{qb} and {kb}")
+    scale = Dh ** -0.5
+    bf16 = torch.bfloat16
+    qr = q.to(bf16).reshape(B, S, K, G, Dh)
+    kr, vr = k.to(bf16), v.to(bf16)
+    outs = []
+    for i in range(0, S, qb):
+        qp = q_positions[i:i + qb]
+        acc = q.new_zeros((B, K, G, qb, Dh), dtype=torch.float32)
+        m = torch.full((B, K, G, qb), NEG_INF, device=q.device)
+        l = torch.zeros((B, K, G, qb), device=q.device)
+        for j in range(0, T, kb):
+            kp = kv_positions[j:j + kb]
+            s = torch.einsum("bqkgd,bskd->bkgqs", qr[:, i:i + qb].float(),
+                             kr[:, j:j + kb].float()) * scale
+            mask = (kp >= 0)[None, :].expand(qb, -1)
+            if causal:
+                mask = mask & (qp[:, None] >= kp[None, :])
+            if window is not None:
+                mask = mask & (qp[:, None] - kp[None, :] < window)
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            pv = torch.einsum("bkgqs,bskd->bkgqd", p.to(bf16).float(),
+                              vr[:, j:j + kb].float())
+            acc = acc * corr[..., None] + pv
+            m = m_new
+        outs.append((acc / l.clamp_min(1e-30)[..., None]).to(q.dtype))
+    out = torch.cat(outs, dim=3)                       # (B,K,G,S,Dh)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, Dh)
+
+
 def _attn_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                   positions: torch.Tensor, local: bool, *,
-                  prefill: bool = False):
-    """Shared full-sequence body -> (x + attn(x), k, v), for the forward
-    and for prefill.  ``prefill=True`` attends through the positions-mode
-    flash op (negative positions are inert padding); the default is the
-    full-sequence forward over positions 0..S-1, through the grid-offset
-    flash op, which skips the KV tiles a causal or windowed q tile cannot
-    see."""
+                  prefill: bool = False, train: bool = False):
+    """Shared full-sequence body -> (x + attn(x), k, v), for the forward,
+    training and prefill.  ``prefill=True`` attends through the
+    positions-mode flash op (negative positions are inert padding); the
+    default is the full-sequence forward over positions 0..S-1, through the
+    grid-offset flash op, which skips the KV tiles a causal or windowed q
+    tile cannot see; ``train=True`` runs that forward through
+    ``chunked_attention``."""
     h = rmsnorm(x, p.norm, cfg.norm_eps)
     q, k, v = _project_qkv(p, h, cfg, positions)
     window = cfg.window if local else None
@@ -148,19 +212,26 @@ def _attn_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig,
         out = flash_attention_positions(
             q, k, v, q_positions=pos0, kv_positions=pos0, causal=cfg.causal,
             window=window)
+    elif train:
+        out = chunked_attention(
+            q, k, v, q_positions=positions[0], kv_positions=positions[0],
+            causal=cfg.causal, window=window, q_block=cfg.attn_q_block,
+            kv_block=cfg.attn_kv_block)
     else:
         out = flash_attention(q, k, v, causal=cfg.causal, window=window)
     return x + _out_proj(out, p.wo), k, v
 
 
 def attn_block(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
-               local: bool) -> torch.Tensor:
+               local: bool, train: bool = False) -> torch.Tensor:
     """Pre-norm residual attention over a full sequence at positions
-    0..S-1, no cache and no padding mask.  x (B,S,D)."""
+    0..S-1, no cache and no padding mask.  x (B,S,D).  ``train=True``
+    attends through ``chunked_attention`` (autograd), the default through
+    the grid-offset flash op (inference)."""
     B, S, _ = x.shape
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
-    out, _, _ = _attn_forward(p, x, cfg, positions, local)
+    out, _, _ = _attn_forward(p, x, cfg, positions, local, train=train)
     return out
 
 

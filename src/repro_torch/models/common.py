@@ -142,7 +142,9 @@ class Stage:
 
 
 def frozen_zeros(*shape: int, dtype, device=None) -> nn.Parameter:
-    """A zero-filled inference parameter (no gradient)."""
+    """A zero-filled parameter, created without ``requires_grad``: a
+    training step turns it on for its own backward
+    (``training/train.py::value_and_grad``)."""
     return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
                         requires_grad=False)
 

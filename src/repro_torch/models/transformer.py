@@ -8,8 +8,13 @@ MLP block of the four gateway tiers is ported; other mixers raise.
 
 The functions keep the JAX signatures with the model in the ``params``
 slot.  ``forward`` runs the full-sequence path (``run_layers``, shared with
-the safety encoder); ``prefill`` and ``decode_step`` write the KV cache in
-place.
+the safety encoder), through the kernels for inference or, with
+``train=True``, through ``attention.chunked_attention`` for autograd
+(``loss_fn``, the training loss); ``prefill`` and ``decode_step`` write the
+KV cache in place.  Parameters are created without ``requires_grad``; a
+training step turns it on for the step's own backward only
+(``training/train.py::value_and_grad``), so the weights it hands to serving
+are frozen as before.
 
 The paged block pool (``serving/cache_manager.py`` owns the allocator) is a
 list of one ``attention.KVPool`` per layer, and a dispatch sees it as the
@@ -60,6 +65,12 @@ class Transformer(nn.Module):
     def head(self) -> torch.Tensor:
         """(D, V): the tied ``embed.T`` or the untied ``lm_head``."""
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
+
+    def forward(self, batch: dict, *, train: bool = False):
+        """``forward(self, self.cfg, batch, train=train)``: lets
+        ``torch.func.functional_call`` run the model on substituted
+        parameters (``models/lora.py::merge``)."""
+        return forward(self, self.cfg, batch, train=train)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -130,25 +141,54 @@ def _logits(params: Transformer, cfg: ModelConfig,
     return x @ params.head().to(x.dtype)
 
 
-def run_layers(layers: nn.ModuleList, x: torch.Tensor,
-               cfg: ModelConfig) -> torch.Tensor:
+def run_layers(layers: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
+               *, train: bool = False) -> torch.Tensor:
     """Every layer's full-sequence block over x (B,S,D), in layer order: the
     counterpart of the JAX ``_run_stage`` over all stages (attention at
-    positions 0..S-1, no cache)."""
+    positions 0..S-1, no cache).  ``train=True`` attends through
+    ``attention.chunked_attention``, differentiable by autograd."""
     for layer, (mixer, _) in zip(layers, cfg.layer_plan()):
         x = attention.attn_block(layer.mixer, x, cfg,
-                                 local=(mixer == "attn_local"))
+                                 local=(mixer == "attn_local"), train=train)
         x = ffn.mlp_block(layer.ffn, x, cfg)
     return x
 
 
-def forward(params: Transformer, cfg: ModelConfig,
-            batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
+            train: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward -> (logits (B,S,V), moe_aux = 0)."""
     tokens = batch["tokens"]
-    x = run_layers(params.layers, embed_inputs(params, cfg, batch), cfg)
+    x = run_layers(params.layers, embed_inputs(params, cfg, batch), cfg,
+                   train=train)
     return (_logits(params, cfg, x),
             torch.zeros((), dtype=torch.float32, device=tokens.device))
+
+
+def loss_fn(params: Transformer, cfg: ModelConfig, batch: dict, *,
+            aux_coef: float = 0.01) -> tuple[torch.Tensor, dict]:
+    """Next-token cross entropy over the training forward: logsumexp -
+    gold logit under ``loss_mask``, in f32.  Returns (loss, metrics
+    {nll, moe_aux, tokens}), the metrics detached.  The reference takes
+    the gold logit with an iota compare (a gather on a vocab-sharded dim
+    would all-gather the logits); on one device a gather is the same
+    number."""
+    logits, aux = forward(params, cfg, batch, train=True)
+    labels = batch["labels"].long()
+    mask = batch.get("loss_mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    if logits.shape[1] != labels.shape[1]:
+        logits = logits[:, logits.shape[1] - labels.shape[1]:]
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, labels[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    denom = mask.sum().clamp_min(1.0)
+    loss = nll.sum() / denom + aux_coef * aux
+    metrics = {"nll": (nll.sum() / denom).detach(), "moe_aux": aux.detach(),
+               "tokens": mask.sum()}
+    return loss, metrics
 
 
 def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,

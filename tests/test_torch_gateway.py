@@ -57,7 +57,8 @@ from repro_torch.core.cost_model import LatencyParams as TLP  # noqa: E402
 from repro_torch.core.router import (CLOUD, CLOUD_SAFETY, LOCAL,  # noqa: E402
                                      REFUSE, SWARM)
 from repro_torch.core.router import RouterConfig as TRC  # noqa: E402
-from repro_torch.launch.serve import build_gateway  # noqa: E402
+from repro_torch.launch.serve import \
+    gateway_from_weights as build_gateway  # noqa: E402
 from repro_torch.models import transformer as TT  # noqa: E402
 from repro_torch.serving import faults as TF  # noqa: E402
 from repro_torch.serving import gateway as TG  # noqa: E402

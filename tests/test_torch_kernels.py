@@ -461,3 +461,79 @@ def test_blocking_matches_reference():
             jblocking.uncertainty_blocks(8, dim)
     with pytest.raises(ValueError):
         blocking.snap_block(0, 8)
+
+
+# ---------------------------------------------------------------------------
+# no backward: every entry point refuses operands that require grad
+# ---------------------------------------------------------------------------
+
+def _guarded_call(name: str, device, requires_grad: bool):
+    """(launch counts, a call of entry point ``name``) on small bf16
+    operands on ``device``, every float operand with ``requires_grad``."""
+    g = torch.Generator().manual_seed(0)
+
+    def f(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g).to(
+            device=device, dtype=dtype).requires_grad_(requires_grad)
+
+    def i32(vals):
+        return torch.tensor(vals, dtype=torch.int32, device=device)
+
+    B, S, H, K, D = 2, 8, 4, 2, 16
+    if name == "flash_attention_positions":
+        q, k, v, pos = f(B, S, H, D), f(B, S, K, D), f(B, S, K, D), \
+            i32(list(range(S)))
+        return fops.counts, lambda: fops.flash_attention_positions(
+            q, k, v, q_positions=pos, kv_positions=pos)
+    if name == "flash_attention":
+        q, k, v = f(B, S, H, D), f(B, S, K, D), f(B, S, K, D)
+        return fops.grid_counts, lambda: fops.flash_attention(q, k, v)
+    if name == "decode_attention":
+        q, k, v = f(B, K, H // K, D), f(B, S, K, D), f(B, S, K, D)
+        pos, idx = i32([list(range(S))] * B), i32([S - 1] * B)
+        return dops.counts, lambda: dops.decode_attention(q, k, v, pos, idx)
+    if name == "paged_decode_attention":
+        N, L, nb = 4, 16, 2
+        q, kp, vp = f(B, K, H // K, D), f(N, L, K, D), f(N, L, K, D)
+        pos = i32([list(range(L))] * N)
+        table, idx = i32([[0, 1], [2, 3]]), i32([L - 1] * B)
+        return dops.paged_counts, lambda: dops.paged_decode_attention(
+            q, kp, vp, pos, table, idx)
+    logits, tok = f(B, 1, 512, dtype=torch.float32), i32([[3], [7]])
+    return uops.counts, lambda: uops.uncertainty(logits, tok, k=10)
+
+
+GUARDED = ("flash_attention_positions", "flash_attention", "decode_attention",
+           "paged_decode_attention", "swarm_uncertainty")
+
+
+def _check_refuses_autograd(name: str, device):
+    counts, call = _guarded_call(name, device, True)
+    counts.reset()
+    with pytest.raises(RuntimeError, match="has no backward"):
+        call()
+    assert counts.launches == counts.plain == 0
+    with torch.no_grad():
+        call()
+    _, frozen = _guarded_call(name, device, False)
+    frozen()                             # grad mode, no operand needs grad
+    return counts
+
+
+@pytest.mark.parametrize("name", GUARDED)
+def test_wrappers_refuse_autograd(name):
+    """On the CPU: the refusal comes before the plain version runs; under
+    no_grad, or with no operand that requires grad, the call goes
+    through."""
+    counts = _check_refuses_autograd(name, torch.device("cpu"))
+    assert counts.plain == 2 and counts.launches == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", GUARDED)
+def test_kernels_refuse_autograd(cuda, name):
+    """On the card: no launch for operands that require grad in grad
+    mode; the same operands launch under no_grad."""
+    counts = _check_refuses_autograd(name, cuda)
+    torch.cuda.synchronize()
+    assert counts.launches == 2 and counts.plain == 0

@@ -37,7 +37,8 @@ from repro.serving.swarm import SwarmExecutor as JSX  # noqa: E402
 from repro.core.cost_model import LatencyParams as JLP  # noqa: E402
 from repro_torch.core.router import SWARM  # noqa: E402
 from repro_torch.kernels.decode_attention import ops as dops  # noqa: E402
-from repro_torch.launch.serve import build_gateway  # noqa: E402
+from repro_torch.launch.serve import \
+    gateway_from_weights as build_gateway  # noqa: E402
 
 ENGINE_KW = dict(paged=True, pool_blocks=1024)
 
