@@ -51,6 +51,25 @@ Phases (any failure exits nonzero; nothing is caught and turned into 0):
    handle (no prefill), and int8/fp8 pools against the bf16 pool;
 5. ``generate`` and ``generate_stepwise`` on ``llama3-8b`` at full width,
    cut to the 4 layers of the gateway's cloud tier;
+4g. every decode dispatch on the card is one replay of a captured CUDA
+   graph (the engines' default, so phases 4-8 and T3 decode through
+   graphs and their launch gates read the counts each replay credits):
+   the graph route held BITWISE to the eager loop (an engine with
+   ``_graphs = None``) on the same weights — tokens, logits, Eq. 2-3
+   means and the returned state (a monolithic cache too) of phase 4's
+   ``generate`` and its ``_extend``, a sampled ``generate`` (seed 0), the
+   paged kernel and gather routes (their served pool blocks too),
+   ``llama3-8b`` at 4 layers, ``serve()``; then decode ms/step and busy
+   share (``torch.profiler``) of eager and graph in turns (eager, graph,
+   graph, eager), capture seconds, graphs held, the memory captures keep
+   and the arena's copy-in/out bytes;
+4f. ``serve()`` under a ``FaultPlan`` at the probe's full width on a paged
+   probe: two famine rounds, a forced eviction of a warm handle (cold
+   re-prefill from ``cold_prompt``), two slot failures (requeue) and a
+   10 s decode straggle on a 1 ms/step clock that expires the request
+   with a deadline: every request retires, the expired one shed, the
+   others tie-aware equal to phase 4's ``generate`` (the evicted one to a
+   cold ``generate`` of its conversation), the counters as injected;
 6. the tie budget: stepwise-vs-generate readings over several prompt seeds
    for both models must lie inside it, and a generate whose decode never
    writes its K/V to the cache must lie outside it (milder wrong paths are
@@ -63,7 +82,8 @@ Phases (any failure exits nonzero; nothing is caught and turned into 0):
    at the median s of the study workload; ``answer_batch`` on the 50-query
    study workload (every route must occur, u and s in [0, 1], one probe
    prefill per batch), then ``run_edge_only`` and ``run_cloud_only``, with
-   the wall time per batch and per tier; then (7p) the same gateway on
+   the wall time per batch and per tier, the graph captures the counted
+   batch paid and a second batch's time; then (7p) the same gateway on
    paged engines (``engine_kw=dict(paged=True, pool_blocks=1024)``, as the
    reference CLI's ``--paged``): the same ``s``, ``u`` within 1e-2 and
    every route that differs from phase 7's at a ``u`` within 1e-2 of a
@@ -102,14 +122,16 @@ Phase 3 also holds rows 1-3 and 5 at the trained gateway's shapes (every
 smoke tier's heads at head_dim 16, B=50, S=8, T=128, V=512) before T3
 serves them.
 
-Every path of phases 4-8 runs with the kernels' launch counts set to 0 just
-before it and read just after: each kernel the path runs must have launched,
-and no plain version may have run.  The ``kernels`` line gives the counts of
-the main path's runs — rows 1-4 from one gateway ``answer_batch``, row 5
-from one paged gateway ``answer_batch`` (7p) — with every path's counts
-beside them; its times and bounds are those of phase 3's case at the probe
-tier's gateway shape (rows 1-3 and 5) and at the safety encoder's (row 4),
-and its error the largest over all cases.
+Every path of phases 4-8 (4g's bitwise pairs aside) runs with the
+kernels' launch counts set to 0 just before it and read just after: each
+kernel the path runs must have launched, and no plain version may have
+run; a replayed graph credits the launches its capture recorded, so a
+graphed path counts what the eager loop counts.  The ``kernels`` line
+gives the counts of the main path's runs — rows 1-4 from one gateway
+``answer_batch``, row 5 from one paged gateway ``answer_batch`` (7p) —
+with every path's counts beside them; its times and bounds are those of
+phase 3's case at the probe tier's gateway shape (rows 1-3 and 5) and at
+the safety encoder's (row 4), and its error the largest over all cases.
 
 Without a CUDA device, or without the repository's sources beside this
 file, it exits nonzero and prints no result.  Details of the run go to
@@ -851,19 +873,47 @@ def main():
         prompts[i, S - len(p):] = p                 # left-padded with PAD=0
     max_new = 32
 
-    probe.generate(prompts[:2], 2)                  # warm up cuBLAS et al.
+    def decode_rate(eng):
+        """Decode ms/step of ``eng`` at B=8 with no prefill in the window:
+        a ``max_new``-token extension of a fresh 1-token session, timed
+        unprofiled, then profiled for its device kernel time (a share well
+        below 1 means the host holds the card).  Returns (wall ms/step,
+        device ms/step, busy share or None, the profile's top kernels)."""
+        def session():
+            st = eng.generate(prompts, 1, return_state=True)["state"]
+            torch.cuda.synchronize()
+            return st
+        eng.generate(None, max_new, state=session())    # warm up, capture
+        st = session()
+        t0 = time.perf_counter()
+        eng.generate(None, max_new, state=st)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / max_new * 1e3
+        st = session()
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            eng.generate(None, max_new, state=st)
+            torch.cuda.synchronize()
+        ka = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        dev_ms = sum(e.self_device_time_total for e in ka) / max_new / 1e3
+        top = sorted(((e.self_device_time_total, e.key, e.count)
+                      for e in ka), reverse=True)[:6]
+        return ms, dev_ms, (dev_ms / ms if dev_ms > 0 else None), top
+
+    # warm up cuBLAS et al. and capture the graphs the timed calls replay
+    # (a capture is not a dispatch)
+    for n in (1, max_new):
+        probe.generate(prompts, n)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    probe.generate(prompts, 1)
-    torch.cuda.synchronize()
-    t_one = time.perf_counter() - t0
     t0 = time.perf_counter()
     res = counted("smollm generate", SERVE_KERNELS,
                   lambda: probe.generate(prompts, max_new),
                   forbid=("paged_decode_attention",))
     t_gen = time.perf_counter() - t0
-    per_tok = (t_gen - t_one) / (max_new - 1)
-    t_prefill = t_one - per_tok
+    per_tok, step_dev_ms, busy, top = decode_rate(probe)
+    t_prefill = t_gen - max_new * per_tok / 1e3
     toks, u = res["tokens"], res["u"]
     logits = res["logits"].float().cpu().numpy()
     check(toks.shape == (8, max_new) and toks.min() >= 0 and toks.max() < V,
@@ -871,38 +921,24 @@ def main():
     check(bool(np.isfinite(logits).all()), "generate logits not finite")
     check(bool(np.isfinite(u).all() and (u >= 0).all() and (u <= 1).all()),
           f"u outside [0, 1]: {u}")
-    print(f"[4] generate B=8 S={S} max_new={max_new}: prefill "
-          f"{t_prefill * 1e3:.1f} ms, decode {per_tok * 1e3:.2f} ms/step, "
+    print(f"[4] generate B=8 S={S} max_new={max_new}: {t_gen * 1e3:.1f} ms, "
+          f"of which prefill ~{t_prefill * 1e3:.1f} ms; decode "
+          f"{per_tok:.2f} ms/step (a decode-only extension), "
           f"{8 * max_new / t_gen:.1f} tokens/s end to end")
-
-    # where a decode step's time goes: device kernel time from the profiler
-    # (difference of a 9-step and a 1-step generate) against the unprofiled
-    # wall time per step; a share well below 1 means the host holds the card
-    dev_us, top = {}, []
-    for steps in (1, 9):
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            probe.generate(prompts, steps)
-            torch.cuda.synchronize()
-        ka = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_us[steps] = sum(e.self_device_time_total for e in ka)
-        top = sorted(((e.self_device_time_total, e.key, e.count)
-                      for e in ka), reverse=True)[:6]
-    step_dev_ms = (dev_us[9] - dev_us[1]) / 8 / 1e3
-    busy = step_dev_ms / (per_tok * 1e3) if dev_us[9] > 0 else None
     print(f"[4] decode step: device kernel time {step_dev_ms:.3f} ms of "
-          f"{per_tok * 1e3:.2f} ms wall (busy share "
+          f"{per_tok:.2f} ms wall (busy share "
           f"{'not measured' if busy is None else f'{busy:.3f}'})")
     for us, key, n in top:
-        print(f"[4]   9-step generate: {us / 1e3:9.3f} ms in {n:5d} x "
-              f"{key[:70]}")
+        print(f"[4]   {max_new}-step extension: {us / 1e3:9.3f} ms in "
+              f"{n:5d} x {key[:70]}")
 
+    def serve8():
+        return probe.serve(
+            [Request(rid=i, prompt=prompts[i].tolist(), max_new=max_new)
+             for i in range(8)], n_slots=4, decode_chunk=8)
+    serve8()                                        # capture its chunk
     t0 = time.perf_counter()
-    fin = counted("smollm serve", SERVE_KERNELS, lambda: probe.serve(
-        [Request(rid=i, prompt=prompts[i].tolist(), max_new=max_new)
-         for i in range(8)], n_slots=4, decode_chunk=8))
+    fin = counted("smollm serve", SERVE_KERNELS, serve8)
     t_serve = time.perf_counter() - t0
     check(sorted(r["rid"] for r in fin) == list(range(8)),
           "serve lost a request")
@@ -942,10 +978,10 @@ def main():
 
     report["probe"] = {
         "prompt_lengths": [int(n) for n in lens], "max_new": max_new,
-        "prefill_ms": t_prefill * 1e3, "decode_ms_per_step": per_tok * 1e3,
+        "prefill_ms": t_prefill * 1e3, "decode_ms_per_step": per_tok,
         "generate_s": t_gen, "tokens_per_s": 8 * max_new / t_gen,
         "decode_step_device_ms": step_dev_ms, "decode_busy_share": busy,
-        "profile_top_9step": [(us / 1e3, key, n) for us, key, n in top],
+        "profile_top_extension": [(us / 1e3, key, n) for us, key, n in top],
         "serve_s": t_serve, "stepwise_s": t_step,
         "serve_tie_flips": flips_serve, "stepwise_tie_flips": flips_step,
         "serve_tie_reading": read_serve, "stepwise_tie_reading": read_step,
@@ -965,7 +1001,7 @@ def main():
     pprobe = paged_engine("probe-paged")
     gather_probe = paged_engine("probe-gather", attn_decode_impl="gather")
     for eng in (pprobe, gather_probe):
-        eng.generate(prompts[:2], 2)                # warm up
+        eng.generate(prompts, max_new)              # warm up, capture
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     pres = counted("paged smollm generate (kernel)", PAGED_SERVE,
@@ -1086,7 +1122,7 @@ def main():
                          device=dev)
     cloud = InferenceEngine("cloud-fm", lcfg, lmodel, ucfg)
     lp = prompts               # ids < 49152 are valid llama3 tokens too
-    cloud.generate(lp[:2], 2)
+    cloud.generate(lp, 16)                          # warm up, capture
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     lres = counted("llama3 generate", SERVE_KERNELS,
@@ -1108,6 +1144,167 @@ def main():
     report["cloud"] = {"generate_s": t_llama, "stepwise_tie_flips": flips_l,
                        "stepwise_tie_reading": read_l}
     report["launches_by_path"] = path_launches
+
+    # ---- 4g. one graph replay per decode dispatch ----------------------
+    # every engine above decodes through captured CUDA graphs (its
+    # default on the card); here each route is held bitwise to the eager
+    # loop, the oracle (``_graphs = None``), on the same weights: tokens,
+    # logits, the Eq. 2-3 means, the returned state (a monolithic one's
+    # cache too) and a paged engine's served pool blocks; then timed
+    def eager_twin(eng, **kw):
+        o = InferenceEngine(eng.name + "-eager", eng.cfg, eng.params,
+                            eng.ucfg, **kw)
+        o._graphs = None
+        return o
+
+    def state_tensors(st):
+        ts = [st.pos, st.cur, st.last]
+        if isinstance(st.cache, list):
+            ts += [t for c in st.cache for t in c]
+        return ts
+
+    def bitwise(label, a, b):
+        same = (np.array_equal(a["tokens"], b["tokens"])
+                and torch.equal(a["logits"], b["logits"])
+                and all(np.array_equal(a[k], b[k])
+                        for k in ("u", "h_mean", "v_mean")))
+        if "state" in a:
+            same = same and all(torch.equal(x, y) for x, y in zip(
+                state_tensors(a["state"]), state_tensors(b["state"])))
+        check(same, f"4g: {label}: the graph route differs from the eager "
+                    "loop")
+
+    def pools_bitwise(label, a, b):
+        check(all(torch.equal(x, y)
+                  for pa, pb in zip(a.pool.arrays, b.pool.arrays)
+                  for x, y in zip(pa.served(), pb.served())
+                  if x is not None),
+              f"4g: {label}: the pools differ after the graph route")
+
+    def session_bitwise(label, g, e, pr, n, greedy=True, pools=False):
+        """generate(return_state) then an _extend of 8, graph vs eager."""
+        a = g.generate(pr, n, greedy=greedy, seed=0, return_state=True)
+        b = e.generate(pr, n, greedy=greedy, seed=0, return_state=True)
+        bitwise(label, a, b)
+        a2 = g.generate(None, 8, state=a["state"], greedy=greedy,
+                        return_state=True)
+        b2 = e.generate(None, 8, state=b["state"], greedy=greedy,
+                        return_state=True)
+        bitwise(label + " + _extend 8", a2, b2)
+        if pools:
+            pools_bitwise(label, g, e)
+            for eng, st in ((g, a2["state"]), (e, b2["state"])):
+                eng.release(st)
+        print(f"[4g] {label}: bitwise the eager loop (and its _extend)")
+        return a["state"].max_len
+
+    t_phase = time.perf_counter()
+    oracle = eager_twin(probe)
+    t_cache = session_bitwise("smollm generate", probe, oracle, prompts,
+                              max_new)
+    session_bitwise("smollm sampled generate (seed 0)", probe, oracle,
+                    prompts, max_new, greedy=False)
+    for impl in ("kernel", "gather"):
+        g = paged_engine(f"probe-{impl}", attn_decode_impl=impl)
+        session_bitwise(f"paged smollm generate ({impl})", g,
+                        eager_twin(g, paged=True, pool_blocks=256,
+                                   attn_decode_impl=impl),
+                        prompts, max_new, pools=True)
+        del g
+    session_bitwise("llama3-8b 4 layers generate", cloud,
+                    eager_twin(cloud), lp, 16)
+    fins = []
+    for eng in (probe, oracle):
+        fins.append(sorted(eng.serve(
+            [Request(rid=i, prompt=prompts[i].tolist(), max_new=max_new)
+             for i in range(8)], n_slots=4, decode_chunk=8),
+            key=lambda r: r["rid"]))
+    check(all(np.array_equal(a["tokens"], b["tokens"]) and a["u"] == b["u"]
+              for a, b in zip(*fins)),
+          "4g: serve through graphs differs from the eager loop")
+    print("[4g] smollm serve: bitwise the eager loop")
+
+    # decode ms/step and busy share, eager and graph in turns
+    # (``decode_rate``: a decode-only extension, no prefill in the window)
+    turns = []
+    for name, eng in (("eager", oracle), ("graph", probe),
+                      ("graph", probe), ("eager", oracle)):
+        ms, dev_ms, busy_g, _ = decode_rate(eng)
+        turns.append({"route": name, "ms_per_step": ms,
+                      "device_ms_per_step": dev_ms, "busy_share": busy_g})
+        print(f"[4g] decode B=8 ({name}): {ms:.3f} ms/step, device "
+              f"{dev_ms:.3f} ms/step, busy share "
+              f"{'not measured' if busy_g is None else f'{busy_g:.3f}'}")
+    gs = dict(probe._graphs.stats)
+    io_b = 2 * sum(t.nbytes for t in state_tensors(
+        probe.generate(prompts, 1, return_state=True)["state"])[3:])
+    print(f"[4g] probe graphs: {len(probe._graphs)} held, "
+          f"{gs['captures']} captures in {gs['capture_s']:.2f} s "
+          f"({gs['capture_s'] / max(gs['captures'], 1):.3f} s each), "
+          f"{gs['pool_bytes'] / 1e6:.1f} MB kept by captures (outputs), "
+          f"{gs['replays']} replays, arena copy in+out {io_b / 1e6:.1f} MB "
+          f"a dispatch at a {t_cache}-slot cache; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    report["graphs"] = {"turns": turns, "probe_stats": gs,
+                        "probe_graphs_held": len(probe._graphs),
+                        "arena_io_bytes_per_dispatch": io_b,
+                        "cache_len": t_cache}
+    del oracle
+
+    # ---- 4f. serve() under injected faults, at the probe's full width ---
+    # famine for two admission rounds, one forced eviction of a warm
+    # handle (cold re-prefill from cold_prompt), two slot failures
+    # (requeue), a 10 s decode straggle on a 1 ms/step clock that expires
+    # the one request with a deadline; on a paged probe through row 5
+    from repro_torch.serving.faults import FaultEvent, FaultPlan
+    fprobe = paged_engine("probe-faults")
+    sys_p = prompts[0:1, S - lens[0]:]
+    span = rng.integers(1, V, 12).astype(np.int32)
+    warm = fprobe.absorb(sys_p)
+    cold_full = np.concatenate([sys_p[0], span])
+    plan = FaultPlan([FaultEvent("pool", "famine", count=2),
+                      FaultEvent("session", "evict"),
+                      FaultEvent("slot", "fail", count=2),
+                      FaultEvent("decode", "straggle", delay_s=10.0)])
+    freqs = ([Request(rid=i, prompt=prompts[i].tolist(), max_new=max_new)
+              for i in range(8)]
+             + [Request(rid=8, prompt=span.tolist(), state=warm,
+                        cold_prompt=cold_full.tolist(), max_new=16),
+                Request(rid=9, prompt=prompts[1].tolist(), max_new=max_new,
+                        deadline_ms=5000.0)])
+    c0 = dict(fprobe.counters)
+    t0 = time.perf_counter()
+    ffin = counted("paged serve under faults", PAGED_SERVE,
+                   lambda: fprobe.serve(freqs, n_slots=4, decode_chunk=8,
+                                        faults=plan, step_time_ms=1.0),
+                   forbid=("decode_attention",))
+    t_fault = time.perf_counter() - t0
+    dc = {k: fprobe.counters[k] - c0[k] for k in (
+        "famine_deferred", "requeued", "reprefill_cold", "expired", "shed")}
+    byrid = {r["rid"]: r for r in ffin}
+    check(sorted(byrid) == list(range(10)), f"4f: requests lost: "
+                                            f"{sorted(byrid)}")
+    check(byrid[9].get("shed") and not any(
+        byrid[i].get("shed") for i in range(9)),
+        "4f: the expired request is not shed, or another one is")
+    check(dc["requeued"] == 2 and dc["reprefill_cold"] == 1
+          and dc["expired"] == 1 and dc["famine_deferred"] > 0,
+          f"4f: fault counters {dc}")
+    f_read = tie_aware("4f: faulted serve vs generate",
+                       [byrid[i]["tokens"] for i in range(8)], toks, logits)
+    cref = probe.generate(cold_full[None], 16)
+    w_read = tie_aware("4f: evicted warm request vs a cold generate",
+                       byrid[8]["tokens"][None], cref["tokens"],
+                       cref["logits"].float().cpu().numpy())
+    check(fprobe.pool.live_sessions == 0, "4f: a handle outlived serve()")
+    print(f"[4f] serve of 10 requests under {plan.counters}: {t_fault:.2f} "
+          f"s, counters {dc}; every request retired, rid 9 expired shed; "
+          f"tie-aware equal to generate ({f_read[0]} rows diverged at a "
+          f"tie; evicted warm request {w_read[0]})")
+    report["faults"] = {"serve_s": t_fault, "counters": dc,
+                        "plan": dict(plan.counters),
+                        "tie": list(f_read), "warm_tie": list(w_read)}
+    del fprobe
 
     # ---- 6. the tie budget between sound and wrong paths ---------------
     @contextlib.contextmanager
@@ -1167,6 +1364,9 @@ def main():
         wrong = {}
         rl = ref["logits"].float().cpu().numpy()
         every = range(n_layers)
+        # the wrong paths patch the model's Python, which a replay of an
+        # already captured graph would not run: they decode eagerly
+        graphed, engine._graphs = engine._graphs, None
         for name, ctx in (
                 ("no decode step writes its K/V",
                  drop_cache_write(n_layers, None, every)),
@@ -1179,6 +1379,7 @@ def main():
                 mut = engine.generate(pr, steps)
             wrong[name] = tie_reading(mut["tokens"], ref["tokens"], rl,
                                       mut["logits"].float().cpu().numpy())
+        engine._graphs = graphed
         return sound, wrong
 
     calib = {}
@@ -1276,8 +1477,22 @@ def main():
                 del eng.generate               # back to the class's method
 
     members = [gprobe] + [m for m in gw.swarm.members if m is not gprobe]
+
+    def captures(engines):
+        return sum(e._graphs.stats["captures"] for e in engines)
+
+    def timed_again(g):
+        """A second batch from the same fresh state: host time varies."""
+        g.reset_fault_state()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        g.answer_batch(queries)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
     gw.answer_batch(queries)                     # warm up every tier
     gw.reset_fault_state()
+    n_cap = captures(members + [gcloud])
     before = dict(gprobe.counters)
     with timed_tiers(members + [gcloud]):
         t0 = time.perf_counter()
@@ -1286,6 +1501,7 @@ def main():
                       forbid=("paged_decode_attention",))
         t_batch = time.perf_counter() - t0
     batch_tiers = dict(tier_s)
+    n_cap = captures(members + [gcloud]) - n_cap
     dec = log.decision
     routes = {n: int((dec == c).sum())
               for c, n in enumerate(router.DECISION_NAMES)}
@@ -1309,8 +1525,10 @@ def main():
     check(n_grid == scfg.num_layers,
           f"gateway: the safety encoder launched {n_grid} times, want "
           f"{scfg.num_layers} (one per layer)")
-    print(f"[7] answer_batch on {len(queries)} queries: {t_batch:.3f} s; "
-          f"routes {routes}; tiers " + ", ".join(
+    t_batch2 = timed_again(gw)
+    print(f"[7] answer_batch on {len(queries)} queries: {t_batch:.3f} s "
+          f"(again: {t_batch2:.3f} s; {n_cap} graph captures in the counted "
+          f"batch); routes {routes}; tiers " + ", ".join(
               f"{n} {t:.3f} s" for n, t in batch_tiers.items()))
 
     t0 = time.perf_counter()
@@ -1333,7 +1551,8 @@ def main():
         "tiers": {n: {"arch": tcfgs[n].name, "layers": tcfgs[n].num_layers,
                       "weights_gb": weight_gb[n]} for n in tcfgs},
         "tau_low": rc.tau_low, "tau_high": rc.tau_high, "sigma": rc.sigma,
-        "answer_batch_s": t_batch, "tier_s": batch_tiers,
+        "answer_batch_s": t_batch, "answer_batch_again_s": t_batch2,
+        "captures_in_batch": n_cap, "tier_s": batch_tiers,
         "edge_only_s": t_edge, "cloud_only_s": t_cloud, "routes": routes,
         "faults": log.faults, "cloud_usage": log.cloud_usage(),
         "privacy": {k: float(v) for k, v in pm._asdict().items()},
@@ -1357,6 +1576,7 @@ def main():
     check(pgprobe.pool.blocks_in_use == p_base,
           "7p: the probe's pool kept blocks after a batch")
     pgw.reset_fault_state()
+    n_pcap = captures(pmembers + [pgcloud])
     before_p = dict(pgprobe.counters)
     tier_s.clear()
     tier_k5.clear()
@@ -1370,6 +1590,7 @@ def main():
     check(pgprobe.pool.blocks_in_use == p_base
           and pgprobe.pool.live_sessions == 0,
           "7p: the probe's pool kept blocks or handles after a batch")
+    n_pcap = captures(pmembers + [pgcloud]) - n_pcap
     pdec = plog_gw.decision
     proutes = {n: int((pdec == c).sum())
                for c, n in enumerate(router.DECISION_NAMES)}
@@ -1407,9 +1628,12 @@ def main():
     check(n_ans == 0 or flipped > 0,
           f"7p: {n_ans} queries routed alike got other answers with no tier "
           "diverging at a tie")
+    t_pbatch2 = timed_again(pgw)
     in_use = {e.name: e.pool.blocks_in_use for e in pmembers + [pgcloud]}
     print(f"[7p] paged gateway ({pool_gb:.2f} GB of pools): answer_batch "
-          f"{t_pbatch:.3f} s (monolithic {t_batch:.3f} s); routes {proutes} "
+          f"{t_pbatch:.3f} s (again: {t_pbatch2:.3f} s; {n_pcap} graph "
+          f"captures in the counted batch; monolithic {t_batch:.3f} s); "
+          f"routes {proutes} "
           f"({len(moved)} moved); max |u_paged - u_mono| {du.max():.3e}; s "
           f"identical; {n_ans} routed-alike answers differ ({flipped} tier "
           f"rows diverged at a tie); tiers " + ", ".join(
@@ -1417,6 +1641,7 @@ def main():
               for n, t in pbatch_tiers.items()) + f"; blocks in use {in_use}")
     report["paged_gateway"] = {
         "pool_gb": pool_gb, "answer_batch_s": t_pbatch,
+        "answer_batch_again_s": t_pbatch2, "captures_in_batch": n_pcap,
         "mono_answer_batch_s": t_batch, "tier_s": pbatch_tiers,
         "tier_row5_launches": pk5, "routes": proutes,
         "moved": moved.tolist(), "max_du": float(du.max()),

@@ -94,17 +94,48 @@ def refuse_autograd(name: str, *tensors):
             "through the training route (attn_block(..., train=True))")
 
 
+_COUNTERS: list["LaunchCounts"] = []    # every wrapper's, in creation order
+
+
 class LaunchCounts:
     """Per-wrapper counters: kernel launches, and calls that ran the plain
-    PyTorch version instead (CPU tensors)."""
+    PyTorch version instead (CPU tensors).  Every instance is registered,
+    so a captured decode graph can take back what its capture counted and
+    credit it on each replay (``snapshot``, ``since``, ``restore``,
+    ``credit``; ``serving/graphs.py``)."""
 
     def __init__(self):
         self.launches = 0
         self.plain = 0
+        _COUNTERS.append(self)
 
     def reset(self):
         self.launches = 0
         self.plain = 0
+
+
+def snapshot() -> list[tuple[int, int]]:
+    """(launches, plain) of every registered counter."""
+    return [(c.launches, c.plain) for c in _COUNTERS]
+
+
+def since(snap: list[tuple[int, int]]) -> list[tuple[int, int]]:
+    """What every counter added after ``snap``."""
+    return [(c.launches - a, c.plain - b)
+            for c, (a, b) in zip(_COUNTERS, snap)]
+
+
+def restore(snap: list[tuple[int, int]]) -> None:
+    for c, (a, b) in zip(_COUNTERS, snap):
+        c.launches, c.plain = a, b
+
+
+def credit(delta: list[tuple[int, int]]) -> None:
+    """Add ``delta`` (from ``since``) to every counter: one replay of a
+    captured graph launches what its capture recorded."""
+    for c, (a, b) in zip(_COUNTERS, delta):
+        c.launches += a
+        c.plain += b
 
 
 def nvcc() -> str:

@@ -192,12 +192,14 @@ def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
 
 def rope_angles(positions: torch.Tensor, head_dim: int,
                 theta: float) -> tuple[torch.Tensor, torch.Tensor]:
-    """positions (..., S) -> cos/sin (..., S, head_dim//2), f32."""
+    """positions (..., S) -> cos/sin (..., S, head_dim//2), f32.  No
+    host-to-device copy (theta is filled on the device), so a captured
+    decode step can run it."""
     half = head_dim // 2
     exps = -torch.arange(0, half, dtype=torch.float32,
                          device=positions.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=positions.device), exps)
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                 device=positions.device), exps)
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
 

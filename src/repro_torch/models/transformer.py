@@ -271,7 +271,9 @@ def _local_nb(cfg: ModelConfig, nb: int, block_len: int, mixer: str) -> int:
 
 def layer_table(cfg: ModelConfig, cache: dict, mixer: str) -> torch.Tensor:
     """The dispatch's table cut to a layer's view, contiguous; cut once per
-    dispatch and reused by every layer and step."""
+    dispatch and reused by every layer and step.  The cut lives in the
+    dispatch's own dict, so a captured dispatch cuts its staged table
+    inside the graph, anew on every replay."""
     table = cache["table"]
     L = cache["layers"][0].k.shape[1]
     nbl = _local_nb(cfg, table.shape[1], L, mixer)
@@ -339,7 +341,9 @@ def copy_blocks(cfg: ModelConfig, layers: list, src, dst) -> list:
 def paged_decode_carry(cfg: ModelConfig, cache: dict, steps: int) -> list:
     """Per layer an O(B * steps) delta write buffer
     (``attention.init_decode_delta``): a dispatch's decode writes, kept out
-    of the pool until ``paged_scatter_decode``."""
+    of the pool until ``paged_scatter_decode``.  Made on the table's device
+    without a host sync: inside a captured dispatch the capture allocates
+    them and every replay refills them."""
     B = cache["table"].shape[0]
     dev = cache["table"].device
     return [attention.init_decode_delta(cfg, B, steps, device=dev)

@@ -5,10 +5,13 @@ Mirrors the single-device branches of ``repro/serving/engine.py``:
 
   * **prefill** absorbs the whole (bucketed, left-padded) prompt in one
     pass that fills every layer cache;
-  * **decode** runs ``max_new`` steps as a Python loop over
-    ``transformer.decode_step`` in place of the JAX ``lax.scan``; token
-    ``t``'s probe terms come from the logits *entering* step ``t`` (the
-    logits that chose it), through the fused uncertainty op;
+  * **decode** runs ``max_new`` steps of ``transformer.decode_step`` with
+    the probe inside; token ``t``'s probe terms come from the logits
+    *entering* step ``t`` (the logits that chose it), through the fused
+    uncertainty op.  On the card a dispatch is ONE replay of a captured
+    CUDA graph (``serving/graphs.py``), as the JAX ``lax.scan`` is one
+    device call; the eager Python loop is the oracle and the CPU's route.
+    Prefill stays eager (its cache scatter syncs the host);
   * **sessions**: ``generate(..., return_state=True)`` and ``absorb`` hand
     back a ``SessionState``; ``generate(span, k, state=...)`` absorbs a new
     span by ONE continuation prefill (right-padded, the cached context
@@ -16,9 +19,11 @@ Mirrors the single-device branches of ``repro/serving/engine.py``:
     decode-only; ``state_select`` / ``fanout`` fork rows of it;
   * **serve()** streams requests through the ``ContinuousBatcher``: admit
     into free slots (a cold prefill, a warm continuation prefill, or a pure
-    decode resume), decode a chunk over all slots, retire at stop token /
-    ``max_new``, combine the Eq. 2-3 means into U at retirement, and hand
-    sessions back (``Request.return_state``);
+    decode resume), decode a chunk over all slots (one replay), retire at
+    stop token / ``max_new``, combine the Eq. 2-3 means into U at
+    retirement, and hand sessions back (``Request.return_state``); a
+    ``FaultPlan`` injects pool famine, forced eviction, slot failure and
+    decode straggles, and ``step_time_ms`` runs the deadline clock;
   * **paged** engines (``paged=True``) keep KV in a block pool
     (``serving/cache_manager.py``) read through per-session block tables:
     growth appends blocks, fan-out shares a prefix copy-on-write, and
@@ -34,9 +39,8 @@ tokens at real positions, as in the reference.
 
 The engine runs on CUDA unless the caller passes ``device="cpu"``; with
 ``device=None`` and no card it raises instead of running on the CPU.
-Fault injection (``serve(faults=)``), the deadline clock
-(``step_time_ms``), session checkpoints, ``weight_quant`` and meshes are
-not ported yet and raise ``NotImplementedError``.
+Meshes are not ported yet and raise ``NotImplementedError``; session
+checkpoints and ``weight_quant`` are not ported either.
 
 Unlike JAX's immutable arrays, the port's caches and pools are written in
 place: a monolithic ``SessionState`` is single use (extending it writes its
@@ -63,6 +67,7 @@ from repro_torch.models.common import (ModelConfig, resolve_device,
 from repro_torch.serving.cache_manager import (CachePool,
                                                EvictedSessionError,
                                                PagedHandle)
+from repro_torch.serving import graphs
 from repro_torch.serving.faults import PoolExhaustedError
 from repro_torch.serving.scheduler import ContinuousBatcher, Request
 
@@ -175,6 +180,10 @@ class InferenceEngine:
         self.device = resolve_device(self.device, "InferenceEngine")
         if self.device.type == "cuda":
             use_f32_accumulation()
+        # decode dispatches: one CUDA-graph replay each on the card
+        # (``_dispatch``); None runs the eager loop, the oracle
+        self._graphs = (graphs.DecodeGraphs(graphs.CudaGraphs(self.device))
+                        if self.device.type == "cuda" else None)
         # host-side dispatch accounting: cold prefills, warm continuation
         # prefills and decode-only resumes (the gateway tests assert the
         # swarm round adds no probe prefill), whole-cache growth copies
@@ -324,18 +333,22 @@ class InferenceEngine:
               gen: torch.Generator | None) -> torch.Tensor:
         if greedy:
             return lg.argmax(-1).to(torch.int32)
+        # torch.multinomial's one-sample draw (an exponential race over the
+        # probabilities, the same numbers), without its validity check: a
+        # host sync, which a captured dispatch cannot hold
         probs = torch.softmax(lg, dim=-1)
-        return torch.multinomial(probs, 1, generator=gen)[:, 0].to(
-            torch.int32)
+        q = torch.empty_like(probs).exponential_(1, generator=gen)
+        return (probs / q).argmax(-1).to(torch.int32)
 
     def _decode(self, cur, last, pos, steps: int, greedy: bool, gen, step,
                 with_logits: bool = True):
-        """``steps`` decode iterations; ``step(tokens (B,1), pos (B,), t)``
-        runs one model step and returns its logits (B,1,V).  cur (B,) token
-        entering the span, last (B,V) its logits, pos (B,) its position.
-        Emits the tokens (and logits) *entering* each step plus their Eq.
-        2-3 terms; returns (tokens, logits | None, h, v, (cur, last, pos)),
-        each (B, steps)."""
+        """The eager decode loop: ``steps`` iterations; ``step(tokens
+        (B,1), pos (B,), t)`` runs one model step and returns its logits
+        (B,1,V).  cur (B,) token entering the span, last (B,V) its logits,
+        pos (B,) its position.  Emits the tokens (and logits) *entering*
+        each step plus their Eq. 2-3 terms; returns (tokens, logits | None,
+        h, v, (cur, last, pos)), each (B, steps).  No host sync: a
+        dispatch captures it whole (``_dispatch``)."""
         toks, lgs, hs, vs = [], [], [], []
         for t in range(steps):
             h, v = U.uncertainty_terms(last[:, None, :], cur[:, None],
@@ -351,14 +364,62 @@ class InferenceEngine:
         return (stack(toks), stack(lgs) if with_logits else None, stack(hs),
                 stack(vs), (cur, last, pos))
 
-    def _decode_mono(self, cur, last, cache, pos, steps, greedy, gen,
-                     with_logits=True):
+    def _mono_body(self, cur, last, cache, pos, steps, greedy, gen,
+                   with_logits=True):
         """Decode over a monolithic cache (or a gathered view), in place."""
         def step(tokens, index, t):
             return T.decode_step(self.params, self.cfg, tokens, cache,
                                  index)[0]
         return self._decode(cur, last, pos, steps, greedy, gen, step,
                             with_logits)
+
+    @property
+    def _route(self) -> str:
+        """The decode route of the engine's own caches."""
+        return self.attn_decode_impl if self.paged else "mono"
+
+    def _dispatch(self, route: str, cur, last, cache, pos, steps: int,
+                  greedy: bool, gen, with_logits: bool = True):
+        """One decode dispatch of ``steps`` tokens -> (tokens, logits |
+        None, h, v, (cur, last, pos)), the port of one ``lax.scan`` call of
+        the reference's ``_decode_scan`` family.  ``route``: ``"mono"``
+        (``cache`` a per-layer ``KVCache`` list, written in place),
+        ``"kernel"`` or ``"gather"`` (``cache`` a paged dict; the pool
+        written in place).
+
+        On the card it is one replay of a captured graph
+        (``serving/graphs.py``): the caller's cur/last/pos (and table) go
+        through the graph's staging buffers, a monolithic cache through its
+        arena, and the outputs come back as clones.  ``self._graphs`` None
+        runs the eager loop: the CPU's route, and the card's oracle (a
+        test sets it)."""
+        body = _BODIES[route]
+        gen = None if greedy else gen
+        if self._graphs is None:
+            return body(self, cur, last, cache, pos, steps, greedy, gen,
+                        with_logits)
+        inputs = {"cur": cur, "last": last, "pos": pos}
+        io, fill = (), None
+        if route == "mono":
+            io = [t for c in cache for t in c]
+            width = max(c.k.shape[1] for c in cache)
+            kv, n = type(cache[0]), len(cache[0])
+
+            def run(staged, arena, g):
+                lin = [kv(*arena[i:i + n]) for i in range(0, len(arena), n)]
+                return body(self, staged["cur"], staged["last"], lin,
+                            staged["pos"], steps, greedy, g, with_logits)
+        else:
+            inputs["table"] = cache["table"]
+            width = cache["table"].shape[1]
+            fill = {"table": self.pool.n_blocks}    # a capture writes the sink
+
+            def run(staged, arena, g):
+                c = T.paged_cache(self.pool.arrays, staged["table"])
+                return body(self, staged["cur"], staged["last"], c,
+                            staged["pos"], steps, greedy, g, with_logits)
+        key = (route, int(cur.shape[0]), width, steps, greedy, with_logits)
+        return self._graphs.run(key, run, inputs, io, gen=gen, fill=fill)
 
     def _generator(self, greedy: bool, seed: int):
         if greedy:
@@ -407,12 +468,13 @@ class InferenceEngine:
         T.paged_scatter_back(self.cfg, cache, lin, start, start + s_orig)
         return cur, last, cache
 
-    def _decode_scan_kernel(self, cur, last, cache: dict, pos, steps: int,
-                            greedy: bool, gen, with_logits: bool = True):
+    def _kernel_body(self, cur, last, cache: dict, pos, steps: int,
+                     greedy: bool, gen, with_logits: bool = True):
         """Kernel-first paged decode: every layer attends the pool in place
         through the block table (``transformer.paged_decode_step``) plus
-        the dispatch's delta rows; the delta rows go into the pool once, at
-        the end of the dispatch."""
+        the dispatch's delta rows, allocated here (inside a capture: by
+        every replay); the delta rows go into the pool once, at the end of
+        the dispatch."""
         p0 = pos
         delta = T.paged_decode_carry(self.cfg, cache, steps)
 
@@ -424,17 +486,13 @@ class InferenceEngine:
         T.paged_scatter_decode(self.cfg, cache, delta, p0)
         return out
 
-    def _decode_scan_paged(self, cur, last, cache: dict, pos, steps: int,
-                           greedy: bool, gen, with_logits: bool = True):
-        """Paged decode chunk: ``"kernel"`` reads blocks in place;
-        ``"gather"`` gathers the monolithic view, decodes it and writes
-        blocks [pos, pos + steps) back."""
-        if self.attn_decode_impl == "kernel":
-            return self._decode_scan_kernel(cur, last, cache, pos, steps,
-                                            greedy, gen, with_logits)
+    def _gather_body(self, cur, last, cache: dict, pos, steps: int,
+                     greedy: bool, gen, with_logits: bool = True):
+        """Gather-path paged decode: gather the monolithic view, decode it
+        and write blocks [pos, pos + steps) back."""
         lin = T.paged_gather(self.cfg, cache)
-        out = self._decode_mono(cur, last, lin, pos, steps, greedy, gen,
-                                with_logits)
+        out = self._mono_body(cur, last, lin, pos, steps, greedy, gen,
+                              with_logits)
         T.paged_scatter_back(self.cfg, cache, lin, pos, pos + steps)
         return out
 
@@ -456,9 +514,10 @@ class InferenceEngine:
         pos = start + s_orig
         if self.attn_decode_impl == "kernel":
             T.paged_scatter_back(self.cfg, cache, lin, start, pos)
-            return self._decode_scan_kernel(cur, last, cache, pos, max_new,
-                                            greedy, gen)
-        out = self._decode_mono(cur, last, lin, pos, max_new, greedy, gen)
+            return self._dispatch("kernel", cur, last, cache, pos, max_new,
+                                  greedy, gen)
+        out = self._dispatch("mono", cur, last, lin, pos, max_new, greedy,
+                             gen)
         T.paged_scatter_back(self.cfg, cache, lin, start, pos + max_new)
         return out
 
@@ -551,9 +610,9 @@ class InferenceEngine:
                     max_new, greedy, gen)
             else:
                 cur, last, cache = self._prefill_absorb(pb, s_orig, max_len)
-                out = self._decode_mono(cur, last, cache,
-                                        self._full(B, s_orig), max_new,
-                                        greedy, gen)
+                out = self._dispatch("mono", cur, last, cache,
+                                     self._full(B, s_orig), max_new, greedy,
+                                     gen)
             offset = s_orig + max_new
         else:
             if state.batch != B:
@@ -571,9 +630,9 @@ class InferenceEngine:
                 cache, max_len = self._grown_cache(state, need)
                 cur, last, cache = self._prefill_continue(
                     pb, s_orig, state.pos, cache)
-                out = self._decode_mono(cur, last, cache,
-                                        state.pos + s_orig, max_new, greedy,
-                                        gen)
+                out = self._dispatch("mono", cur, last, cache,
+                                     state.pos + s_orig, max_new, greedy,
+                                     gen)
             offset = state.offset + s_orig + max_new
         toks, lgs, h_per, v_per, (cur, last, pos) = out
         res = self._result(toks, lgs, h_per, v_per,
@@ -609,9 +668,9 @@ class InferenceEngine:
         self.counters["decode_only"] += 1
         gen = state.gen if state.gen is not None else self._generator(
             greedy, seed)
-        run = self._decode_scan_paged if self.paged else self._decode_mono
-        toks, lgs, h_per, v_per, (cur, last, pos) = run(
-            state.cur, state.last, cache, state.pos, max_new, greedy, gen)
+        toks, lgs, h_per, v_per, (cur, last, pos) = self._dispatch(
+            self._route, state.cur, state.last, cache, state.pos, max_new,
+            greedy, gen)
         res = self._result(toks, lgs, h_per, v_per,
                            np.zeros((state.batch,), np.int64))
         offset = state.offset + max_new
@@ -765,14 +824,21 @@ class InferenceEngine:
         queued), then ``overload="shed"`` sheds the least urgent request or
         ``"raise"`` raises ``PoolExhaustedError``.  A warm request whose
         handle was evicted re-admits cold from ``Request.cold_prompt`` (or
-        its prompt), counted in ``counters["reprefill_cold"]``."""
+        its prompt), counted in ``counters["reprefill_cold"]``.
+
+        ``faults`` (a ``FaultPlan``), as in the reference: a "pool" famine
+        defers one admission round (``counters["famine_deferred"]``, the
+        queued requests); a "session" evict releases the next warm paged
+        admission's handle, which then re-admits cold or retires shed; a
+        "slot" fail frees the lowest active slot after a chunk and requeues
+        its request (``counters["requeued"]``); a "decode" straggle adds its
+        delay to the clock.  ``step_time_ms`` runs that clock: each chunk
+        advances it by ``chunk * step_time_ms``, and requests past their
+        ``deadline_ms`` retire shed (``counters["expired"]``).  All of it
+        is host work between dispatches."""
         if overload not in ("raise", "shed"):
             raise ValueError(f"overload must be 'raise' or 'shed', got "
                              f"{overload!r}")
-        if faults is not None:
-            raise _not_ported("fault injection")
-        if step_time_ms is not None:
-            raise _not_ported("the deadline clock (step_time_ms)")
         if (requests is None) == (batcher is None):
             raise ValueError("pass exactly one of requests / batcher")
         if batcher is None:
@@ -842,9 +908,30 @@ class InferenceEngine:
             promised[0] += ok
             return ok
 
+        def free_slot(i: int):
+            # free the blocks a slot still owns and repoint it at the
+            # sentinels: its garbage decode writes the sink from now on
+            if paged:
+                if slot_run[i] is not None:
+                    self.pool.free_blocks(slot_run[i])
+                    slot_run[i] = None
+                slot_tables[i, :] = self.pool.n_blocks
+            pos0.pop(i, None)
+
+        now_ms = 0.0            # the deadline clock (step_time_ms)
         while not batcher.idle:
-            promised[0] = 0
-            admitted = batcher.admit(fits=fits if paged else None)
+            if (faults is not None and batcher.queue
+                    and faults.consume("pool") is not None):
+                # injected famine: this admission round sees no free
+                # block; the queue waits the round out while anything
+                # active decodes, and with nothing active no chunk runs
+                self.counters["famine_deferred"] += len(batcher.queue)
+                admitted = []
+                if not batcher.active():
+                    continue
+            else:
+                promised[0] = 0
+                admitted = batcher.admit(fits=fits if paged else None)
             if paged and not admitted and not batcher.active() \
                     and batcher.queue:
                 # famine with nothing decoding: TTL-evict idle sessions
@@ -873,6 +960,12 @@ class InferenceEngine:
             for i in admitted:
                 req = batcher.slots[i]
                 st = req.state
+                if (st is not None and faults is not None
+                        and isinstance(st.cache, PagedHandle)
+                        and faults.consume("session") is not None):
+                    # injected forced eviction: the handle is really
+                    # released, so the recovery below is the real path
+                    self.release(st)
                 if st is not None:
                     try:
                         self._check_state(st, extension=not req.prompt)
@@ -936,15 +1029,10 @@ class InferenceEngine:
             chunk = min([int(decode_chunk)] +
                         [r.max_new - len(r.generated)
                          for _, r in batcher.active() if r.return_state])
-            if paged:
-                toks, _, h_per, v_per, (cur, last, pos) = \
-                    self._decode_scan_paged(
-                        cur, last, self._paged_dev_cache(slot_tables),
-                        pos, chunk, bool(greedy), gen, with_logits=False)
-            else:
-                toks, _, h_per, v_per, (cur, last, pos) = self._decode_mono(
-                    cur, last, cache, pos, chunk, bool(greedy), gen,
-                    with_logits=False)
+            toks, _, h_per, v_per, (cur, last, pos) = self._dispatch(
+                self._route, cur, last,
+                self._paged_dev_cache(slot_tables) if paged else cache, pos,
+                chunk, bool(greedy), gen, with_logits=False)
             toks_np = toks.cpu().numpy()
             h_np, v_np = h_per.cpu().numpy(), v_per.cpu().numpy()
             slot_of = {r.rid: i for i, r in batcher.active()}
@@ -983,12 +1071,32 @@ class InferenceEngine:
                     states[req.rid] = SessionState(
                         handle, self._full(1, end), cur[i:i + 1].clone(),
                         last[i:i + 1].clone(), max_len, end, exact=exact)
-                if paged:
-                    if slot_run[i] is not None:
-                        self.pool.free_blocks(slot_run[i])
-                        slot_run[i] = None
-                    # sentinels: the slot's garbage decode writes the sink
-                    slot_tables[i, :] = self.pool.n_blocks
+                free_slot(i)
+            if step_time_ms is not None:
+                # the simulated clock: each decode step costs step_time_ms,
+                # plus any injected straggle; requests past their deadline
+                # retire shed (queued ones before they take a slot)
+                now_ms += chunk * float(step_time_ms)
+                if faults is not None:
+                    ev = faults.consume("decode")
+                    if ev is not None:
+                        now_ms += 1000.0 * float(ev.delay_s)
+                for i, req in batcher.expire(now_ms):
+                    self.counters["expired"] += 1
+                    if i is not None:
+                        free_slot(i)
+            if faults is not None and faults.consume("slot") is not None:
+                # injected slot failure: the lowest active slot dies after
+                # this chunk; its progress is lost and the request goes
+                # back to the queue (re-admitted warm off a still-valid
+                # handle, else cold)
+                act = batcher.active()
+                if act:
+                    i, req = act[0]
+                    free_slot(i)
+                    acc.pop(req.rid, None)
+                    batcher.requeue(i)
+                    self.counters["requeued"] += 1
             drain()
         drain()
         return results
@@ -996,3 +1104,9 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     def token_count(self, prompts: np.ndarray, max_new: int) -> np.ndarray:
         return (np.asarray(prompts) != PAD).sum(axis=1) + max_new
+
+
+# the eager body of each decode route (``InferenceEngine._dispatch``)
+_BODIES = {"mono": InferenceEngine._mono_body,
+           "kernel": InferenceEngine._kernel_body,
+           "gather": InferenceEngine._gather_body}

@@ -37,6 +37,7 @@ from repro_torch.core import uncertainty as TUN
 from repro_torch.core.uncertainty import UncertaintyConfig as TU
 from repro_torch.models import transformer as TT
 from repro_torch.serving.engine import InferenceEngine as TEngine
+from repro_torch.serving.faults import FaultPlan
 from repro_torch.serving.scheduler import Request
 
 try:        # the JAX reference; a CUDA machine without JAX runs -m gpu only
@@ -181,15 +182,17 @@ class TestPortContracts:
             np.testing.assert_allclose(fin[i]["u"], tres["u"][i], atol=1e-4)
 
     def test_unported_paths_raise(self, engines):
-        """What the port does not serve yet raises: fault injection, the
-        deadline clock and meshes (warm sessions and paged pools are
-        ported: tests/test_torch_continuation.py, test_torch_paged.py)."""
-        _, te, _, _ = engines
-        reqs = [Request(rid=0, prompt=[1, 2], max_new=2)]
-        with pytest.raises(NotImplementedError, match="fault injection"):
-            te.serve(reqs, faults=object())
-        with pytest.raises(NotImplementedError, match="deadline clock"):
-            te.serve(reqs, step_time_ms=1.0)
+        """What the port does not serve yet raises: meshes (warm sessions,
+        paged pools, fault injection and the deadline clock are ported:
+        tests/test_torch_continuation.py, test_torch_paged.py,
+        test_torch_faults.py).  An empty fault plan and a clock no request
+        has a deadline on change nothing."""
+        _, te, _, tres = engines
+        fin = te.serve([Request(rid=0, prompt=PROMPTS[0].tolist(),
+                                max_new=MAX_NEW)],
+                       faults=FaultPlan([]), step_time_ms=1.0)
+        np.testing.assert_array_equal(fin[0]["tokens"], tres["tokens"][0])
+        assert not fin[0].get("shed")
         with pytest.raises(NotImplementedError, match="mesh"):
             TEngine("x", te.cfg, te.params, device="cpu", mesh=object())
 

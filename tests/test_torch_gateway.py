@@ -317,6 +317,39 @@ def test_streaming_round_equals_batched(f32):
                                   batched["winner_member"])
 
 
+def test_faulted_streaming_batch_matches_jax(f32):
+    """A gateway whose swarm round streams through each member's serve()
+    under a ``FaultPlan`` that serve() consumes (two famine rounds, two
+    slot failures, a decode straggle) beside a member crash: decision for
+    decision, answer for answer and counter for counter the JAX gateway's
+    with the same streaming swarm and plan."""
+    faults = [("pool", "famine", None, 2, 0.0), ("slot", "fail", None, 2, 0.0),
+              ("decode", "straggle", None, 1, 0.5),
+              ("member:2", "crash", None, 1, 0.0)]
+    olds = {k: f32[k].swarm for k in ("jax", "port")}
+    members = [m for gw in (f32["jax"], f32["port"])
+               for m in gw.swarm.members]
+    before = [dict(m.counters) for m in members]
+    for k, old in olds.items():
+        f32[k].swarm = dataclasses.replace(old, streaming=True,
+                                           serve_slots=4)
+    try:
+        j, t = _run_both(f32, faults=faults)
+    finally:
+        for k, old in olds.items():
+            f32[k].swarm = old
+    _assert_logs_equal(j, t)
+    assert (j.decision == SWARM).sum() > 0
+    moved = [{c: m.counters[c] - b[c] for c in
+              ("famine_deferred", "requeued", "prefill", "shed")}
+             for m, b in zip(members, before)]
+    n = len(members) // 2
+    assert moved[n:] == moved[:n]       # the port's members, JAX's
+    # the round's 8 tokens fit one chunk, so a slot failure finds every
+    # slot retired and requeues nothing; famine defers admission rounds
+    assert sum(d["famine_deferred"] for d in moved[n:]) > 0
+
+
 def test_bf16_gateway_tie_aware():
     """In bf16 the two packages round at other sites: the probe's answers
     agree tie-aware, and u (on rows whose tokens agree) and s within 2e-3

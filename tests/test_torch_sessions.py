@@ -33,6 +33,7 @@ from repro_torch import configs as TC  # noqa: E402
 from repro_torch.convert import from_jax_params  # noqa: E402
 from repro_torch.core.uncertainty import UncertaintyConfig as TU  # noqa: E402
 from repro_torch.serving.engine import InferenceEngine as TEngine  # noqa: E402
+from repro_torch.serving.faults import FaultEvent, FaultPlan  # noqa: E402
 from repro_torch.serving.scheduler import Request  # noqa: E402
 
 PROMPTS = np.array([[0, 0, 3, 20, 195, 2], [3, 21, 196, 199, 2, 7],
@@ -151,5 +152,14 @@ def test_serve_overload_and_counters(engines):
                                              "reprefill_cold"))
     with pytest.raises(ValueError):
         te.serve(reqs, overload="drop")
-    with pytest.raises(NotImplementedError):
-        te.serve(reqs, faults=object())
+    # injected faults move their counters (tests/test_torch_faults.py
+    # holds them to the reference): a famine round defers the queue, a
+    # slot failure requeues its request, and every request still retires
+    plan = FaultPlan([FaultEvent("pool", "famine"), FaultEvent("slot", "fail")])
+    fin = te.serve([Request(rid=i, prompt=PROMPTS[i].tolist(), max_new=4)
+                    for i in range(3)], n_slots=2, decode_chunk=2,
+                   faults=plan)
+    assert sorted(r["rid"] for r in fin) == [0, 1, 2]
+    assert te.counters["famine_deferred"] == 3
+    assert te.counters["requeued"] == 1
+    assert plan.counters == {"pool:famine": 1, "slot:fail": 1}
