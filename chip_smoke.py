@@ -92,6 +92,35 @@ Phases (any failure exits nonzero; nothing is caught and turned into 0):
 8. ``transformer.forward`` of ``smollm-135m`` at full width (B=8, S=256)
    against the same forward with the grid-offset op's plain version
    swapped in, within the tie budget;
+R1. ``recurrentgemma-2b`` at published widths, all 26 layers (RG-LRU +
+   windowed attention, head_dim 256, 10 query heads on 1 KV head, window
+   2048, vocabulary 256000), random weights (every matrix but the
+   embedding and the convs scaled by 6, so the state and the K/V move the
+   logits): ``generate`` on 8 prompts of
+   24-200 tokens (bucket 256, ``max_new=32``) on a monolithic cache with
+   prefill time, decode ms/step and busy share; the graph route bitwise
+   the eager loop (the arena carries the recurrent states); rows 1-3
+   launched and no plain version run.  bf16 noise alone (the same
+   prompts at batch 1 against batch 8) moves these models' logits past
+   the tie budget, so the contracts are held on an f32 copy of the same
+   weights: ``generate_stepwise`` and ``serve()`` tie-aware equal to
+   ``generate``, and a decode that never writes its K/V must read outside
+   the budget; the bf16 readings are printed beside that noise floor.
+   Then two ~2300-token prompts whose rings wrap (bf16 served and timed;
+   f32 monolithic against ring tables, tie-aware);
+R1p. the same weights on a paged pool (blocks of 64, ring tables for the
+   local layers, 40 state rows): bf16 ``generate`` (row 5 launched, row 2
+   not) and the graph route bitwise with the pool; in f32, ``generate``
+   (tie-aware, u within 1e-2), a 200-token prompt absorbed and fanned out
+   to 16 sessions (16 state rows copied, KV blocks shared) continued with
+   their own spans, ``serve()`` of 16 requests on the handle; an int8
+   pool; the pool back at 0 blocks and 0 rows after every path;
+R2. ``mamba2-780m`` at published widths, all 48 SSD layers (vocabulary
+   50280): the same paths as R1 and R1p, row 3 launched and no attention
+   kernel, a decode that drops the SSD state outside the f32 budget; then
+   a swarm round on the study workload's prompts, a
+   ``smollm-135m`` probe whose answer is precomputed (no dispatch) beside
+   the ``mamba2-780m`` peer (the reference's ``TestSwarmStateReuse``);
 T1. training at published width: ``training.train.build_train_step`` on
    ``smollm-135m`` (30 layers) and ``llama3-8b`` cut to the cloud tier's 4
    layers (vocabulary 128256), AdamW lr 3e-4, batch 8, seq 128, 30 steps of
@@ -120,7 +149,11 @@ T3. the trained gateway, the paper's study: ``launch.serve.build_gateway(
 
 Phase 3 also holds rows 1-3 and 5 at the trained gateway's shapes (every
 smoke tier's heads at head_dim 16, B=50, S=8, T=128, V=512) before T3
-serves them.
+serves them, and (R0) at the recurrent families' shapes before R1-R2
+serve them: rows 1 and 2 at head_dim 256 with 10 query heads on 1 KV head
+(an S=256 prefill, an S=4096 prefill of 2300 real tokens past the 2048
+window, a 2048-slot ring decode before and after it wraps), row 5 through
+ring tables with bf16 and int8 pools, row 3 at V=256000 and V=50280.
 
 Every path of phases 4-8 (4g's bitwise pairs aside) runs with the
 kernels' launch counts set to 0 just before it and read just after: each
@@ -418,10 +451,10 @@ def main():
     checks = []
     world = FactWorld(n_ent=16, n_rel=6)      # build_gateway's fact world
 
-    def flash_case(label, B, S, H, K, D, n_pad, main=False):
+    def flash_case(label, B, S, H, K, D, n_pad, main=False, window=None):
         q, k, v = randn(B, S, H, D), randn(B, S, K, D), randn(B, S, K, D)
         pos = (torch.arange(S, device=dev, dtype=torch.int32) - n_pad)
-        kw = dict(q_positions=pos, kv_positions=pos)
+        kw = dict(q_positions=pos, kv_positions=pos, window=window)
         out = fops.flash_attention_positions(q, k, v, **kw)
         ref = fref.flash_attention_positions_ref(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -434,6 +467,8 @@ def main():
         check(pad_err <= 2e-2, f"{label}: padding rows {pad_err} from mean(v)")
         qp, kp = pos[:, None], pos[None, :]
         mask = (kp >= 0) & (qp >= kp)                            # (S, S)
+        if window is not None:
+            mask &= qp - kp < window
         n_valid = int(mask.sum())
         mask_sd = mask.clone()
         mask_sd[pos < 0] = True        # SDPA needs >= 1 key per row
@@ -509,28 +544,39 @@ def main():
                         q, k, v, **kw)),
                     library_ms=time_ms(sdpa), bound_ms=b_ms, bound_by=b_by)
 
-    def decode_case(label, B, T, K, G, D, main=False, fill=None):
+    def decode_case(label, B, T, K, G, D, main=False, fill=None,
+                    window=None):
         """Row 2 over a T-slot cache: slots 0..index hold their positions,
         the rest are empty (-1), row 0 sees no key.  The index is drawn
         from [T/2, T), or with ``fill`` = (n_pad, lo, hi) from [lo, hi)
         with the first n_pad slots padding (-1): the gateway's cache at a
-        decode step."""
+        decode step.  With ``window`` (= T) the cache is a ring that has
+        wrapped: the index is drawn from [T, 2T) and slot s holds the
+        latest position p <= index with p % T == s."""
         q, k, v = randn(B, K, G, D), randn(B, T, K, D), randn(B, T, K, D)
-        lo, hi = (T // 2, T) if fill is None else fill[1:]
+        lo, hi = ((T // 2, T) if fill is None else fill[1:]) if window is \
+            None else (T, 2 * T)
         idx = torch.randint(lo, hi, (B,), generator=gen, device=dev,
                             dtype=torch.int32)
         ar = torch.arange(T, device=dev, dtype=torch.int32)
-        pos = torch.where(ar[None] <= idx[:, None], ar[None],
-                          -1).to(torch.int32).contiguous()
+        if window is None:
+            pos = torch.where(ar[None] <= idx[:, None], ar[None], -1)
+        else:
+            pos = ar[None] + T * torch.div(idx[:, None] - ar[None], T,
+                                           rounding_mode="floor")
+        pos = pos.to(torch.int32).contiguous()
         if fill is not None:
             pos[:, :fill[0]] = -1                    # bucket padding
         pos[0] = -1                                  # a row with no valid slot
-        out = dops.decode_attention(q, k, v, pos, idx)
-        ref = dref.decode_attention_ref(q, k, v, pos, idx)
+        kw = dict(window=window)
+        out = dops.decode_attention(q, k, v, pos, idx, **kw)
+        ref = dref.decode_attention_ref(q, k, v, pos, idx, **kw)
         torch.cuda.synchronize()
         err = float((out.float() - ref.float()).abs().max())
         check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
         valid = (pos >= 0) & (pos <= idx[:, None])
+        if window is not None:
+            valid &= idx[:, None] - pos < window
         n_valid = int(valid.sum())
         vmask = valid.clone()
         vmask[0] = True
@@ -545,9 +591,9 @@ def main():
         return dict(name="decode_attention", label=label, main=main,
                     max_abs_err=err, tol=2e-2,
                     ms=time_ms(lambda: dops.decode_attention(q, k, v, pos,
-                                                             idx)),
+                                                             idx, **kw)),
                     plain_ms=time_ms(lambda: dref.decode_attention_ref(
-                        q, k, v, pos, idx)),
+                        q, k, v, pos, idx, **kw)),
                     library_ms=time_ms(sdpa), bound_ms=b_ms, bound_by=b_by)
 
     def uncertainty_case(label, B, V, main=False, dtype=torch.float32,
@@ -767,6 +813,27 @@ def main():
                   causal=True, window=512),
         grid_case("smollm B8 S512 bidirectional", 8, 512, 9, 3, 64,
                   causal=False),
+        # R0: the recurrent families' shapes.  recurrentgemma-2b: head_dim
+        # 256, 10 query heads on 1 KV head, windowed (2048) ring layers,
+        # vocabulary 256000; mamba2-780m: no attention, vocabulary 50280
+        flash_case("R0 recurrentgemma prefill B8 S256 D256 G10", 8, 256,
+                   10, 1, 256, 56, window=2048),
+        flash_case("R0 recurrentgemma prefill B2 S4096 D256 G10 past the "
+                   "window 2048", 2, 4096, 10, 1, 256, 1796, window=2048),
+        decode_case("R0 recurrentgemma decode B8 T320 D256 G10", 8, 320, 1,
+                    10, 256),
+        decode_case("R0 recurrentgemma decode B8 ring T2048 D256 G10", 8,
+                    2048, 1, 10, 256, fill=(0, 1000, 2048)),
+        decode_case("R0 recurrentgemma decode B2 ring T2048 D256 G10 "
+                    "wrapped", 2, 2048, 1, 10, 256, window=2048),
+        *(paged_case(f"R0 paged recurrentgemma ring window 2048 {qm or 'bf16'}"
+                     f" pool B8 L64 nb32 S8 D256 G10", 8, 1, 10, 256, nb=32,
+                     p0=2300, window=2048, quant=qm)
+          for qm in (None, "int8")),
+        paged_case("R0 paged recurrentgemma B8 L64 nb5 S8 D256 G10", 8, 1,
+                   10, 256, nb=5, p0=248),
+        uncertainty_case("R0 recurrentgemma B8 V256000", 8, 256000),
+        uncertainty_case("R0 mamba2 B8 V50280", 8, 50280),
     ]
     for c in cases:
         check(c["max_abs_err"] <= c["tol"],
@@ -873,31 +940,38 @@ def main():
         prompts[i, S - len(p):] = p                 # left-padded with PAD=0
     max_new = 32
 
-    def decode_rate(eng):
-        """Decode ms/step of ``eng`` at B=8 with no prefill in the window:
-        a ``max_new``-token extension of a fresh 1-token session, timed
+    def decode_rate(eng, pr=None, steps=None):
+        """Decode ms/step of ``eng`` on the prompts ``pr`` (phase 4's by
+        default, B=8) with no prefill in the window: a ``steps``-token
+        (``max_new``) extension of a fresh 1-token session, timed
         unprofiled, then profiled for its device kernel time (a share well
         below 1 means the host holds the card).  Returns (wall ms/step,
         device ms/step, busy share or None, the profile's top kernels)."""
+        pr = prompts if pr is None else pr
+        steps = max_new if steps is None else steps
+
         def session():
-            st = eng.generate(prompts, 1, return_state=True)["state"]
+            st = eng.generate(pr, 1, return_state=True)["state"]
             torch.cuda.synchronize()
             return st
-        eng.generate(None, max_new, state=session())    # warm up, capture
+        ext = eng.generate(None, steps, state=session(), return_state=True)
+        eng.release(ext["state"])                       # warm up, capture
         st = session()
         t0 = time.perf_counter()
-        eng.generate(None, max_new, state=st)
+        ext = eng.generate(None, steps, state=st, return_state=True)
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) / max_new * 1e3
+        ms = (time.perf_counter() - t0) / steps * 1e3
+        eng.release(ext["state"])
         st = session()
         with torch.profiler.profile(activities=[
                 torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]) as prof:
-            eng.generate(None, max_new, state=st)
+            ext = eng.generate(None, steps, state=st, return_state=True)
             torch.cuda.synchronize()
+        eng.release(ext["state"])
         ka = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
-        dev_ms = sum(e.self_device_time_total for e in ka) / max_new / 1e3
+        dev_ms = sum(e.self_device_time_total for e in ka) / steps / 1e3
         top = sorted(((e.self_device_time_total, e.key, e.count)
                       for e in ka), reverse=True)[:6]
         return ms, dev_ms, (dev_ms / ms if dev_ms > 0 else None), top
@@ -1174,10 +1248,16 @@ def main():
         check(same, f"4g: {label}: the graph route differs from the eager "
                     "loop")
 
+    def served(eng, pool):
+        """A pool's served blocks, or its state rows without the sink."""
+        if isinstance(pool, attention.KVPool):
+            return pool.served()
+        return [t[:eng.pool.n_rows] for t in pool]
+
     def pools_bitwise(label, a, b):
         check(all(torch.equal(x, y)
                   for pa, pb in zip(a.pool.arrays, b.pool.arrays)
-                  for x, y in zip(pa.served(), pb.served())
+                  for x, y in zip(served(a, pa), served(b, pb))
                   if x is not None),
               f"4g: {label}: the pools differ after the graph route")
 
@@ -1679,6 +1759,401 @@ def main():
                          "argmax_agreement": f_agree}
     del tiers, gw, gprobe, gcloud, pmodel, sparams, members, eng, mono_e, \
         pag_e, fk, fp, ftok
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- R1 / R1p / R2. the recurrent families at published widths ------
+    # recurrentgemma-2b (26 layers: 8 x (rglru, rglru, attn_local) + 2
+    # rglru; head_dim 256, 10 query heads on 1 KV head, window 2048,
+    # vocabulary 256000) and mamba2-780m (48 SSD layers, no attention,
+    # vocabulary 50280), random weights from torch.Generator seeds
+    from repro_torch.serving.swarm import SwarmExecutor
+    ATTN_KERNELS = ("flash_attention_positions", "decode_attention",
+                    "paged_decode_attention", "flash_attention")
+    RPOOL = dict(paged=True, block_len=64, pool_blocks=1024, pool_rows=40)
+    recurrent_rep: dict = {}
+
+    def pool_idle(label, eng):
+        check(eng.pool.blocks_in_use == 0 and eng.pool.rows_in_use == 0
+              and eng.pool.live_sessions == 0,
+              f"{label}: the pool holds {eng.pool.blocks_in_use} blocks, "
+              f"{eng.pool.rows_in_use} rows, {eng.pool.live_sessions} "
+              "sessions after the path")
+
+    def recurrent_phase(tag, arch, seed, mono_needs, paged_needs):
+        """A recurrent model at published widths through every path.  The
+        bf16 model serves (kernel launches, times, the graph route bitwise
+        the eager loop, monolithic and paged); an f32 copy of the same
+        weights holds the contracts tie-aware (generate = stepwise =
+        serve, paged = monolithic, fan-out = cold concatenation, serve on a
+        handle = its extension), because bf16 noise alone (another batch
+        shape) moves these models' logits past the tie budget; the bf16
+        readings of the same pairs are reported beside that noise floor.
+        The pool is back at its blocks and rows after every path."""
+        t_ph = time.perf_counter()
+        rc = configs.get_config(arch)
+        rm = init_params(rc, torch.Generator(device=dev).manual_seed(seed),
+                         device=dev)
+        # every matrix but the embedding and the convs scaled by 6: at the
+        # init scale the tied logits are the last token's embedding and a
+        # decode that drops its state or its K/V reads the same
+        with torch.no_grad():
+            for name, p in rm.named_parameters():
+                if p.dim() >= 2 and "embed" not in name and "conv" not in name:
+                    p.mul_(6)
+        rcf = dataclasses.replace(rc, dtype=torch.float32)
+        rmf = transformer.Transformer(rcf, device=dev)
+        with torch.no_grad():
+            for a, b in zip(rmf.parameters(), rm.parameters()):
+                a.copy_(b.float())
+        n_par = sum(p.numel() for p in rm.parameters())
+        rep = {"params": n_par, "layers": rc.num_layers}
+        forbid_mono = tuple(k for k in ATTN_KERNELS if k not in mono_needs)
+        forbid_paged = tuple(k for k in ATTN_KERNELS if k not in paged_needs)
+        decode_needs = tuple(k for k in mono_needs
+                             if k != "flash_attention_positions")
+        r = np.random.default_rng(seed)
+        rl = [24, 200] + [int(x) for x in r.integers(24, 201, 6)]
+        rp = np.zeros((8, max(rl)), np.int32)
+        for i, n in enumerate(rl):
+            rp[i, max(rl) - n:] = r.integers(1, rc.vocab_size, n)
+        mn = 32
+
+        def lg(res):
+            return res["logits"].float().cpu().numpy()
+
+        # ---- bf16: the served model
+        eng = InferenceEngine(tag, rc, rm, ucfg)
+        for n in (1, mn):
+            eng.generate(rp, n)                 # warm up, capture
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = counted(f"{tag} generate", mono_needs,
+                      lambda: eng.generate(rp, mn), forbid=forbid_mono)
+        t_g = time.perf_counter() - t0
+        ms, dms, busy_r, top_r = decode_rate(eng, rp, mn)
+        rtok, ru, rlog = res["tokens"], res["u"], lg(res)
+        check(rtok.shape == (8, mn) and rtok.min() >= 0
+              and rtok.max() < rc.vocab_size, f"{tag}: tokens out of range")
+        check(bool(np.isfinite(rlog).all()), f"{tag}: logits not finite")
+        check(bool(np.isfinite(ru).all() and (ru >= 0).all()
+                   and (ru <= 1).all()), f"{tag}: u outside [0, 1]: {ru}")
+        print(f"[{tag}] {rc.num_layers} layers, {n_par / 1e9:.3f} B "
+              f"parameters (bf16); generate B=8 S={rp.shape[1]} (bucket "
+              f"{bucket_len(rp.shape[1], 1024)}) max_new={mn}: "
+              f"{t_g * 1e3:.1f} ms, prefill ~{t_g * 1e3 - mn * ms:.1f} ms, "
+              f"decode {ms:.3f} ms/step, device {dms:.3f} ms/step, busy "
+              f"share {'not measured' if busy_r is None else f'{busy_r:.3f}'}"
+              f"; {len(np.unique(rtok))} distinct tokens")
+        for us, key, n in top_r:
+            print(f"[{tag}]   {mn}-step extension: {us / 1e3:9.3f} ms in "
+                  f"{n:5d} x {key[:70]}")
+        rep.update(generate_s=t_g, prefill_ms=t_g * 1e3 - mn * ms,
+                   decode_ms_per_step=ms, decode_device_ms_per_step=dms,
+                   decode_busy_share=busy_r, u=[float(x) for x in ru],
+                   profile_top=[(us / 1e3, k, n) for us, k, n in top_r])
+
+        def serve8(e):
+            return sorted(e.serve(
+                [Request(rid=i, prompt=rp[i].tolist(), max_new=mn)
+                 for i in range(8)], n_slots=4, decode_chunk=8),
+                key=lambda x: x["rid"])
+        # the graph route, bitwise the eager loop
+        orc = eager_twin(eng)
+        session_bitwise(f"{tag} generate", eng, orc, rp, mn)
+        fins = [serve8(e) for e in (eng, orc)]
+        check(all(np.array_equal(a["tokens"], b["tokens"])
+                  and a["u"] == b["u"] for a, b in zip(*fins)),
+              f"{tag}: serve through graphs differs from the eager loop")
+        print(f"[{tag}] serve: bitwise the eager loop")
+        del orc
+        # bf16 readings (reported): the batch-shape noise floor, then the
+        # contract pairs
+        one = [eng.generate(rp[i:i + 1], mn) for i in range(8)]
+        bf = {"B=1 vs B=8 generate (noise floor)": tie_reading(
+            np.concatenate([o["tokens"] for o in one]), rtok, rlog,
+            np.concatenate([lg(o) for o in one]))}
+        t0 = time.perf_counter()
+        step = counted(f"{tag} generate_stepwise", decode_needs,
+                       lambda: eng.generate_stepwise(rp, mn),
+                       forbid=forbid_mono + ("flash_attention_positions",))
+        rep["stepwise_s"] = time.perf_counter() - t0
+        bf["stepwise vs generate"] = tie_reading(step["tokens"], rtok, rlog,
+                                                 lg(step))
+        fin = counted(f"{tag} serve", mono_needs, lambda: serve8(eng),
+                      forbid=forbid_mono)
+        check([x["rid"] for x in fin] == list(range(8)),
+              f"{tag}: serve lost a request")
+        bf["serve vs generate"] = tie_reading(
+            [x["tokens"] for x in fin], rtok, rlog)
+
+        # ---- f32: the contracts, tie-aware (TIE_ATOL / TIE_ULPS)
+        engf = InferenceEngine(tag + "-f32", rcf, rmf, ucfg)
+        gf = counted(f"{tag} f32 generate", mono_needs,
+                     lambda: engf.generate(rp, mn), forbid=forbid_mono)
+        ftok, fu, flog = gf["tokens"], gf["u"], lg(gf)
+        f32 = {}
+        sf = counted(f"{tag} f32 generate_stepwise", decode_needs,
+                     lambda: engf.generate_stepwise(rp, mn),
+                     forbid=forbid_mono + ("flash_attention_positions",))
+        f32["stepwise vs generate"] = tie_aware(
+            f"{tag} f32 stepwise vs generate", sf["tokens"], ftok, flog,
+            lg(sf))
+        f32["serve vs generate"] = tie_aware(
+            f"{tag} f32 serve vs generate",
+            [x["tokens"] for x in serve8(engf)], ftok, flog)
+        rep["bf16_vs_f32"] = tie_reading(rtok, ftok, flog, rlog)
+
+        # ---- paged (R1p / R2p): bf16 serving, f32 contracts
+        ptag = tag + "p"
+        peng = InferenceEngine(ptag, rc, rm, ucfg, **RPOOL)
+        peng.generate(rp, mn)                   # warm up, capture
+        pool_idle(f"{ptag} warm-up", peng)
+        t0 = time.perf_counter()
+        pres = counted(f"{ptag} paged generate", paged_needs,
+                       lambda: peng.generate(rp, mn), forbid=forbid_paged)
+        rep["paged_generate_s"] = time.perf_counter() - t0
+        pool_idle(f"{ptag} generate", peng)
+        bf["paged vs monolithic generate"] = tie_reading(
+            pres["tokens"], rtok, rlog, lg(pres))
+        rep["paged_bf16_max_du"] = float(np.abs(pres["u"] - ru).max())
+        pengf = InferenceEngine(ptag + "-f32", rcf, rmf, ucfg, **RPOOL)
+        pf = counted(f"{ptag} f32 paged generate", paged_needs,
+                     lambda: pengf.generate(rp, mn), forbid=forbid_paged)
+        f32["paged vs monolithic generate"] = tie_aware(
+            f"{ptag} f32 paged vs monolithic generate", pf["tokens"], ftok,
+            flog, lg(pf))
+        same = (pf["tokens"] == ftok).all(axis=1)
+        du = float(np.abs(pf["u"] - fu)[same].max()) if same.any() else 0.0
+        check(du <= 1e-2, f"{ptag}: f32 paged u {du} from the monolithic")
+        rep["paged_f32_max_du"] = du
+        sysp = r.integers(1, rc.vocab_size, (1, 200)).astype(np.int32)
+        spans = r.integers(1, rc.vocab_size, (16, 12)).astype(np.int32)
+        c0 = dict(pengf.counters)
+        rc0 = pengf.pool.counters["row_copies"]
+
+        def fan():
+            st = pengf.absorb(sysp)
+            out = pengf.generate(spans, 16, state=pengf.fanout(st, 16),
+                                 return_state=True)
+            return st, out
+        t0 = time.perf_counter()
+        st, fres = counted(f"{ptag} f32 absorb + fanout 16 + continue",
+                           paged_needs, fan, forbid=forbid_paged)
+        rep["fanout_s"] = time.perf_counter() - t0
+        check(pengf.counters["prefill"] - c0["prefill"] == 1
+              and pengf.counters["prefill_continue"]
+              - c0["prefill_continue"] == 1,
+              f"{ptag}: fan-out ran other than one cold prefill and one "
+              "continuation")
+        check(pengf.pool.counters["row_copies"] - rc0 == 16,
+              f"{ptag}: fan-out copied "
+              f"{pengf.pool.counters['row_copies'] - rc0} rows, want 16")
+        cold = engf.generate(np.concatenate([np.tile(sysp, (16, 1)), spans],
+                                            axis=1), 16)
+        f32["fanout vs cold concatenation"] = tie_aware(
+            f"{ptag} f32 fanned continuation vs cold concatenation",
+            fres["tokens"], cold["tokens"], lg(cold), lg(fres))
+        pengf.release(fres["state"])
+        ext = pengf.generate(None, 12, state=pengf.fanout(st, 1),
+                             return_state=True)
+        pengf.release(ext["state"])
+        c1 = dict(pengf.counters)
+        sfin = counted(
+            f"{ptag} f32 serve, 16 requests on one handle",
+            tuple(k for k in paged_needs
+                  if k != "flash_attention_positions"),
+            lambda: pengf.serve([Request(rid=k, prompt=[], max_new=12,
+                                         state=st) for k in range(16)],
+                                n_slots=8, decode_chunk=4),
+            forbid=forbid_paged + ("flash_attention_positions",))
+        check(len(sfin) == 16 and pengf.counters["prefill"] == c1["prefill"]
+              and pengf.counters["prefill_continue"]
+              == c1["prefill_continue"],
+              f"{ptag}: serve on a handle lost a request or prefilled")
+        f32["serve on a handle vs its extension"] = tie_aware(
+            f"{ptag} f32 serve on one handle vs the session's extension",
+            [x["tokens"] for x in sorted(sfin, key=lambda x: x["rid"])],
+            np.repeat(ext["tokens"], 16, axis=0),
+            np.repeat(lg(ext), 16, axis=0))
+        pengf.release(st)
+        pool_idle(f"{ptag} f32 fan-out and serve", pengf)
+        # two fresh bf16 pools: a freed block or row keeps its bytes until
+        # it is handed out again, so only pools with the same history
+        # compare
+        pg = InferenceEngine(ptag + "-graph", rc, rm, ucfg, **RPOOL)
+        tw = eager_twin(pg, **RPOOL)
+        session_bitwise(f"{ptag} paged generate", pg, tw, rp, mn,
+                        pools=True)
+        pool_idle(f"{ptag} graph route", pg)
+        del pg, tw
+        for k, v in f32.items():
+            print(f"[{tag}] f32 {k}: tie-aware equal ({v[0]} rows diverged "
+                  f"at a tie, logits {v[2]:.2e} apart, reading {v[1]:.4f})")
+        for k, v in bf.items():
+            print(f"[{tag}] bf16 {k}: reading {v[1]:.3f} ({v[2]:.4f} apart "
+                  f"before a flip, {v[0]} rows diverged) - reported")
+        print(f"[{tag}] bf16 generate vs f32 generate: reading "
+              f"{rep['bf16_vs_f32'][1]:.3f} ({rep['bf16_vs_f32'][2]:.4f} "
+              f"apart); paged u within {du:.2e} (f32), "
+              f"{rep['paged_bf16_max_du']:.2e} (bf16); fan-out copied 16 "
+              "rows; every pool back at 0 blocks and 0 rows")
+        rep["f32_tie"] = {k: list(v) for k, v in f32.items()}
+        rep["bf16_tie"] = {k: list(v) for k, v in bf.items()}
+        rep["phase_s"] = time.perf_counter() - t_ph
+        return rc, rm, rcf, rmf, eng, peng, engf, pengf, rep, rp
+
+    (rgc, rgm, rgcf, rgmf, rg, prg, rgf, prgf, rg_rep,
+     rg_prompts) = recurrent_phase("R1", "recurrentgemma-2b", SEED + 50,
+                                   SERVE_KERNELS, PAGED_SERVE)
+    # the ring wraps: two ~2300-token prompts over the 2048-slot window,
+    # bf16 (served, timed) and f32 (monolithic vs ring tables, tie-aware)
+    wrng = np.random.default_rng(SEED + 51)
+    wp = wrng.integers(1, rgc.vocab_size, (2, 2300)).astype(np.int32)
+    t0 = time.perf_counter()
+    wres = counted("R1 ring wrap generate", SERVE_KERNELS,
+                   lambda: rg.generate(wp, 16, return_state=True),
+                   forbid=("paged_decode_attention", "flash_attention"))
+    t_wrap = time.perf_counter() - t0
+    local = [c for c, (m, _) in zip(wres["state"].cache,
+                                    rgc.layer_plan()) if m == "attn_local"]
+    check(all(c.k.shape[1] == rgc.window for c in local)
+          and all(int(c.pos.max()) >= rgc.window + 250 for c in local),
+          "R1 wrap: the local layers' rings did not wrap")
+    check(bool(torch.isfinite(wres["logits"]).all()),
+          "R1 wrap: logits not finite")
+    del local, wres["state"]
+    pw = counted("R1p ring wrap generate (ring tables)", PAGED_SERVE,
+                 lambda: prg.generate(wp, 16),
+                 forbid=("decode_attention", "flash_attention"))
+    pool_idle("R1p ring wrap", prg)
+    wrap_bf = tie_reading(pw["tokens"], wres["tokens"],
+                          wres["logits"].float().cpu().numpy(),
+                          pw["logits"].float().cpu().numpy())
+    wf = counted("R1 f32 ring wrap generate", SERVE_KERNELS,
+                 lambda: rgf.generate(wp, 16),
+                 forbid=("paged_decode_attention", "flash_attention"))
+    pwf = counted("R1p f32 ring wrap generate (ring tables)", PAGED_SERVE,
+                  lambda: prgf.generate(wp, 16),
+                  forbid=("decode_attention", "flash_attention"))
+    pool_idle("R1p f32 ring wrap", prgf)
+    wrap_tie = tie_aware("R1p f32 ring wrap paged vs monolithic",
+                         pwf["tokens"], wf["tokens"],
+                         wf["logits"].float().cpu().numpy(),
+                         pwf["logits"].float().cpu().numpy())
+    print(f"[R1] ring wrap: B=2 S=2300 (bucket {bucket_len(2300, 1024)}) + "
+          f"16 tokens in {t_wrap:.2f} s (bf16); positions up to "
+          f"{2300 + 15} on {rgc.window}-slot rings; ring tables vs "
+          f"monolithic: f32 tie-aware equal (reading {wrap_tie[1]:.4f}), "
+          f"bf16 reading {wrap_bf[1]:.3f} (reported)")
+    rg_rep["wrap"] = {"generate_s": t_wrap, "f32_tie": list(wrap_tie),
+                      "bf16_tie": list(wrap_bf)}
+    # a wrong path the f32 budget must reject: no decode step writes its
+    # K/V into the ring (phase 6's wrong path)
+    orig_write = attention._write_slot
+    attention._write_slot = lambda *a, **k: None
+    try:
+        rgf_e = eager_twin(rgf)
+        wrong = rgf_e.generate(rg_prompts, 32)
+    finally:
+        attention._write_slot = orig_write
+    g32 = rgf.generate(rg_prompts, 32)
+    wrong_r = tie_reading(wrong["tokens"], g32["tokens"],
+                          g32["logits"].float().cpu().numpy(),
+                          wrong["logits"].float().cpu().numpy())
+    check(wrong_r[1] > 1.0, f"R1: a decode that never writes its K/V reads "
+                            f"only {wrong_r[1]:.3f} of the f32 tie budget")
+    print(f"[R1] f32 wrong path (no decode step writes its K/V): reading "
+          f"{wrong_r[1]:.3f} ({wrong_r[2]:.4f} apart before a flip)")
+    rg_rep["f32_wrong_path"] = list(wrong_r)
+    q8 = InferenceEngine("R1p-int8", rgc, rgm, ucfg, cache_quant="int8",
+                         **RPOOL)
+    qres = counted("R1p int8 pool generate", PAGED_SERVE,
+                   lambda: q8.generate(rg_prompts, 32),
+                   forbid=("decode_attention", "flash_attention"))
+    pool_idle("R1p int8 pool", q8)
+    ql = qres["logits"].float().cpu().numpy()
+    check(bool(np.isfinite(ql).all()), "R1p int8 pool: logits not finite")
+    ref8 = rg.generate(rg_prompts, 32)
+    qflips, _, qd = tie_reading(qres["tokens"], ref8["tokens"],
+                                ref8["logits"].float().cpu().numpy(), ql)
+    qagree = float((qres["tokens"] == ref8["tokens"]).mean())
+    print(f"[R1p] int8 pool vs the bf16 monolithic engine: logits {qd:.4f} "
+          f"apart before a divergence, {qflips} rows diverged, token "
+          f"agreement {qagree:.3f}")
+    rg_rep["int8_pool"] = {"max_dlogit_before_divergence": qd,
+                           "rows_diverged": qflips,
+                           "token_agreement": qagree}
+    print(f"[R1] phase {rg_rep['phase_s']:.1f} s (R1p included)")
+    recurrent_rep["recurrentgemma-2b"] = rg_rep
+    del rg, prg, rgf, prgf, rgf_e, q8, rgm, rgmf, qres, pw, pwf, wf, wres
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    (mc, mm, mcf, mmf, mb, pmb, mbf, pmbf, mb_rep, mb_prompts) = \
+        recurrent_phase("R2", "mamba2-780m", SEED + 60,
+                        ("swarm_uncertainty",), ("swarm_uncertainty",))
+    check(pmb.pool.row_bytes > 0 and pmb.pool.block_bytes == 0,
+          "R2: the SSD pool holds KV blocks or no state rows")
+    mb_rep["row_mb"] = pmb.pool.row_bytes / 1e6
+    # a wrong path the f32 budget must reject: decode drops the SSD state
+    from repro_torch.models import ssm as ssm_mod
+    orig_dec = ssm_mod.ssd_decode
+
+    def dropped(p, x, state, c):
+        out, s = orig_dec(p, x, state, c)
+        s.ssd.zero_()
+        return out, s
+    ssm_mod.ssd_decode = dropped
+    try:
+        wrong = eager_twin(mbf).generate(mb_prompts, 32)
+    finally:
+        ssm_mod.ssd_decode = orig_dec
+    g32 = mbf.generate(mb_prompts, 32)
+    wrong_r = tie_reading(wrong["tokens"], g32["tokens"],
+                          g32["logits"].float().cpu().numpy(),
+                          wrong["logits"].float().cpu().numpy())
+    check(wrong_r[1] > 1.0, f"R2: a decode that drops the SSD state reads "
+                            f"only {wrong_r[1]:.3f} of the f32 tie budget")
+    print(f"[R2] f32 wrong path (decode drops the SSD state): reading "
+          f"{wrong_r[1]:.3f} ({wrong_r[2]:.4f} apart before a flip)")
+    mb_rep["f32_wrong_path"] = list(wrong_r)
+    del mbf, pmbf, mmf
+    # a swarm round (the reference's TestSwarmStateReuse): a smollm-135m
+    # probe whose answer is precomputed beside a mamba2-780m peer, on the
+    # study workload's prompts
+    scfg = configs.get_config("smollm-135m")
+    sprobe = InferenceEngine("R2-probe", scfg, init_params(
+        scfg, torch.Generator(device=dev).manual_seed(SEED + 61),
+        device=dev), ucfg)
+    sq = pad_prompts([q["prompt"] for q in world.study_workload()])
+    sres = sprobe.generate(sq, 8, return_state=True)
+    pre = {0: (sres["tokens"], sres["u"], (sres["h_mean"], sres["v_mean"]))}
+    before = dict(sprobe.counters)
+    pf0 = mb.counters["prefill"]
+
+    def round_():
+        return SwarmExecutor([sprobe, mb]).collaborate(
+            sq, 8, precomputed=pre, states={0: sres["state"]})
+    round_()                                    # capture the peer's graphs
+    t0 = time.perf_counter()
+    sw = counted("R2 swarm round: smollm probe + mamba2 peer",
+                 ("swarm_uncertainty",), round_, forbid=ATTN_KERNELS)
+    t_sw = time.perf_counter() - t0
+    check(sprobe.counters == before, "R2 swarm: the precomputed probe ran "
+                                     "a dispatch")
+    check(mb.counters["prefill"] > pf0, "R2 swarm: the peer did not run")
+    check(np.array_equal(sw["answers"][:, 0], sres["tokens"]),
+          "R2 swarm: the probe's answers changed")
+    check(bool(np.isfinite(sw["u"]).all()), "R2 swarm: u not finite")
+    print(f"[R2] swarm round, {sq.shape[0]} study prompts, smollm-135m probe "
+          f"(precomputed, no dispatch) + mamba2-780m peer: {t_sw:.3f} s")
+    mb_rep["swarm_round_s"] = t_sw
+    print(f"[R2] phase {mb_rep['phase_s']:.1f} s, state row "
+          f"{mb_rep['row_mb']:.1f} MB")
+    recurrent_rep["mamba2-780m"] = mb_rep
+    report["recurrent"] = recurrent_rep
+    del mb, pmb, mm, sprobe, sres, sw
     gc.collect()
     torch.cuda.empty_cache()
 

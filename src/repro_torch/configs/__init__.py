@@ -1,4 +1,5 @@
-"""Architecture registry of the port: the four dense GQA gateway tiers.
+"""Architecture registry of the port: the four dense GQA gateway tiers and
+the two recurrent families (the RG-LRU hybrid and the pure SSD model).
 
 ``get_config`` gives the published widths, ``get_smoke`` the small
 configuration the tests run.  Arch ids take dashes or underscores.
@@ -15,6 +16,8 @@ ARCH_IDS = (
     "swarm-edge-1b",     # edge peer
     "qwen1.5-110b",      # edge peer (QKV bias)
     "llama3-8b",         # cloud tier (untied head)
+    "recurrentgemma-2b",  # RG-LRU + local attention hybrid
+    "mamba2-780m",       # attention-free SSD
 )
 
 

@@ -3,14 +3,16 @@
 The JAX package stacks the layers of a scanned stage along a leading repeat
 axis (``repro/models/transformer.py::model_defs``); the port keeps one
 module per layer, so conversion unstacks that axis and copies every leaf in
-its own layout.  bf16 leaves go through ``astype(np.float32)``, which is
-exact, then ``.to(torch.bfloat16)``, which is exact again.  The safety
+its own layout and dtype (the recurrences' f32 leaves, ``lam``, ``A_log``,
+``dt_bias`` and ``D_skip``, stay f32 in a bf16 model).  bf16 leaves go
+through ``astype(np.float32)``, which is exact, then
+``.to(torch.bfloat16)``, which is exact again.  The safety
 classifier's tree (``init_safety``: ``head_w``/``head_b`` and no
 ``lm_head``) converts into the port's ``SafetyClassifier``.
 
 ``from_jax_paged_pool`` converts a JAX block pool (``CachePool.arrays``)
-into the port's per-layer pools, byte for byte, so tests can compare the
-two after the same calls.  ``from_jax_opt_state`` carries an AdamW state
+into the port's per-layer pools (KV blocks and recurrent state rows),
+byte for byte, so tests can compare the two after the same calls.  ``from_jax_opt_state`` carries an AdamW state
 across (master, m and v through the same mapping as the parameters, in
 f32; the step as an int), ``from_jax_lora`` a LoRA adapter tree.
 """
@@ -21,7 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.safety import SafetyClassifier
-from repro_torch.models import attention
+from repro_torch.models import attention, rglru, ssm
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.transformer import Transformer
 from repro_torch.training.optimizer import OptState
@@ -58,7 +60,7 @@ def _named_leaves(np_tree: dict, cfg: ModelConfig):
     n = 0
     for layer, blk, r in _layer_blocks(np_tree["stages"], cfg):
         for part in ("mixer", "ffn"):
-            for name, leaf in blk[part].items():
+            for name, leaf in blk.get(part, {}).items():
                 a = np.asarray(leaf)
                 yield f"layers.{layer}.{part}.{name}", (a if r is None
                                                         else a[r])
@@ -78,7 +80,7 @@ def from_jax_params(np_tree: dict, cfg: ModelConfig,
     named = dict(model.named_parameters())
     with torch.no_grad():
         for name, a in _named_leaves(np_tree, cfg):
-            named[name].copy_(_tensor(a, cfg.dtype))
+            named[name].copy_(_tensor(a, named[name].dtype))
     return model.to(device) if device is not None else model
 
 
@@ -128,15 +130,28 @@ def from_jax_paged_pool(np_layers: list, cfg: ModelConfig,
     """``np_layers``: the JAX ``CachePool.arrays`` with numpy leaves (per
     stage a dict of ``LayerCache``, a stacked stage's leaves carrying a
     leading repeat axis, unstacked here as ``from_jax_params`` does; fp8
-    leaves as a uint8 view).  Returns one ``attention.KVPool`` per layer
-    in the port's layout, sink block included (zeros, pos -1), on
+    leaves as a uint8 view).  Returns one pool per layer in the port's
+    layout: an ``attention.KVPool`` with the sink block (zeros, pos -1), or
+    an ``RGLRUState`` / ``SSMState`` of rows with the sink row (zeros), on
     ``device`` (default CPU)."""
     out = []
     for sc, stage in zip(np_layers, cfg.stage_plan()):
         for r in range(stage.repeat):
             for i in range(len(stage.blocks)):
+                lc = sc[f"b{i}"]
+                if lc.kv is None:
+                    st = lc.rg if lc.rg is not None else lc.ssd
+                    kind = (rglru.RGLRUState if lc.rg is not None
+                            else ssm.SSMState)
+                    leaves = [np.asarray(a) for a in st]
+                    if stage.repeat > 1:
+                        leaves = [a[r] for a in leaves]
+                    dts = (torch.float32, cfg.dtype)
+                    out.append(kind(*(_pool_leaf(a, d, 0)
+                                      for a, d in zip(leaves, dts))))
+                    continue
                 kv = [None if a is None else np.asarray(a)
-                      for a in sc[f"b{i}"].kv]
+                      for a in lc.kv]
                 if stage.repeat > 1:
                     kv = [None if a is None else a[r] for a in kv]
                 k, v, pos, ks, vs = kv
@@ -153,5 +168,5 @@ def from_jax_paged_pool(np_layers: list, cfg: ModelConfig,
                          f"{cfg.num_layers}")
     if device is None:
         return out
-    return [attention.KVPool(*(None if t is None else t.to(device)
-                               for t in p)) for p in out]
+    return [type(p)(*(None if t is None else t.to(device) for t in p))
+            for p in out]

@@ -87,6 +87,14 @@ class ModelConfig:
     def q_per_kv(self) -> int:
         return self.num_heads // max(self.num_kv_heads, 1)
 
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.ssm_d_inner // self.ssm_head_dim
+
     def layer_plan(self) -> tuple[tuple[str, str], ...]:
         """Per-layer (mixer, ffn) kinds."""
         plan = []
@@ -214,6 +222,13 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """log(1 + e^x) as the reference computes it, ``logaddexp(x, 0)``
+    (torch's ``F.softplus`` switches to x above a threshold)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                          device=x.device))
 
 
 ACTIVATIONS = {

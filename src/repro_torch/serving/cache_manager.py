@@ -10,13 +10,16 @@ absorbed once is re-materialised per slot.  Engines built with
 * **Block pool** — every attention layer's K/V lives in a fixed pool of
   fixed-size blocks (``attention.KVPool``: ``(n_blocks, block_len,
   kv_heads, head_dim)``, positions alongside, plus the sink block that
-  dropped writes land in), built by ``transformer.init_block_pool`` and
-  owned by one :class:`CachePool` per engine.
-* **Block tables** — a session references storage through a ``(B, nb)``
-  int32 table of pool block ids.  A dispatch uploads its tables once and
-  reads and writes the pools through them.  (The reference also allocates
-  a recurrent-state row per session row; the port's mixers are attention
-  only, so its pool holds blocks alone.)
+  dropped writes land in); every recurrent layer's state (RG-LRU, SSD)
+  lives in ``n_rows`` state rows (plus a sink row).  The pools are built by
+  ``transformer.init_block_pool`` and owned by one :class:`CachePool` per
+  engine.
+* **Block tables and state rows** — a session references storage through
+  a ``(B, nb)`` int32 table of pool block ids and a ``(B,)`` state-row id
+  per row.  A dispatch uploads its tables and rows once and reads and
+  writes the pools through them.  Every session row holds a row, also on a
+  model without recurrent layers (as in the reference), so rows gate
+  admission beside blocks.
 * **Growth without copy** — extending a session appends freshly reset
   blocks to its table; nothing existing is copied (the engine's
   ``grow_copy`` counter stays 0).
@@ -24,7 +27,9 @@ absorbed once is re-materialised per slot.  Engines built with
   its *table* and bumps per-block refcounts; blocks at or past the next
   write position are COW-copied per row (at most the one partially filled
   tail block, plus a local-attention ring's blocks), everything earlier is
-  shared read-only.  A shared block (refcount > 1) is never in a
+  shared read-only; state rows are rewritten every step, so a fork gets
+  its own copy of them (``transformer.copy_rows``).  A shared block
+  (refcount > 1) is never in a
   dispatch's write range: the dispatches write only the blocks covering the
   positions they write (``attention.paged_scatter_blocks`` /
   ``paged_scatter_delta``), and ``extend`` / ``admit_row`` COW-copy every
@@ -32,10 +37,13 @@ absorbed once is re-materialised per slot.  Engines built with
   N sessions with exactly one prefill.
 * **Eviction / TTL** — handles are registered with the pool;
   ``evict_idle(ttl_s)`` releases those idle past the TTL and returns their
-  blocks.  Reusing an evicted handle raises.
+  blocks and rows.  Reusing an evicted handle raises.
 
-Host bookkeeping is numpy (a heap free list, refcounts); the device work
-is block reset and copy, written in place, O(the blocks touched).  JAX's
+Host bookkeeping is numpy (heap free lists, refcounts); the device work is
+block and row reset and copy, written in place (``index_put_``,
+``index_fill_``, ``index_copy_``), O(the blocks and rows touched): captured
+dispatches and live handles hold the pools' addresses, so a pool is never
+re-made.  JAX's
 pool is a value that each dispatch returns and ``CachePool.commit`` swaps
 in; the port's dispatches write the pools in place, so the port's pool has
 no ``commit``.
@@ -69,6 +77,7 @@ class PagedHandle:
     the pool epoch at creation; with ``sid`` it makes stale reuse loud."""
 
     tables: np.ndarray          # (B, nb_covered) int32 pool block ids
+    rows: np.ndarray            # (B,) int32 state-row ids
     sid: int                    # session id in the owning pool
     epoch: int                  # pool epoch at creation
 
@@ -78,19 +87,22 @@ class PagedHandle:
 
 
 class CachePool:
-    """Fixed pool of KV blocks with a host allocator.
+    """Fixed pool of KV blocks and recurrent-state rows with a host
+    allocator.
 
     One per paged ``InferenceEngine``.  Owns the device pools
-    (``self.arrays``: one ``attention.KVPool`` per layer), written in place
-    by the dispatches.  Allocation takes the lowest-numbered free blocks (a
-    heap), so a slot's run stays as contiguous as the churn allows."""
+    (``self.arrays``: one per layer, ``transformer.init_block_pool``),
+    written in place by the dispatches.  Allocation takes the
+    lowest-numbered free blocks and rows (heaps), so a slot's run stays as
+    contiguous as the churn allows."""
 
-    def __init__(self, cfg, block_len: int, n_blocks: int, *,
+    def __init__(self, cfg, block_len: int, n_blocks: int, n_rows: int, *,
                  cache_quant: str | None = None, device=None,
                  clock=time.monotonic):
         self.cfg = cfg
         self.block_len = int(block_len)
         self.n_blocks = int(n_blocks)
+        self.n_rows = int(n_rows)
         self.cache_quant = Q.check_quant(cache_quant)
         self._clock = clock
         # local-attention layers view the FIRST ring_blocks table entries as
@@ -101,18 +113,20 @@ class CachePool:
         if cfg.window is not None and any(
                 m == "attn_local" for m, _ in cfg.layer_plan()):
             self.ring_blocks = max(cfg.window // block_len, 1)
-        self.arrays = T.init_block_pool(cfg, n_blocks, block_len,
+        self.arrays = T.init_block_pool(cfg, n_blocks, block_len, n_rows,
                                         cache_quant=cache_quant,
                                         device=device)
         self._free = list(range(n_blocks))
         heapq.heapify(self._free)
+        self._free_rows = list(range(n_rows))
+        heapq.heapify(self._free_rows)
         self.ref = np.zeros((n_blocks,), np.int64)
+        self.row_ref = np.zeros((n_rows,), np.int64)
         self.epoch = 0
         self._sessions: dict[int, dict] = {}
         self._next_sid = 0
-        # the reference's counters, for comparison: ``row_copies`` counts
-        # the session rows forked by ``select`` / ``admit_row`` (each copies
-        # a state row there; here the fork is the table copy alone)
+        # the reference's counters: ``row_copies`` counts the session rows
+        # forked by ``select`` / ``admit_row`` (each copies a state row)
         self.counters = {"blocks_alloc": 0, "blocks_freed": 0,
                          "blocks_reset": 0, "cow_copies": 0,
                          "row_copies": 0, "evictions": 0, "high_water": 0}
@@ -126,11 +140,22 @@ class CachePool:
         return self.n_blocks - len(self._free)
 
     @property
+    def rows_in_use(self) -> int:
+        return self.n_rows - len(self._free_rows)
+
+    @property
     def block_bytes(self) -> int:
         """Device bytes per served block over all layers, in the stored
         representation (quantized payload plus f32 scales)."""
-        return sum(t.nbytes for pool in self.arrays for t in pool.served()
-                   if t is not None) // self.n_blocks
+        return sum(t.nbytes for pool in T._kv_pools(self.arrays)
+                   for t in pool.served() if t is not None) // self.n_blocks
+
+    @property
+    def row_bytes(self) -> int:
+        """Device bytes per state row over all recurrent layers (the sink
+        row not counted)."""
+        return sum(t[0].nbytes for pool in T._state_pools(self.arrays)
+                   for t in pool)
 
     @property
     def pool_bytes(self) -> int:
@@ -146,8 +171,9 @@ class CachePool:
                 f"{self.block_bytes / 1024:.1f} KiB, pool "
                 f"{self.pool_bytes / 2**20:.1f} MiB")
 
-    def can_alloc(self, n_blocks: int) -> bool:
-        return len(self._free) >= n_blocks
+    def can_alloc(self, n_blocks: int, n_rows: int = 0) -> bool:
+        return (len(self._free) >= n_blocks
+                and len(self._free_rows) >= n_rows)
 
     def alloc_blocks(self, n: int, *, reset: bool = True) -> np.ndarray:
         """Take ``n`` free blocks (refcount 1).  ``reset=True`` zeroes their
@@ -183,20 +209,45 @@ class CachePool:
     def share_blocks(self, ids: np.ndarray) -> None:
         np.add.at(self.ref, np.asarray(ids, np.int64).ravel(), 1)
 
+    def alloc_rows(self, n: int) -> np.ndarray:
+        """Take ``n`` free state rows, zeroed in place (refcount 1)."""
+        if len(self._free_rows) < n:
+            raise PoolExhaustedError(
+                f"cache pool exhausted: need {n} state rows, "
+                f"{len(self._free_rows)}/{self.n_rows} free")
+        ids = np.array([heapq.heappop(self._free_rows) for _ in range(n)],
+                       np.int32)
+        self.row_ref[ids] = 1
+        if n:
+            T.reset_rows(self.cfg, self.arrays, ids)
+        return ids
+
+    def free_rows(self, ids: np.ndarray) -> None:
+        """Drop one reference per row id; rows at refcount 0 return to the
+        free list."""
+        for i in np.asarray(ids, np.int64).ravel():
+            self.row_ref[i] -= 1
+            assert self.row_ref[i] >= 0, f"double free of row {i}"
+            if self.row_ref[i] == 0:
+                heapq.heappush(self._free_rows, int(i))
+
     # ------------------------------------------------------------------
     # session handles
     # ------------------------------------------------------------------
 
-    def register(self, tables: np.ndarray) -> PagedHandle:
+    def register(self, tables: np.ndarray, rows: np.ndarray) -> PagedHandle:
         sid = self._next_sid
         self._next_sid += 1
-        h = PagedHandle(np.asarray(tables, np.int32).copy(), sid, self.epoch)
+        h = PagedHandle(np.asarray(tables, np.int32).copy(),
+                        np.asarray(rows, np.int32).copy(), sid, self.epoch)
         self._sessions[sid] = {"handle": h, "last_used": self._clock()}
         return h
 
     def alloc(self, batch: int, nb: int) -> PagedHandle:
-        """A fresh session: ``batch`` runs of ``nb`` reset blocks."""
-        return self.register(self.alloc_blocks(batch * nb).reshape(batch, nb))
+        """A fresh session: ``batch`` runs of ``nb`` reset blocks and
+        ``batch`` zeroed state rows."""
+        tables = self.alloc_blocks(batch * nb).reshape(batch, nb)
+        return self.register(tables, self.alloc_rows(batch))
 
     def check(self, handle: PagedHandle) -> None:
         """Validate + touch a handle; raises on released/evicted ones."""
@@ -209,10 +260,12 @@ class CachePool:
         meta["last_used"] = self._clock()
 
     def release(self, handle: PagedHandle) -> None:
-        """Return a session's blocks to the pool and invalidate it."""
+        """Return a session's blocks and rows to the pool and invalidate
+        it."""
         self.check(handle)
         del self._sessions[handle.sid]
         self.free_blocks(handle.tables)
+        self.free_rows(handle.rows)
 
     def evict_idle(self, ttl_s: float, now: float | None = None,
                    exclude=()) -> int:
@@ -226,6 +279,7 @@ class CachePool:
         for sid in victims:
             h = self._sessions.pop(sid)["handle"]
             self.free_blocks(h.tables)
+            self.free_rows(h.rows)
             self.counters["evictions"] += 1
         if victims:
             self.epoch += 1
@@ -290,40 +344,51 @@ class CachePool:
 
     def select(self, handle: PagedHandle, idx) -> PagedHandle:
         """Fork rows ``idx`` of a session into a NEW handle: block tables
-        copied by reference (refcount++; repeated indices fan one row out).
-        O(table), never O(cache)."""
+        copied by reference (refcount++; repeated indices fan one row out),
+        state rows copied in place into fresh rows (``copy_rows``).
+        O(table + state rows), never O(cache)."""
         self.check(handle)
         idx = np.asarray(idx, np.int64).reshape(-1)
         tables = handle.tables[idx]
         self.share_blocks(tables)
+        rows = self.alloc_rows(len(idx))
+        T.copy_rows(self.cfg, self.arrays, handle.rows[idx], rows)
         self.counters["row_copies"] += len(idx)
-        return self.register(tables)
+        return self.register(tables, rows)
 
     def admit_row(self, handle: PagedHandle, nb: int, write_pos: int,
-                  row_index: int = 0) -> np.ndarray:
+                  row_index: int = 0) -> tuple[np.ndarray, int]:
         """Serve-slot admission off a (possibly shared) handle: the slot
         gets its own table row — prefix blocks shared by reference,
-        write-range blocks COW-copied, tail freshly allocated.  The handle
-        itself is untouched, so N requests can admit off one absorbed
-        prefix."""
+        write-range blocks COW-copied, tail freshly allocated — and its own
+        copy of the state row.  The handle itself is untouched, so N
+        requests can admit off one absorbed prefix.  Returns (run, row)."""
         self.check(handle)
         self.share_blocks(handle.tables[row_index])   # our working reference
         cow_src, cow_dst, fresh = [], [], []
         run = self._cow_and_grow(handle.tables[row_index], nb, write_pos,
                                  cow_src, cow_dst, fresh)
         self._flush(cow_src, cow_dst, fresh)
+        row = int(self.alloc_rows(1)[0])
+        T.copy_rows(self.cfg, self.arrays,
+                    handle.rows[row_index:row_index + 1], [row])
         self.counters["row_copies"] += 1
-        return run
+        return run, row
 
-    def adopt(self, blocks: np.ndarray, covered_blocks: int) -> PagedHandle:
-        """Turn an owned serve-slot run into a session handle, trimmed to
-        ``covered_blocks`` (the rest is freed: a session keeps O(len), not
-        O(max_len))."""
+    def alloc_run(self, nb: int) -> tuple[np.ndarray, int]:
+        """A cold serve-slot run: ``nb`` reset blocks and one zeroed row."""
+        return self.alloc_blocks(nb), int(self.alloc_rows(1)[0])
+
+    def adopt(self, blocks: np.ndarray, row: int,
+              covered_blocks: int) -> PagedHandle:
+        """Turn an owned serve-slot run and its row into a session handle,
+        trimmed to ``covered_blocks`` (the rest is freed: a session keeps
+        O(len), not O(max_len))."""
         blocks = np.asarray(blocks, np.int32)
         keep, drop = blocks[:covered_blocks], blocks[covered_blocks:]
         if len(drop):
             self.free_blocks(drop)
-        return self.register(keep[None])
+        return self.register(keep[None], np.array([row], np.int32))
 
     def trim(self, handle: PagedHandle, covered_blocks: int) -> None:
         """Free blocks past ``covered_blocks`` in every row of ``handle``

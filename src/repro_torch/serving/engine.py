@@ -24,9 +24,10 @@ Mirrors the single-device branches of ``repro/serving/engine.py``:
     retirement, and hand sessions back (``Request.return_state``); a
     ``FaultPlan`` injects pool famine, forced eviction, slot failure and
     decode straggles, and ``step_time_ms`` runs the deadline clock;
-  * **paged** engines (``paged=True``) keep KV in a block pool
-    (``serving/cache_manager.py``) read through per-session block tables:
-    growth appends blocks, fan-out shares a prefix copy-on-write, and
+  * **paged** engines (``paged=True``) keep KV in a block pool and
+    recurrent state in pooled state rows (``serving/cache_manager.py``),
+    read through per-session block tables and row ids: growth appends
+    blocks, fan-out shares a prefix copy-on-write and copies the rows, and
     decode reads the pool in place through the block-table kernel
     (``attn_decode_impl="kernel"``, the default) or through the gathered
     monolithic view (``"gather"``, the oracle).  ``cache_quant`` stores the
@@ -102,9 +103,10 @@ class SessionState:
     with ``state_select`` / ``fanout`` before extending if both timelines
     are needed.
 
-    * ``cache`` — one ``KVCache`` per layer, populated through position
-      ``pos - 1``; on a paged engine a ``PagedHandle`` (block tables into
-      the engine's pool, valid until ``engine.release`` or TTL eviction);
+    * ``cache`` — one ``KVCache`` (or recurrent state) per layer,
+      populated through position ``pos - 1``; on a paged engine a
+      ``PagedHandle`` (block tables and state rows in the engine's pool,
+      valid until ``engine.release`` or TTL eviction);
     * ``pos`` (B,) int32 — next absolute write position per row;
     * ``cur`` (B,) int32 — the last sampled token, not yet absorbed or
       emitted: an extension resumes from it bitwise;
@@ -153,7 +155,10 @@ class InferenceEngine:
     flags (``models.common.use_f32_accumulation``).
 
     ``paged=True`` keeps the KV cache in a block pool of ``pool_blocks``
-    blocks of ``block_len`` slots (default: 16 full-length sessions);
+    blocks of ``block_len`` slots (default: 16 full-length sessions) and
+    ``pool_rows`` state rows (default: as many as the blocks hold
+    full-length sessions, at least 16; every session row takes one, as in
+    the reference);
     ``attn_decode_impl`` picks its decode: ``"kernel"`` (None resolves to
     it) reads the pool in place through the block-table kernel,
     ``"gather"`` gathers the monolithic view and runs the monolithic decode
@@ -171,6 +176,7 @@ class InferenceEngine:
     mesh: Any = None
     block_len: int = 64
     pool_blocks: int | None = None
+    pool_rows: int | None = None
     attn_decode_impl: str | None = None
     cache_quant: str | None = None
 
@@ -197,6 +203,8 @@ class InferenceEngine:
                          "requeued": 0, "reprefill_cold": 0,
                          "backpressure_deferred": 0}
         self.params = self.params.to(self.device)
+        self._recurrent = any(m in ("rglru", "ssd")
+                              for m, _ in self.cfg.layer_plan())
         kvb = self.cfg.attn_kv_block
         if self.max_len > kvb and self.max_len % kvb:
             self.max_len = -(-self.max_len // kvb) * kvb
@@ -224,7 +232,8 @@ class InferenceEngine:
             raise ValueError(f"attn_decode_impl must be 'kernel' or "
                              f"'gather', got {self.attn_decode_impl!r}")
         n_blocks = self.pool_blocks or max(64, 16 * self.max_len // L)
-        self.pool = CachePool(self.cfg, L, n_blocks,
+        n_rows = self.pool_rows or max(16, n_blocks * L // self.max_len)
+        self.pool = CachePool(self.cfg, L, n_blocks, n_rows,
                               cache_quant=self.cache_quant,
                               device=self.device)
 
@@ -304,7 +313,9 @@ class InferenceEngine:
                      - (S - s_orig)).expand(B, S)
         logits, cache = T.prefill(self.params, self.cfg,
                                   self._tokens(prompts), cache, positions)
-        last = logits[:, -1].float()
+        # contiguous: in an f32 model ``.float()`` is the strided view,
+        # and the uncertainty kernel takes contiguous rows
+        last = logits[:, -1].float().contiguous()
         return last.argmax(-1).to(torch.int32), last, cache
 
     def _prefill_absorb(self, prompts: np.ndarray, s_orig: int,
@@ -326,7 +337,7 @@ class InferenceEngine:
                                   self._tokens(prompts), cache,
                                   positions.to(torch.int32),
                                   continuation=True)
-        last = logits[:, s_orig - 1].float()
+        last = logits[:, s_orig - 1].float().contiguous()
         return last.argmax(-1).to(torch.int32), last, cache
 
     def _next(self, lg: torch.Tensor, greedy: bool,
@@ -383,14 +394,15 @@ class InferenceEngine:
         """One decode dispatch of ``steps`` tokens -> (tokens, logits |
         None, h, v, (cur, last, pos)), the port of one ``lax.scan`` call of
         the reference's ``_decode_scan`` family.  ``route``: ``"mono"``
-        (``cache`` a per-layer ``KVCache`` list, written in place),
-        ``"kernel"`` or ``"gather"`` (``cache`` a paged dict; the pool
-        written in place).
+        (``cache`` a per-layer list of ``KVCache`` and recurrent states,
+        written in place), ``"kernel"`` or ``"gather"`` (``cache`` a paged
+        dict; the pool written in place).
 
         On the card it is one replay of a captured graph
-        (``serving/graphs.py``): the caller's cur/last/pos (and table) go
-        through the graph's staging buffers, a monolithic cache through its
-        arena, and the outputs come back as clones.  ``self._graphs`` None
+        (``serving/graphs.py``): the caller's cur/last/pos (and table and
+        state rows) go through the graph's staging buffers, a monolithic
+        cache (KV and states) through its arena, and the outputs come back
+        as clones.  ``self._graphs`` None
         runs the eager loop: the CPU's route, and the card's oracle (a
         test sets it)."""
         body = _BODIES[route]
@@ -402,20 +414,27 @@ class InferenceEngine:
         io, fill = (), None
         if route == "mono":
             io = [t for c in cache for t in c]
-            width = max(c.k.shape[1] for c in cache)
-            kv, n = type(cache[0]), len(cache[0])
+            width = max((c.k.shape[1] for c in cache
+                         if not isinstance(c, T.STATE_TYPES)), default=0)
+            types = [(type(c), len(c)) for c in cache]
 
             def run(staged, arena, g):
-                lin = [kv(*arena[i:i + n]) for i in range(0, len(arena), n)]
+                lin, i = [], 0
+                for kind, n in types:
+                    lin.append(kind(*arena[i:i + n]))
+                    i += n
                 return body(self, staged["cur"], staged["last"], lin,
                             staged["pos"], steps, greedy, g, with_logits)
         else:
             inputs["table"] = cache["table"]
+            inputs["rows"] = cache["rows"]
             width = cache["table"].shape[1]
-            fill = {"table": self.pool.n_blocks}    # a capture writes the sink
+            # a capture writes the sink block and the sink row
+            fill = {"table": self.pool.n_blocks, "rows": self.pool.n_rows}
 
             def run(staged, arena, g):
-                c = T.paged_cache(self.pool.arrays, staged["table"])
+                c = T.paged_cache(self.pool.arrays, staged["table"],
+                                  staged["rows"])
                 return body(self, staged["cur"], staged["last"], c,
                             staged["pos"], steps, greedy, g, with_logits)
         key = (route, int(cur.shape[0]), width, steps, greedy, with_logits)
@@ -430,11 +449,13 @@ class InferenceEngine:
     # paged dispatches
     # ------------------------------------------------------------------
 
-    def _paged_dev_cache(self, tables: np.ndarray) -> dict:
+    def _paged_dev_cache(self, tables: np.ndarray, rows: np.ndarray) -> dict:
         """The paged cache of one dispatch: the engine's pools + this
-        dispatch's tables, uploaded once."""
-        return T.paged_cache(self.pool.arrays, torch.as_tensor(
-            np.asarray(tables, np.int32), device=self.device))
+        dispatch's tables and state rows, uploaded once."""
+        def dev(a):
+            return torch.as_tensor(np.asarray(a, np.int32),
+                                   device=self.device)
+        return T.paged_cache(self.pool.arrays, dev(tables), dev(rows))
 
     def _paged_grown(self, state: SessionState, need: int):
         """Extend a paged session's tables to the dispatch length (fresh
@@ -447,7 +468,7 @@ class InferenceEngine:
                 else self._round_len(need))
         tables = self.pool.extend(handle, disp // self.block_len,
                                   state.pos.cpu().numpy())
-        return self._paged_dev_cache(tables), disp
+        return self._paged_dev_cache(tables, handle.rows), disp
 
     def _prefill_into_paged(self, prompts, s_orig: int, cache: dict):
         """Paged cold prefill: gather -> ``_prefill_into`` -> write blocks
@@ -559,13 +580,21 @@ class InferenceEngine:
 
     def _check_state(self, state: SessionState, *, extension: bool):
         """An inexact handle (captured past a stop token) supports only a
-        continuation prefill: its pending token is not the session's."""
+        continuation prefill on an attention-only model: its pending token
+        is not the session's, and a recurrent state has absorbed the steps
+        past the stop."""
         self._state_kind_check(state)
-        if not state.exact and extension:
+        if state.exact:
+            return
+        if extension or self._recurrent:
             raise ValueError(
                 "inexact session state (captured after a mid-chunk stop "
-                "retirement in serve()): pure decode extension needs the "
-                "pending token; continue it with a prompt instead")
+                "retirement in serve()): "
+                + ("pure decode extension needs the pending token"
+                   if extension else
+                   "recurrent-mixer state absorbed post-stop steps")
+                + "; continue it with a prompt on an attention-only model "
+                  "instead")
 
     # ------------------------------------------------------------------
     @torch.inference_mode()
@@ -606,7 +635,7 @@ class InferenceEngine:
                 cache = self.pool.alloc(B, max_len // self.block_len)
                 out = self._generate_paged(
                     pb, s_orig, None,
-                    self._paged_dev_cache(cache.tables),
+                    self._paged_dev_cache(cache.tables, cache.rows),
                     max_new, greedy, gen)
             else:
                 cur, last, cache = self._prefill_absorb(pb, s_orig, max_len)
@@ -701,7 +730,7 @@ class InferenceEngine:
                 cache = self.pool.alloc(B, max_len // self.block_len)
                 cur, last, _ = self._prefill_into_paged(
                     pb, s_orig,
-                    self._paged_dev_cache(cache.tables))
+                    self._paged_dev_cache(cache.tables, cache.rows))
             else:
                 cur, last, cache = self._prefill_absorb(pb, s_orig, max_len)
             pos, offset = self._full(B, s_orig), s_orig
@@ -731,12 +760,13 @@ class InferenceEngine:
     def state_select(self, state: SessionState, idx) -> SessionState:
         """Rows ``idx`` of a session (repeated indices fan out).  The
         gateway hands the swarm round the probe's state for just the
-        SWARM-routed queries this way.  Monolithic: a COPY of the rows (the
-        caches are written in place, so extending the selection must leave
-        the source untouched).  Paged: a refcounted table copy
+        SWARM-routed queries this way.  Monolithic: a COPY of the rows, KV and
+        recurrent states alike (the caches are written in place, so
+        extending the selection must leave the source untouched).  Paged: a
+        refcounted table copy and fresh copies of the state rows
         (``CachePool.select``); the selection's first write COW-copies any
-        shared block in its range, so the source's blocks stay as they
-        were."""
+        shared block in its range, so the source's blocks and rows stay as
+        they were."""
         idx_np = np.asarray(idx, np.int64)
         idx = torch.as_tensor(idx_np, device=self.device)
         if self.paged:
@@ -811,15 +841,16 @@ class InferenceEngine:
         remaining budget, so its handle is captured at its last step
         (``SessionState.exact``).
 
-        Paged engines: slots read the pool through per-slot tables (empty
-        slots hold sentinels, whose reads are skipped or clamped and whose
-        writes land in the sink); admission asks the pool for blocks
-        (requests that do not fit wait, counted per round in
-        ``counters["backpressure_deferred"]``); a warm admission is a refcounted
-        table copy off the handle, so N queued requests carrying one
-        absorbed handle fan out with no extra prefill; retirement frees the
-        slot's blocks, and ``return_state`` is a table adoption trimmed to
-        the covered length.  When nothing decodes and nothing fits,
+        Paged engines: slots read the pool through per-slot tables and
+        state rows (empty slots hold sentinels, whose reads are skipped or
+        clamped and whose writes land in the sinks); admission asks the pool
+        for blocks and a row (requests that do not fit wait, counted per
+        round in ``counters["backpressure_deferred"]``); a warm admission is
+        a refcounted table copy off the handle plus a copy of its state
+        row, so N queued requests carrying one absorbed handle fan out with
+        no extra prefill; retirement, expiry, eviction and slot failure free
+        the slot's blocks and its row once, and ``return_state`` is a table
+        and row adoption trimmed to the covered length.  When nothing decodes and nothing fits,
         ``session_ttl_s`` evicts idle sessions (sparing handles still
         queued), then ``overload="shed"`` sheds the least urgent request or
         ``"raise"`` raises ``PoolExhaustedError``.  A warm request whose
@@ -874,9 +905,12 @@ class InferenceEngine:
         pos = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
         if paged:
             nb = max_len // self.block_len
+            # sentinel tables and rows: an empty slot's reads are skipped
+            # or clamped and its writes land in the sinks
             slot_tables = np.full((n_slots, nb), self.pool.n_blocks,
                                   np.int32)
-            slot_run: list = [None] * n_slots      # the blocks a slot owns
+            slot_rows = np.full((n_slots,), self.pool.n_rows, np.int32)
+            slot_run: list = [None] * n_slots   # the (blocks, row) it owns
             cache = None
         else:
             cache = T.init_cache(self.cfg, n_slots, max_len, device=dev)
@@ -902,20 +936,23 @@ class InferenceEngine:
         promised = [0]          # slots admitted this round, not yet funded
 
         def fits(r: Request) -> bool:
-            # a cold request needs a full run, a warm one at most that;
-            # count the slots admit() already promised this round
-            ok = self.pool.can_alloc((promised[0] + 1) * nb)
+            # a cold request needs a full run and a state row, a warm one at
+            # most that; count the slots admit() already promised this round
+            ok = self.pool.can_alloc((promised[0] + 1) * nb, promised[0] + 1)
             promised[0] += ok
             return ok
 
         def free_slot(i: int):
-            # free the blocks a slot still owns and repoint it at the
-            # sentinels: its garbage decode writes the sink from now on
+            # free the blocks and the row a slot still owns and repoint it
+            # at the sentinels: its garbage decode writes the sinks from now
             if paged:
                 if slot_run[i] is not None:
-                    self.pool.free_blocks(slot_run[i])
+                    blocks, row = slot_run[i]
+                    self.pool.free_blocks(blocks)
+                    self.pool.free_rows(np.array([row]))
                     slot_run[i] = None
                 slot_tables[i, :] = self.pool.n_blocks
+                slot_rows[i] = self.pool.n_rows
             pos0.pop(i, None)
 
         now_ms = 0.0            # the deadline clock (step_time_ms)
@@ -983,12 +1020,15 @@ class InferenceEngine:
                             continue
                         self.counters["reprefill_cold"] += 1
                 if paged:
-                    run = (self.pool.admit_row(st.cache, nb, int(st.pos[0]))
-                           if st is not None
-                           else self.pool.alloc_blocks(nb))
+                    run, row = (self.pool.admit_row(st.cache, nb,
+                                                    int(st.pos[0]))
+                                if st is not None
+                                else self.pool.alloc_run(nb))
                     slot_tables[i, :] = run
-                    slot_run[i] = run
-                    c1g = self._paged_dev_cache(slot_tables[i:i + 1])
+                    slot_rows[i] = row
+                    slot_run[i] = (run, row)
+                    c1g = self._paged_dev_cache(slot_tables[i:i + 1],
+                                                slot_rows[i:i + 1])
                 elif st is not None:
                     c1g, _ = self._grown_cache(st, max_len)
                 if st is not None and req.prompt:
@@ -1031,7 +1071,8 @@ class InferenceEngine:
                          for _, r in batcher.active() if r.return_state])
             toks, _, h_per, v_per, (cur, last, pos) = self._dispatch(
                 self._route, cur, last,
-                self._paged_dev_cache(slot_tables) if paged else cache, pos,
+                self._paged_dev_cache(slot_tables, slot_rows) if paged
+                else cache, pos,
                 chunk, bool(greedy), gen, with_logits=False)
             toks_np = toks.cpu().numpy()
             h_np, v_np = h_per.cpu().numpy(), v_per.cpu().numpy()
@@ -1065,8 +1106,9 @@ class InferenceEngine:
                         handle = [type(c)(*(t[i:i + 1].clone() for t in c))
                                   for c in cache]
                     elif slot_run[i] is not None:
+                        blocks, row = slot_run[i]
                         handle = self.pool.adopt(
-                            slot_run[i], -(-end // self.block_len))
+                            blocks, row, -(-end // self.block_len))
                         slot_run[i] = None
                     states[req.rid] = SessionState(
                         handle, self._full(1, end), cur[i:i + 1].clone(),

@@ -17,13 +17,14 @@ plays the role of jit's static arguments; the cache of graphs is bounded
 **Static addresses.**  A replay reads and writes the addresses its capture
 saw.  Every tensor a dispatch takes from its caller therefore goes through
 a buffer the graph owns: ``run`` copies the caller's ``inputs`` (the
-pending token, its logits, the position, a block table) into the graph's
-staging buffers, and the caller's ``io`` tensors (a monolithic cache) into
-the graph's arena before the replay and back out after it.  Both are
+pending token, its logits, the position, a block table and its state-row
+ids) into the graph's staging buffers, and the caller's ``io`` tensors (a
+monolithic cache: KV caches and recurrent states) into the graph's arena
+before the replay and back out after it.  Both are
 allocated outside the capture, so no graph's memory pool holds them; the
-buffers a capture allocates itself (a paged dispatch's delta rows, the
-window-cut tables) are re-made by every replay, as the eager dispatch
-makes them anew.
+buffers a capture allocates itself (a paged dispatch's delta rows and
+gathered state rows, the window-cut tables) are re-made by every replay,
+as the eager dispatch makes them anew.
 
 **Nothing that leaves a dispatch aliases the graph.**  A replay overwrites
 the graph's outputs, so ``run`` hands back clones.  Every graph of one

@@ -324,3 +324,41 @@ def test_cuda_generate_matches_cpu(mode):
         rtol=1e-4, atol=1e-7)
     np.testing.assert_allclose(out["v_mean"], v.mean(-1).numpy(), rtol=1e-4,
                                atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("graphed", [False, True], ids=["eager", "graph"])
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "mamba2-780m"])
+def test_cuda_recurrent_generate_matches_cpu(arch, graphed):
+    """The recurrent smoke models in f32 on the card, through the eager
+    loop and through a captured dispatch, against the CPU path: tokens
+    tie-aware at 1e-4, the kernels of the path launched and no plain
+    version run.  (An f32 model's prefill logits are a strided view; the
+    eager loop hands them to the uncertainty kernel, which takes
+    contiguous rows.)"""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run with -m gpu on the chip)")
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.swarm_uncertainty import ops as uops
+    tc = dataclasses.replace(TC.get_smoke(arch), vocab_size=512,
+                             dtype=torch.float32)
+    model = TT.init_params(tc, torch.Generator().manual_seed(0))
+    with torch.no_grad():           # varied streams (the tied init repeats)
+        for name, p in model.named_parameters():
+            if p.dim() >= 2 and "embed" not in name and "conv" not in name:
+                p.mul_(6)
+    ref = TEngine("c", tc, model, TU(mode="distribution"),
+                  device="cpu").generate(PROMPTS, MAX_NEW)
+    gpu = TEngine("g", tc, copy.deepcopy(model), TU(mode="distribution"))
+    if not graphed:
+        gpu._graphs = None
+    used = (dops, fops, uops) if arch == "recurrentgemma-2b" else (uops,)
+    for ops in (dops, fops, uops):
+        ops.counts.reset()
+    out = gpu.generate(PROMPTS, MAX_NEW)
+    out["logits"] = out["logits"].cpu()
+    assert all(ops.counts.launches > 0 for ops in used)
+    assert all(ops.counts.plain == 0 for ops in (dops, fops, uops))
+    assert_greedy_match_modulo_ties(_logits_np(out), _logits_np(ref),
+                                    atol=1e-4)

@@ -90,7 +90,7 @@ def _tol(tc):
 
 
 def test_config_mirrors_reference():
-    for arch in ARCHS:
+    for arch in ARCHS + ("recurrentgemma-2b", "mamba2-780m"):
         for get, tget in ((C.get_config, TC.get_config),
                           (C.get_smoke, TC.get_smoke)):
             jc, tc = get(arch), tget(arch)
@@ -100,8 +100,8 @@ def test_config_mirrors_reference():
             assert tc.layer_plan() == jc.layer_plan()
             assert [(s.blocks, s.repeat) for s in tc.stage_plan()] == \
                 [(s.blocks, s.repeat) for s in jc.stage_plan()]
-    with pytest.raises(ValueError):
-        TC.get_config("mamba2-780m")
+    with pytest.raises(ValueError):        # MoE is not ported yet
+        TC.get_config("deepseek-moe-16b")
 
 
 def test_common_ops_match_reference():
@@ -238,7 +238,10 @@ def test_init_params_distribution():
 
 
 def test_other_mixers_are_refused():
-    tc = dataclasses.replace(TC.get_smoke("smollm-135m"),
-                             mixer_pattern=("rglru",))
+    """MoE layers are not ported yet: a layer plan with a ``moe`` FFN is
+    refused (RG-LRU and SSD mixers are served, ``test_torch_recurrent.py``)."""
+    tc = dataclasses.replace(TC.get_smoke("smollm-135m"), num_experts=4,
+                             top_k=2, expert_d_ff=32)
+    assert any(f == "moe" for _, f in tc.layer_plan())
     with pytest.raises(NotImplementedError):
         TT.Transformer(tc)
