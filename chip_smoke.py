@@ -93,8 +93,8 @@ Phases (any failure exits nonzero; nothing is caught and turned into 0):
    against the same forward with the grid-offset op's plain version
    swapped in, within the tie budget;
 R1. ``recurrentgemma-2b`` at published widths, all 26 layers (RG-LRU +
-   windowed attention, head_dim 256, 10 query heads on 1 KV head, window
-   2048, vocabulary 256000), random weights (every matrix but the
+   windowed attention, head_dim 256, 10 query heads on 1 KV head, window 2048,
+   vocabulary 256000), random weights (every matrix but the
    embedding and the convs scaled by 6, so the state and the K/V move the
    logits): ``generate`` on 8 prompts of
    24-200 tokens (bucket 256, ``max_new=32``) on a monolithic cache with
@@ -105,7 +105,11 @@ R1. ``recurrentgemma-2b`` at published widths, all 26 layers (RG-LRU +
    the tie budget, so the contracts are held on an f32 copy of the same
    weights: ``generate_stepwise`` and ``serve()`` tie-aware equal to
    ``generate``, and a decode that never writes its K/V must read outside
-   the budget; the bf16 readings are printed beside that noise floor.
+   the budget; the bf16 readings are printed beside that noise floor (the
+   bf16 stepwise on the two shortest prompts, for time; the f32 copies run
+   the eager loop, which the bf16 engines hold bitwise to the graph
+   route; the f32 graph route is held on the card by the ``gpu`` test
+   ``test_torch_engine.py::test_cuda_recurrent_generate_matches_cpu``).
    Then two ~2300-token prompts whose rings wrap (bf16 served and timed;
    f32 monolithic against ring tables, tie-aware);
 R1p. the same weights on a paged pool (blocks of 64, ring tables for the
@@ -115,12 +119,47 @@ R1p. the same weights on a paged pool (blocks of 64, ring tables for the
    to 16 sessions (16 state rows copied, KV blocks shared) continued with
    their own spans, ``serve()`` of 16 requests on the handle; an int8
    pool; the pool back at 0 blocks and 0 rows after every path;
-R2. ``mamba2-780m`` at published widths, all 48 SSD layers (vocabulary
-   50280): the same paths as R1 and R1p, row 3 launched and no attention
+R2. ``mamba2-780m`` at published widths, cut to 12 of its 48 SSD layers
+   to keep the script inside its time (vocabulary 50280): the same paths
+   as R1 and R1p, row 3 launched and no attention
    kernel, a decode that drops the SSD state outside the f32 budget; then
    a swarm round on the study workload's prompts, a
    ``smollm-135m`` probe whose answer is precomputed (no dispatch) beside
    the ``mamba2-780m`` peer (the reference's ``TestSwarmStateReuse``);
+M0. the MoE family's shapes (``deepseek-moe-16b``: MHA, 16 heads of
+   128, G=1, vocabulary 102400; ``llama4-scout-17b-a16e``: 40 query heads
+   on 8 KV heads, G=5, vocabulary 202048): rows 1, 2, 3 and 5 at B=8, an
+   S=256 prefill (56 padding columns), decode at positions 256-287 of 320
+   slots and a paged table of 5 blocks under 32 delta rows, each within
+   2e-2 of its plain version and timed against its bound and SDPA; row 4
+   through ``forward`` at deepseek's width (2 layers), f32 held to the
+   plain op swapped in, bf16 reported; one full-width MoE layer of each
+   config on the card against the port's CPU path in f32 (prefill S=16,
+   decode by dispatch and by gather, 1e-4 relative), then in bf16 the
+   per-layer ms of the prefill dispatch (TFLOP/s over the dispatch's E*C
+   rows and over the B*k real rows) and of decode, dispatch and gather,
+   beside the bytes of the experts each reads;
+M1. ``deepseek-moe-16b`` at published widths, all 28 layers (16.4 B
+   parameters, random weights from a ``torch.Generator`` seed), phase 4's
+   8 prompts (bucket 256, ``max_new=32``), through R1's paths (monolithic
+   and on a 128-block pool: bf16 served and timed, the graph route bitwise
+   the eager loop, rows 1-3 or 1, 3, 5 launched and no plain version);
+   the contracts on an f32 copy of the dense layer and the first 5 MoE
+   layers (~13 GB; all 28 in f32 are ~66 GB): ``generate_stepwise``,
+   ``serve()``, paged, fan-out and serve-on-a-handle tie-aware, bucket
+   padding (256 more inert columns) neutral, and a router that takes the
+   k lowest experts must read outside the budget; bf16 readings beside
+   their noise floor;
+M2. ``llama4-scout-17b-a16e`` at published widths cut to 4 layers (~21.8
+   GB; all 48 are ~215 GB), the same paths with the contracts on an f32
+   copy of 2 layers, a combine that drops the shared expert outside the
+   budget, ``moe_decode_impl="gather"`` tie-aware equal to the dispatch
+   (f32; bf16 read and timed), and a swarm round on the 50 study prompts
+   with the MoE peer beside a precomputed probe, timed;
+M3. 10 AdamW steps of ``deepseek-moe-16b`` at published widths cut to 2
+   layers (the dense layer and one MoE layer), B=4, S=128: the loss falls,
+   ``moe_aux`` finite and positive, every parameter moves, no kernel
+   launched; ms per step;
 T1. training at published width: ``training.train.build_train_step`` on
    ``smollm-135m`` (30 layers) and ``llama3-8b`` cut to the cloud tier's 4
    layers (vocabulary 128256), AdamW lr 3e-4, batch 8, seq 128, 30 steps of
@@ -130,11 +169,12 @@ T1. training at published width: ``training.train.build_train_step`` on
    ms per step, tokens/s, model TFLOP/s (6 N tokens / time) beside 989,
    peak memory and the device busy share of a step (``torch.profiler``);
 T2. checkpoint and restart through the CLI: ``python -m
-   repro_torch.launch.train --arch smollm-135m --steps 40 --batch 8 --seq
-   128 --ckpt-every 20`` run to its end, and the same run killed once it
-   prints ``[train] checkpoint @ 20`` and restarted with ``--resume``: the
-   two ``step_40`` checkpoints must hold bitwise-equal parameters and
-   optimizer state; save and restore seconds and bytes of one checkpoint;
+   repro_torch.launch.train --arch smollm-135m --steps 20 --batch 8 --seq
+   128 --ckpt-every 10`` run to its end, and the same run killed once it
+   prints ``[train] checkpoint @ 10`` and restarted with ``--resume``: the
+   two ``step_20`` checkpoints must hold bitwise-equal parameters and
+   optimizer state; save and restore seconds and bytes of one checkpoint
+   (20 steps, to keep the script inside its time);
 T3. the trained gateway, the paper's study: ``launch.serve.build_gateway(
    train_steps=400)`` (the reference CLI's default) trains the four smoke
    tiers (vocabulary 512) and the classifier and calibrates tau; every
@@ -420,15 +460,16 @@ def main():
     # ---- 3. kernels vs plain versions ----------------------------------
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)  # > L2
 
-    def time_ms(fn, iters=20):
-        """Median device time of one call with a cold L2: a spin kernel
-        keeps the stream busy while the host enqueues the call."""
+    def time_ms(fn, iters=20, spin=5_000_000):
+        """Median device time of one call with a cold L2: a spin kernel of
+        ``spin`` cycles keeps the stream busy while the host enqueues the
+        call (a call of many kernels needs a longer one)."""
         fn()
         torch.cuda.synchronize()
         ts = []
         for _ in range(iters):
             flush.zero_()
-            torch.cuda._sleep(5_000_000)
+            torch.cuda._sleep(spin)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
@@ -835,21 +876,28 @@ def main():
         uncertainty_case("R0 recurrentgemma B8 V256000", 8, 256000),
         uncertainty_case("R0 mamba2 B8 V50280", 8, 50280),
     ]
-    for c in cases:
-        check(c["max_abs_err"] <= c["tol"],
-              f"{c['label']}: error {c['max_abs_err']} > {c['tol']}")
-        lib = ("-" if c["library_ms"] is None
-               else f"{c['library_ms']:.4f}")
-        rel = (f", h relative {c['h_rel_err']:.2e} (rtol 1e-4)"
-               if "h_rel_err" in c else "")
-        rate = (f" ({c['tflops']:.1f} TFLOP/s)" if "tflops" in c else "")
-        split = (f", {c['splits']} splits of {c['chunk']}"
-                 if "splits" in c else "")
-        print(f"[3] {c['label']}: err {c['max_abs_err']:.2e} (tol "
-              f"{c['tol']:g}{rel}) kernel {c['ms']:.4f} ms{rate} plain "
-              f"{c['plain_ms']:.4f} ms library {lib} ms bound "
-              f"{c['bound_ms']:.5f} ms ({c['bound_by']}){split}")
-        checks.append(c)
+    def hold_cases(tag, cases):
+        """Each case within its tolerance of the plain version; printed
+        beside its plain, library and bound times, and kept for the
+        ``kernels`` line."""
+        for c in cases:
+            check(c["max_abs_err"] <= c["tol"],
+                  f"{c['label']}: error {c['max_abs_err']} > {c['tol']}")
+            lib = ("-" if c["library_ms"] is None
+                   else f"{c['library_ms']:.4f}")
+            rel = (f", h relative {c['h_rel_err']:.2e} (rtol 1e-4)"
+                   if "h_rel_err" in c else "")
+            rate = (f" ({c['tflops']:.1f} TFLOP/s)" if "tflops" in c
+                    else "")
+            split = (f", {c['splits']} splits of {c['chunk']}"
+                     if "splits" in c else "")
+            print(f"[{tag}] {c['label']}: err {c['max_abs_err']:.2e} (tol "
+                  f"{c['tol']:g}{rel}) kernel {c['ms']:.4f} ms{rate} plain "
+                  f"{c['plain_ms']:.4f} ms library {lib} ms bound "
+                  f"{c['bound_ms']:.5f} ms ({c['bound_by']}){split}")
+            checks.append(c)
+
+    hold_cases("3", cases)
     report["kernel_checks"] = checks
 
     # the model path on a small input, held to the port's plain path on the
@@ -904,6 +952,7 @@ def main():
     counts_of = dict(zip(KERNELS, (fops.counts, dops.counts, uops.counts,
                                    fops.grid_counts, dops.paged_counts)))
     path_launches: dict[str, dict[str, int]] = {}
+    path_seconds: dict[str, float] = {}
 
     def counted(path, needs, fn, forbid=()):
         """Run one path with every kernel count set to 0 just before it and
@@ -912,8 +961,10 @@ def main():
         have run."""
         for c in counts_of.values():
             c.reset()
+        t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
+        path_seconds[path] = time.perf_counter() - t
         got = {n: c.launches for n, c in counts_of.items()}
         for n in needs:
             check(got[n] > 0, f"{path}: {n} was never launched")
@@ -923,7 +974,7 @@ def main():
             check(c.plain == 0, f"{path}: {c.plain} calls of {n}'s plain "
                                 "version")
         path_launches[path] = got
-        print(f"[k] {path}: launches {got}")
+        print(f"[k] {path}: launches {got} ({path_seconds[path]:.2f} s)")
         return out
 
     # ---- 4. the probe tier: smollm-135m, full width and depth ----------
@@ -1765,8 +1816,9 @@ def main():
     # ---- R1 / R1p / R2. the recurrent families at published widths ------
     # recurrentgemma-2b (26 layers: 8 x (rglru, rglru, attn_local) + 2
     # rglru; head_dim 256, 10 query heads on 1 KV head, window 2048,
-    # vocabulary 256000) and mamba2-780m (48 SSD layers, no attention,
-    # vocabulary 50280), random weights from torch.Generator seeds
+    # vocabulary 256000), and mamba2-780m (12 of its 48 SSD layers, no
+    # attention, vocabulary 50280, cut to keep the script inside its
+    # time), random weights from torch.Generator seeds
     from repro_torch.serving.swarm import SwarmExecutor
     ATTN_KERNELS = ("flash_attention_positions", "decode_attention",
                     "paged_decode_attention", "flash_attention")
@@ -1780,43 +1832,84 @@ def main():
               f"{eng.pool.rows_in_use} rows, {eng.pool.live_sessions} "
               "sessions after the path")
 
-    def recurrent_phase(tag, arch, seed, mono_needs, paged_needs):
-        """A recurrent model at published widths through every path.  The
-        bf16 model serves (kernel launches, times, the graph route bitwise
-        the eager loop, monolithic and paged); an f32 copy of the same
-        weights holds the contracts tie-aware (generate = stepwise =
-        serve, paged = monolithic, fan-out = cold concatenation, serve on a
-        handle = its extension), because bf16 noise alone (another batch
-        shape) moves these models' logits past the tie budget; the bf16
-        readings of the same pairs are reported beside that noise floor.
-        The pool is back at its blocks and rows after every path."""
+    def wrong_path(tag, e, pr, label, patch):
+        """A wrong path (``patch`` swaps a function in for a run of the
+        eager loop, which a replay could not see) must read outside the
+        f32 tie budget against the sound engine's ``generate``."""
+        ref = e.generate(pr, 32)
+        with patch():
+            bad = eager_twin(e).generate(pr, 32)
+        r = tie_reading(bad["tokens"], ref["tokens"],
+                        ref["logits"].float().cpu().numpy(),
+                        bad["logits"].float().cpu().numpy())
+        check(r[1] > 1.0, f"{tag}: {label} reads only {r[1]:.3f} of the f32 "
+                          "tie budget")
+        print(f"[{tag}] f32 wrong path ({label}): reading {r[1]:.3f} "
+              f"({r[2]:.4f} apart before a flip)")
+        return list(r)
+
+    @contextlib.contextmanager
+    def swapped(mod, name, fn):
+        """``mod.name`` replaced by ``fn`` for the block."""
+        orig = getattr(mod, name)
+        setattr(mod, name, fn)
+        try:
+            yield
+        finally:
+            setattr(mod, name, orig)
+
+    def model_phase(tag, arch, seed, mono_needs, paged_needs, *,
+                    layers=None, f32_layers=None, scale=6.0,
+                    prompts_in=None, pool=RPOOL):
+        """A model at published widths (cut to ``layers``) through every
+        path.  The bf16 model serves (kernel launches, times, the graph
+        route bitwise the eager loop, monolithic and paged); an f32 copy of
+        the same weights (its first ``f32_layers`` layers) holds the
+        contracts tie-aware (generate = stepwise = serve, paged =
+        monolithic, fan-out = cold concatenation, serve on a handle = its
+        extension), because bf16 noise alone (another batch shape) moves
+        these models' logits past the tie budget; the bf16 readings of the
+        same pairs are reported beside that noise floor.  The pool is back
+        at its blocks and rows after every path."""
         t_ph = time.perf_counter()
         rc = configs.get_config(arch)
+        if layers is not None:
+            rc = dataclasses.replace(rc, num_layers=layers)
         rm = init_params(rc, torch.Generator(device=dev).manual_seed(seed),
                          device=dev)
-        # every matrix but the embedding and the convs scaled by 6: at the
-        # init scale the tied logits are the last token's embedding and a
-        # decode that drops its state or its K/V reads the same
-        with torch.no_grad():
-            for name, p in rm.named_parameters():
-                if p.dim() >= 2 and "embed" not in name and "conv" not in name:
-                    p.mul_(6)
-        rcf = dataclasses.replace(rc, dtype=torch.float32)
+        # the recurrent families: every matrix but the embedding and the
+        # convs scaled by 6: at the init scale the tied logits are the last
+        # token's embedding and a decode that drops its state or its K/V
+        # reads the same
+        if scale is not None:
+            with torch.no_grad():
+                for name, p in rm.named_parameters():
+                    if (p.dim() >= 2 and "embed" not in name
+                            and "conv" not in name):
+                        p.mul_(scale)
+        rcf = dataclasses.replace(rc, dtype=torch.float32, num_layers=min(
+            f32_layers or rc.num_layers, rc.num_layers))
         rmf = transformer.Transformer(rcf, device=dev)
+        src = dict(rm.named_parameters())
         with torch.no_grad():
-            for a, b in zip(rmf.parameters(), rm.parameters()):
-                a.copy_(b.float())
+            for n, a in rmf.named_parameters():
+                a.copy_(src[n].float())
+        del src
         n_par = sum(p.numel() for p in rm.parameters())
-        rep = {"params": n_par, "layers": rc.num_layers}
+        rep = {"params": n_par, "layers": rc.num_layers,
+               "f32_layers": rcf.num_layers}
         forbid_mono = tuple(k for k in ATTN_KERNELS if k not in mono_needs)
         forbid_paged = tuple(k for k in ATTN_KERNELS if k not in paged_needs)
         decode_needs = tuple(k for k in mono_needs
                              if k != "flash_attention_positions")
         r = np.random.default_rng(seed)
-        rl = [24, 200] + [int(x) for x in r.integers(24, 201, 6)]
-        rp = np.zeros((8, max(rl)), np.int32)
-        for i, n in enumerate(rl):
-            rp[i, max(rl) - n:] = r.integers(1, rc.vocab_size, n)
+        if prompts_in is None:
+            rl = [24, 200] + [int(x) for x in r.integers(24, 201, 6)]
+            rp = np.zeros((8, max(rl)), np.int32)
+            for i, n in enumerate(rl):
+                rp[i, max(rl) - n:] = r.integers(1, rc.vocab_size, n)
+        else:
+            rp = prompts_in
         mn = 32
 
         def lg(res):
@@ -1859,6 +1952,7 @@ def main():
                  for i in range(8)], n_slots=4, decode_chunk=8),
                 key=lambda x: x["rid"])
         # the graph route, bitwise the eager loop
+        marks = {"served and timed": time.perf_counter() - t_ph}
         orc = eager_twin(eng)
         session_bitwise(f"{tag} generate", eng, orc, rp, mn)
         fins = [serve8(e) for e in (eng, orc)]
@@ -1867,19 +1961,27 @@ def main():
               f"{tag}: serve through graphs differs from the eager loop")
         print(f"[{tag}] serve: bitwise the eager loop")
         del orc
+        marks["graph route bitwise"] = time.perf_counter() - t_ph
         # bf16 readings (reported): the batch-shape noise floor, then the
         # contract pairs
         one = [eng.generate(rp[i:i + 1], mn) for i in range(8)]
+        marks["noise floor"] = time.perf_counter() - t_ph
         bf = {"B=1 vs B=8 generate (noise floor)": tie_reading(
             np.concatenate([o["tokens"] for o in one]), rtok, rlog,
             np.concatenate([lg(o) for o in one]))}
+        # bf16 stepwise on the two shortest prompts (as phase 4), against
+        # their rows of the B=8 generate: a reading beside the noise floor
+        # (the f32 copy holds the contract on all 8)
+        lens_ = (rp != 0).sum(1)
+        two = np.argsort(lens_, kind="stable")[:2]
+        pr2 = rp[two][:, rp.shape[1] - int(lens_[two].max()):]
         t0 = time.perf_counter()
         step = counted(f"{tag} generate_stepwise", decode_needs,
-                       lambda: eng.generate_stepwise(rp, mn),
+                       lambda: eng.generate_stepwise(pr2, mn),
                        forbid=forbid_mono + ("flash_attention_positions",))
         rep["stepwise_s"] = time.perf_counter() - t0
-        bf["stepwise vs generate"] = tie_reading(step["tokens"], rtok, rlog,
-                                                 lg(step))
+        bf["stepwise (2 prompts) vs generate"] = tie_reading(
+            step["tokens"], rtok[two], rlog[two], lg(step))
         fin = counted(f"{tag} serve", mono_needs, lambda: serve8(eng),
                       forbid=forbid_mono)
         check([x["rid"] for x in fin] == list(range(8)),
@@ -1887,8 +1989,13 @@ def main():
         bf["serve vs generate"] = tie_reading(
             [x["tokens"] for x in fin], rtok, rlog)
 
+        marks["bf16 stepwise, serve"] = time.perf_counter() - t_ph
         # ---- f32: the contracts, tie-aware (TIE_ATOL / TIE_ULPS)
         engf = InferenceEngine(tag + "-f32", rcf, rmf, ucfg)
+        # the f32 contracts run the eager loop, which the bf16 engines hold
+        # bitwise to the graph route: no capture per shape (the f32 graph
+        # route is held by test_cuda_recurrent_generate_matches_cpu)
+        engf._graphs = None
         gf = counted(f"{tag} f32 generate", mono_needs,
                      lambda: engf.generate(rp, mn), forbid=forbid_mono)
         ftok, fu, flog = gf["tokens"], gf["u"], lg(gf)
@@ -1902,11 +2009,13 @@ def main():
         f32["serve vs generate"] = tie_aware(
             f"{tag} f32 serve vs generate",
             [x["tokens"] for x in serve8(engf)], ftok, flog)
-        rep["bf16_vs_f32"] = tie_reading(rtok, ftok, flog, rlog)
+        rep["bf16_vs_f32"] = (tie_reading(rtok, ftok, flog, rlog)
+                              if rcf.num_layers == rc.num_layers else None)
 
+        marks["f32 contracts"] = time.perf_counter() - t_ph
         # ---- paged (R1p / R2p): bf16 serving, f32 contracts
         ptag = tag + "p"
-        peng = InferenceEngine(ptag, rc, rm, ucfg, **RPOOL)
+        peng = InferenceEngine(ptag, rc, rm, ucfg, **pool)
         peng.generate(rp, mn)                   # warm up, capture
         pool_idle(f"{ptag} warm-up", peng)
         t0 = time.perf_counter()
@@ -1917,7 +2026,8 @@ def main():
         bf["paged vs monolithic generate"] = tie_reading(
             pres["tokens"], rtok, rlog, lg(pres))
         rep["paged_bf16_max_du"] = float(np.abs(pres["u"] - ru).max())
-        pengf = InferenceEngine(ptag + "-f32", rcf, rmf, ucfg, **RPOOL)
+        pengf = InferenceEngine(ptag + "-f32", rcf, rmf, ucfg, **pool)
+        pengf._graphs = None
         pf = counted(f"{ptag} f32 paged generate", paged_needs,
                      lambda: pengf.generate(rp, mn), forbid=forbid_paged)
         f32["paged vs monolithic generate"] = tie_aware(
@@ -1981,8 +2091,8 @@ def main():
         # two fresh bf16 pools: a freed block or row keeps its bytes until
         # it is handed out again, so only pools with the same history
         # compare
-        pg = InferenceEngine(ptag + "-graph", rc, rm, ucfg, **RPOOL)
-        tw = eager_twin(pg, **RPOOL)
+        pg = InferenceEngine(ptag + "-graph", rc, rm, ucfg, **pool)
+        tw = eager_twin(pg, **pool)
         session_bitwise(f"{ptag} paged generate", pg, tw, rp, mn,
                         pools=True)
         pool_idle(f"{ptag} graph route", pg)
@@ -1993,19 +2103,25 @@ def main():
         for k, v in bf.items():
             print(f"[{tag}] bf16 {k}: reading {v[1]:.3f} ({v[2]:.4f} apart "
                   f"before a flip, {v[0]} rows diverged) - reported")
-        print(f"[{tag}] bf16 generate vs f32 generate: reading "
-              f"{rep['bf16_vs_f32'][1]:.3f} ({rep['bf16_vs_f32'][2]:.4f} "
-              f"apart); paged u within {du:.2e} (f32), "
+        vs = rep["bf16_vs_f32"]
+        print(f"[{tag}] " + (f"bf16 generate vs f32 generate: reading "
+                             f"{vs[1]:.3f} ({vs[2]:.4f} apart); " if vs
+                             else f"f32 copy of {rcf.num_layers} layers; ")
+              + f"paged u within {du:.2e} (f32), "
               f"{rep['paged_bf16_max_du']:.2e} (bf16); fan-out copied 16 "
               "rows; every pool back at 0 blocks and 0 rows")
         rep["f32_tie"] = {k: list(v) for k, v in f32.items()}
         rep["bf16_tie"] = {k: list(v) for k, v in bf.items()}
         rep["phase_s"] = time.perf_counter() - t_ph
+        marks["paged"] = rep["phase_s"]
+        rep["seconds_at"] = marks
+        print(f"[{tag}] seconds into the phase at the end of each part: "
+              + ", ".join(f"{k} {v:.1f}" for k, v in marks.items()))
         return rc, rm, rcf, rmf, eng, peng, engf, pengf, rep, rp
 
     (rgc, rgm, rgcf, rgmf, rg, prg, rgf, prgf, rg_rep,
-     rg_prompts) = recurrent_phase("R1", "recurrentgemma-2b", SEED + 50,
-                                   SERVE_KERNELS, PAGED_SERVE)
+     rg_prompts) = model_phase("R1", "recurrentgemma-2b", SEED + 50,
+                               SERVE_KERNELS, PAGED_SERVE)
     # the ring wraps: two ~2300-token prompts over the 2048-slot window,
     # bf16 (served, timed) and f32 (monolithic vs ring tables, tie-aware)
     wrng = np.random.default_rng(SEED + 51)
@@ -2050,22 +2166,9 @@ def main():
                       "bf16_tie": list(wrap_bf)}
     # a wrong path the f32 budget must reject: no decode step writes its
     # K/V into the ring (phase 6's wrong path)
-    orig_write = attention._write_slot
-    attention._write_slot = lambda *a, **k: None
-    try:
-        rgf_e = eager_twin(rgf)
-        wrong = rgf_e.generate(rg_prompts, 32)
-    finally:
-        attention._write_slot = orig_write
-    g32 = rgf.generate(rg_prompts, 32)
-    wrong_r = tie_reading(wrong["tokens"], g32["tokens"],
-                          g32["logits"].float().cpu().numpy(),
-                          wrong["logits"].float().cpu().numpy())
-    check(wrong_r[1] > 1.0, f"R1: a decode that never writes its K/V reads "
-                            f"only {wrong_r[1]:.3f} of the f32 tie budget")
-    print(f"[R1] f32 wrong path (no decode step writes its K/V): reading "
-          f"{wrong_r[1]:.3f} ({wrong_r[2]:.4f} apart before a flip)")
-    rg_rep["f32_wrong_path"] = list(wrong_r)
+    rg_rep["f32_wrong_path"] = wrong_path(
+        "R1", rgf, rg_prompts, "no decode step writes its K/V",
+        lambda: swapped(attention, "_write_slot", lambda *a, **k: None))
     q8 = InferenceEngine("R1p-int8", rgc, rgm, ucfg, cache_quant="int8",
                          **RPOOL)
     qres = counted("R1p int8 pool generate", PAGED_SERVE,
@@ -2086,13 +2189,14 @@ def main():
                            "token_agreement": qagree}
     print(f"[R1] phase {rg_rep['phase_s']:.1f} s (R1p included)")
     recurrent_rep["recurrentgemma-2b"] = rg_rep
-    del rg, prg, rgf, prgf, rgf_e, q8, rgm, rgmf, qres, pw, pwf, wf, wres
+    del rg, prg, rgf, prgf, q8, rgm, rgmf, qres, pw, pwf, wf, wres
     gc.collect()
     torch.cuda.empty_cache()
 
     (mc, mm, mcf, mmf, mb, pmb, mbf, pmbf, mb_rep, mb_prompts) = \
-        recurrent_phase("R2", "mamba2-780m", SEED + 60,
-                        ("swarm_uncertainty",), ("swarm_uncertainty",))
+        model_phase("R2", "mamba2-780m", SEED + 60,
+                    ("swarm_uncertainty",), ("swarm_uncertainty",),
+                    layers=12)
     check(pmb.pool.row_bytes > 0 and pmb.pool.block_bytes == 0,
           "R2: the SSD pool holds KV blocks or no state rows")
     mb_rep["row_mb"] = pmb.pool.row_bytes / 1e6
@@ -2104,20 +2208,9 @@ def main():
         out, s = orig_dec(p, x, state, c)
         s.ssd.zero_()
         return out, s
-    ssm_mod.ssd_decode = dropped
-    try:
-        wrong = eager_twin(mbf).generate(mb_prompts, 32)
-    finally:
-        ssm_mod.ssd_decode = orig_dec
-    g32 = mbf.generate(mb_prompts, 32)
-    wrong_r = tie_reading(wrong["tokens"], g32["tokens"],
-                          g32["logits"].float().cpu().numpy(),
-                          wrong["logits"].float().cpu().numpy())
-    check(wrong_r[1] > 1.0, f"R2: a decode that drops the SSD state reads "
-                            f"only {wrong_r[1]:.3f} of the f32 tie budget")
-    print(f"[R2] f32 wrong path (decode drops the SSD state): reading "
-          f"{wrong_r[1]:.3f} ({wrong_r[2]:.4f} apart before a flip)")
-    mb_rep["f32_wrong_path"] = list(wrong_r)
+    mb_rep["f32_wrong_path"] = wrong_path(
+        "R2", mbf, mb_prompts, "decode drops the SSD state",
+        lambda: swapped(ssm_mod, "ssd_decode", dropped))
     del mbf, pmbf, mmf
     # a swarm round (the reference's TestSwarmStateReuse): a smollm-135m
     # probe whose answer is precomputed beside a mamba2-780m peer, on the
@@ -2156,6 +2249,350 @@ def main():
     del mb, pmb, mm, sprobe, sres, sw
     gc.collect()
     torch.cuda.empty_cache()
+
+    # ---- M0-M3. the MoE family at published widths ----------------------
+    # deepseek-moe-16b (28 layers: one dense, then 27 of 64 experts top-6
+    # + 2 shared; 16 query heads on 16 KV heads, head_dim 128, vocabulary
+    # 102400) and llama4-scout-17b-a16e (48 layers of 16 experts top-1 + 1
+    # shared; 40 query heads on 8 KV heads, vocabulary 202048).  MoE has
+    # no kernel of its own (the reference's experts are XLA einsums): the
+    # experts run as torch.bmm over the capacity buffer, rows 1-5 at these
+    # shapes
+    from repro_torch.models import ffn as ffn_mod
+    from repro_torch.models import moe as moe_mod
+    t_m = time.perf_counter()
+    moe_rep: dict = {}
+    MOE_ARCHS = ("deepseek-moe-16b", "llama4-scout-17b-a16e")
+    mcfgs = {a: configs.get_config(a) for a in MOE_ARCHS}
+    short = dict(zip(MOE_ARCHS, ("deepseek", "llama4")))
+    # a paged pool for M1's 8 x 320-slot sessions and M2's fan-out (128
+    # blocks of 64: 1.9 GB of deepseek's bf16 K/V)
+    MPOOL = dict(paged=True, block_len=64, pool_blocks=128, pool_rows=40)
+
+    # M0: rows 1, 2, 3 and 5 at the MoE shapes: B=8, the S=256 bucket of
+    # phase 4's prompts (56 padding columns), decode at positions 256-287
+    # of the 320-slot cache, the paged pool's 5 blocks of 64 per row under
+    # 32 delta rows (a 32-step dispatch)
+    m0_cases = []
+    for a, mc in mcfgs.items():
+        H, K, D = mc.num_heads, mc.num_kv_heads, mc.head_dim
+        G, n = H // K, short[a]
+        m0_cases += [
+            flash_case(f"M0 {n} prefill B8 S256 H{H} K{K} D{D}", 8, 256, H,
+                       K, D, 56),
+            decode_case(f"M0 {n} decode B8 T320 positions 256-287 G{G} "
+                        f"D{D}", 8, 320, K, G, D, fill=(56, 256, 288)),
+            uncertainty_case(f"M0 {n} B8 V{mc.vocab_size}", 8,
+                             mc.vocab_size),
+            paged_case(f"M0 paged {n} B8 L64 nb5 S32 G{G} D{D}", 8, K, G, D,
+                       nb=5, p0=256, S=32)]
+    hold_cases("M0", m0_cases)
+    moe_rep["kernel_cases"] = m0_cases
+
+    # row 4 through ``forward`` at deepseek's width (the dense layer and
+    # one MoE layer), against the same forward with the plain op swapped
+    # in: in f32 (a bf16 ulp of attention output can flip a near-tie in
+    # the router, a different expert, not noise), then bf16 reported
+    fwd = {}
+    for dt in (torch.float32, torch.bfloat16):
+        dc2 = dataclasses.replace(mcfgs["deepseek-moe-16b"], num_layers=2,
+                                  dtype=dt)
+        dm2 = init_params(dc2, torch.Generator(device=dev).manual_seed(
+            SEED + 70), device=dev)
+        ftok = torch.randint(1, dc2.vocab_size, (8, 256), generator=gen,
+                             device=dev, dtype=torch.int32)
+        path = f"M0 deepseek forward {str(dt)[6:]} (2 layers)"
+        with torch.inference_mode():
+            fk, faux = counted(path, ("flash_attention",),
+                               lambda: transformer.forward(
+                                   dm2, dc2, {"tokens": ftok}))
+            orig = attention.flash_attention
+            attention.flash_attention = fref.flash_attention_ref
+            try:
+                fp, _ = transformer.forward(dm2, dc2, {"tokens": ftok})
+            finally:
+                attention.flash_attention = orig
+        check(path_launches[path]["flash_attention"] == dc2.num_layers,
+              f"{path}: not one grid launch per layer")
+        fk, fp = fk.float(), fp.float()
+        check(bool(torch.isfinite(fk).all()) and float(faux) > 0,
+              f"{path}: non-finite logits or aux {float(faux)}")
+        f_atol = max(TIE_ATOL, TIE_ULPS * bf16_ulp(float(fp.abs().max())))
+        f_diff = float((fk - fp).abs().max())
+        within = float(((fk - fp).abs().amax(-1) <= f_atol).float().mean())
+        f_agree = float((fk.argmax(-1) == fp.argmax(-1)).float().mean())
+        if dt == torch.float32:
+            check(f_diff <= f_atol, f"{path}: kernel and plain logits "
+                                    f"differ by {f_diff} > {f_atol}")
+        print(f"[M0] {path} B=8 S=256: logits {f_diff:.4f} apart (budget "
+              f"{f_atol:.4f}{'' if dt == torch.float32 else ', reported'})"
+              f", {within:.4f} of positions within it, argmax agreement "
+              f"{f_agree:.4f}, aux {float(faux):.4f}")
+        fwd[str(dt)[6:]] = {"max_dlogit": f_diff, "atol": f_atol,
+                            "share_within": within,
+                            "argmax_agreement": f_agree}
+        del dm2, fk, fp
+    moe_rep["forward_row4"] = fwd
+    torch.cuda.empty_cache()
+
+    # one full-width MoE layer of each config: on the card against the
+    # port's CPU path in f32 on the same weights (prefill S=16 and decode,
+    # both decode impls), then in bf16 per-layer times at M1's shapes
+    layer_rep = {}
+    for a, mc in mcfgs.items():
+        n = short[a]
+        D, E, k, Fe = mc.d_model, mc.num_experts, mc.top_k, mc.expert_d_ff
+        Fs = mc.num_shared_experts * Fe
+        cf = dataclasses.replace(mc, dtype=torch.float32)
+        lay = transformer.init_weights(
+            moe_mod.MoE(cf, device=dev), cf,
+            torch.Generator(device=dev).manual_seed(SEED + 71))
+        lay_c = moe_mod.MoE(cf)                      # the CPU copy
+        with torch.no_grad():
+            for a_, b_ in zip(lay_c.parameters(), lay.parameters()):
+                a_.copy_(b_)
+        x = torch.randn(8, 16, D, generator=torch.Generator().manual_seed(
+            SEED + 72))
+        ps = torch.arange(16, dtype=torch.int32).expand(8, 16)
+        errs = {}
+        with torch.inference_mode():
+            yc = moe_mod.moe_prefill_block(lay_c, x, cf, ps)[0] - x
+            yd = moe_mod.moe_prefill_block(lay, x.to(dev), cf,
+                                           ps.to(dev))[0].cpu() - x
+            errs["prefill S16"] = float((yd - yc).abs().max()
+                                        / yc.abs().max())
+            for impl in ("dispatch", "gather"):
+                ci = dataclasses.replace(cf, moe_decode_impl=impl)
+                yc = moe_mod.moe_decode_block(lay_c, x[:, :1], ci)[0] - x[:, :1]
+                yd = moe_mod.moe_decode_block(
+                    lay, x[:, :1].to(dev), ci)[0].cpu() - x[:, :1]
+                errs[f"decode {impl}"] = float((yd - yc).abs().max()
+                                               / yc.abs().max())
+        for kind, e in errs.items():
+            check(e <= 1e-4, f"M0 {n} MoE layer {kind}: the card is {e:.2e} "
+                             "(relative) from the CPU path")
+        del lay_c
+        # bf16 per-layer times: the prefill dispatch at B=8 S=256 (56
+        # padding columns), the decode step at B=8, dispatch and gather
+        lay = lay.to(torch.bfloat16)
+        cb = mc
+        xb = randn(8, 256, D)
+        pb = (torch.arange(256, dtype=torch.int32, device=dev) - 56).expand(
+            8, 256)
+        # a layer is ~40-60 kernels: a ~25 ms spin covers their enqueue
+        with torch.inference_mode():
+            ms_pre = time_ms(lambda: moe_mod.moe_prefill_block(lay, xb, cb,
+                                                               pb),
+                             spin=40_000_000)
+            x1 = randn(8, 1, D)
+            ms_dec = {}
+            for impl in ("dispatch", "gather"):
+                ci = dataclasses.replace(cb, moe_decode_impl=impl)
+                ms_dec[impl] = time_ms(lambda: moe_mod.moe_decode_block(
+                    lay, x1, ci), spin=40_000_000)
+        per_row = 2 * 3 * D * Fe                     # one row through one expert
+        shared_f = 8 * 256 * 2 * 3 * D * Fs
+        f_disp = 256 * E * 8 * per_row + shared_f    # S groups x E x C=B
+        f_real = 200 * 8 * k * per_row + shared_f    # the valid tokens' k rows
+        wbytes = 2 * 3 * D * Fe
+        b_disp = E * wbytes + 2 * 3 * D * Fs         # every expert + shared
+        b_gath = 8 * k * wbytes + 2 * 3 * D * Fs     # the B*k gathered rows
+        lr = {"prefill_ms": ms_pre,
+              "prefill_tflops_dispatch_rows": f_disp / ms_pre / 1e9,
+              "prefill_tflops_real_rows": f_real / ms_pre / 1e9,
+              "prefill_bound_ms_dispatch": f_disp / BF16_FLOPS * 1e3,
+              "decode_ms": ms_dec,
+              "decode_bound_ms": {"dispatch": b_disp / HBM_BPS * 1e3,
+                                  "gather": b_gath / HBM_BPS * 1e3},
+              "expert_bytes_read": {"dispatch": b_disp, "gather": b_gath},
+              "f32_rel_err_vs_cpu": errs}
+        layer_rep[a] = lr
+        print(f"[M0] {n} MoE layer (E={E}, k={k}, Fe={Fe}, shared {Fs}): "
+              f"card vs CPU f32 relative " + ", ".join(
+                  f"{kk} {v:.1e}" for kk, v in errs.items()) + "; bf16 "
+              f"prefill B8 S256 {ms_pre:.3f} ms ({lr['prefill_tflops_dispatch_rows']:.1f}"
+              f" TFLOP/s over the dispatch's E*C rows, "
+              f"{lr['prefill_tflops_real_rows']:.2f} over the B*k real "
+              f"rows; bound {lr['prefill_bound_ms_dispatch']:.3f} ms); decode "
+              f"B8 dispatch {ms_dec['dispatch']:.3f} ms ({b_disp / 1e9:.3f} "
+              f"GB of experts, bound {b_disp / HBM_BPS * 1e3:.3f} ms), "
+              f"gather {ms_dec['gather']:.3f} ms ({b_gath / 1e9:.3f} GB, "
+              f"bound {b_gath / HBM_BPS * 1e3:.3f} ms)")
+        del lay, xb, x1
+    moe_rep["layer"] = layer_rep
+    torch.cuda.empty_cache()
+    print(f"[M0] phase {time.perf_counter() - t_m:.1f} s")
+
+    def lowest_k(router, h, c, valid=None):
+        """The router taking the k LEAST likely experts."""
+        logits = h.float() @ router.float()
+        if valid is not None:
+            logits = torch.where(valid[..., None], logits, moe_mod._MASKED)
+        probs = torch.softmax(logits, dim=-1)
+        g, i = torch.topk(probs, c.top_k, dim=-1, largest=False)
+        return g / g.sum(-1, keepdim=True).clamp_min(1e-9), i, probs
+
+    def padding_neutral(tag, e, pr, mn=32):
+        """``generate`` (its bucket) against the same prefill over 256 more
+        inert columns and the same decode: tie-aware."""
+        B, S = pr.shape
+        ref = e.generate(pr, mn)
+        wide = np.zeros((B, e._bucket(pr)[0].shape[1] + 256), np.int32)
+        wide[:, -S:] = pr
+        cur, last, cache = e._prefill_absorb(
+            wide, S, e._cache_len(wide.shape[1], mn))
+        toks, lgs, *_ = e._dispatch("mono", cur, last, cache, e._full(B, S),
+                                    mn, True, None)
+        return list(tie_aware(f"{tag} f32 bucket padding ({wide.shape[1]} "
+                              f"columns vs {e._bucket(pr)[0].shape[1]})",
+                              toks.cpu().numpy(), ref["tokens"],
+                              ref["logits"].float().cpu().numpy(),
+                              lgs.float().cpu().numpy()))
+
+    # ---- M1. deepseek-moe-16b, all 28 layers at published widths --------
+    held_m = torch.cuda.memory_allocated() / 1e9
+    print(f"[M1] {held_m:.2f} GB held on the card before M1")
+    (dsc, dsm, dscf, dsmf, ds, pds, dsf, pdsf, ds_rep, ds_prompts) = \
+        model_phase("M1", "deepseek-moe-16b", SEED + 80, SERVE_KERNELS,
+                    PAGED_SERVE, f32_layers=6, scale=None, prompts_in=prompts,
+                    pool=MPOOL)
+    ds_rep["held_gb_before"] = held_m
+    ds_rep["f32_padding"] = padding_neutral("M1", dsf, ds_prompts)
+    ds_rep["f32_wrong_lowest_k"] = wrong_path(
+        "M1", dsf, ds_prompts, "the router takes the k lowest experts",
+        lambda: swapped(moe_mod, "_route_topk", lowest_k))
+    print(f"[M1] phase {ds_rep['phase_s']:.1f} s (M1p included), "
+          f"{ds_rep['params'] / 1e9:.3f} B parameters")
+    moe_rep["deepseek-moe-16b"] = ds_rep
+    del dsm, dsmf, ds, pds, dsf, pdsf
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- M2. llama4-scout-17b-a16e at published widths, 4 layers ---------
+    (lsc, lsm, lscf, lsmf, ls, pls, lsf, plsf, ls_rep, ls_prompts) = \
+        model_phase("M2", "llama4-scout-17b-a16e", SEED + 90, SERVE_KERNELS,
+                    PAGED_SERVE, layers=4, f32_layers=2, scale=None,
+                    prompts_in=prompts, pool=MPOOL)
+    ls_rep["f32_padding"] = padding_neutral("M2", lsf, ls_prompts)
+    ls_rep["f32_wrong_no_shared"] = wrong_path(
+        "M2", lsf, ls_prompts, "the combine drops the shared expert",
+        lambda: swapped(ffn_mod, "mlp_body",
+                        lambda p, h, c: torch.zeros_like(h)))
+    # the gather decode: f32 tie-aware equal to the dispatch, bf16 read
+    # beside it and timed
+    ge = {}
+    for dt_tag, c_, m_, ref_e in (("f32", lscf, lsmf, lsf),
+                                  ("bf16", lsc, lsm, ls)):
+        e = InferenceEngine(f"M2-gather-{dt_tag}", dataclasses.replace(
+            c_, moe_decode_impl="gather"), m_, ucfg)
+        gres = counted(f"M2 {dt_tag} generate (gather decode)", SERVE_KERNELS,
+                       lambda: e.generate(ls_prompts, 32),
+                       forbid=("paged_decode_attention", "flash_attention"))
+        dres = ref_e.generate(ls_prompts, 32)
+        args = (gres["tokens"], dres["tokens"],
+                dres["logits"].float().cpu().numpy(),
+                gres["logits"].float().cpu().numpy())
+        ge[dt_tag] = list(tie_aware("M2 f32 gather vs dispatch decode", *args)
+                          if dt_tag == "f32" else tie_reading(*args))
+        if dt_tag == "bf16":
+            ge["bf16_decode_ms_per_step"] = decode_rate(e, ls_prompts, 32)[0]
+        del e
+    del c_, m_, ref_e, gres, dres         # the loop's last model and engine
+    print(f"[M2] gather decode vs dispatch: f32 tie-aware equal (reading "
+          f"{ge['f32'][1]:.4f}), bf16 reading {ge['bf16'][1]:.3f} "
+          f"(reported); bf16 decode {ge['bf16_decode_ms_per_step']:.3f} "
+          f"ms/step (dispatch {ls_rep['decode_ms_per_step']:.3f})")
+    ls_rep["gather"] = ge
+    # a swarm round on the study workload's prompts: a smollm-135m probe
+    # whose answer is precomputed beside the llama4 peer
+    mprobe = InferenceEngine("M2-probe", scfg, init_params(
+        scfg, torch.Generator(device=dev).manual_seed(SEED + 91),
+        device=dev), ucfg)
+    mres = mprobe.generate(sq, 8, return_state=True)
+    mpre = {0: (mres["tokens"], mres["u"], (mres["h_mean"],
+                                            mres["v_mean"]))}
+    mbefore = dict(mprobe.counters)
+    lpf0 = ls.counters["prefill"]
+
+    def mround():
+        return SwarmExecutor([mprobe, ls]).collaborate(
+            sq, 8, precomputed=mpre, states={0: mres["state"]})
+    mround()                                    # capture the peer's graphs
+    t0 = time.perf_counter()
+    msw = counted("M2 swarm round: smollm probe + llama4 peer",
+                  SERVE_KERNELS, mround,
+                  forbid=("paged_decode_attention", "flash_attention"))
+    t_msw = time.perf_counter() - t0
+    check(mprobe.counters == mbefore, "M2 swarm: the precomputed probe ran "
+                                      "a dispatch")
+    check(ls.counters["prefill"] > lpf0, "M2 swarm: the MoE peer did not run")
+    check(np.array_equal(msw["answers"][:, 0], mres["tokens"]),
+          "M2 swarm: the probe's answers changed")
+    check(bool(np.isfinite(msw["u"]).all()), "M2 swarm: u not finite")
+    print(f"[M2] swarm round, {sq.shape[0]} study prompts, smollm-135m probe "
+          f"(precomputed, no dispatch) + llama4-scout peer (4 layers): "
+          f"{t_msw:.3f} s")
+    ls_rep["swarm_round_s"] = t_msw
+    print(f"[M2] phase {ls_rep['phase_s']:.1f} s (M2p included), "
+          f"{ls_rep['params'] / 1e9:.3f} B parameters")
+    moe_rep["llama4-scout-17b-a16e"] = ls_rep
+    del lsm, lsmf, ls, pls, lsf, plsf, mprobe, mres, msw
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- M3. training deepseek-moe-16b at published widths, 2 layers -----
+    # the dense layer and one MoE layer, batch 4, seq 128, 10 AdamW steps
+    # (lr 3e-4, warm-up 1): the loss falls, moe_aux finite and positive,
+    # every parameter moves, no kernel launched
+    t_phase = time.perf_counter()
+    mtc = dataclasses.replace(mcfgs["deepseek-moe-16b"], num_layers=2)
+    mtm = init_params(mtc, torch.Generator(device=dev).manual_seed(SEED + 95),
+                      device=dev)
+    mbefore = [p.detach().to("cpu", copy=True) for p in mtm.parameters()]
+    mst = opt.init(mtm)
+    mstep = TR.build_train_step(mtc, opt.AdamWConfig(
+        lr=3e-4, total_steps=10, warmup_steps=1), moe_groups=1)
+    mpipe = SyntheticLMPipeline(4, 128, seed=SEED)
+    mb_ = [device_put_batch(mpipe.get_batch(i), dev) for i in range(10)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    m_s, m_loss, m_aux = [], [], []
+
+    def mtrain():
+        for b in mb_:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, _, m = mstep(mtm, mst, b)
+            torch.cuda.synchronize()
+            m_s.append(time.perf_counter() - t)
+            m_loss.append(float(m["loss"]))
+            m_aux.append(float(m["moe_aux"]))
+    counted("M3 train deepseek-moe-16b (2 layers)", (), mtrain,
+            forbid=KERNELS)
+    check(bool(np.isfinite(m_loss).all())
+          and np.mean(m_loss[-3:]) < np.mean(m_loss[:3]),
+          f"M3: the loss did not fall: {m_loss}")
+    check(all(np.isfinite(a) and a > 0 for a in m_aux),
+          f"M3: moe_aux not finite and positive: {m_aux}")
+    unmoved = [n for (n, p), b in zip(mtm.named_parameters(), mbefore)
+               if torch.equal(p.detach().cpu(), b)]
+    check(not unmoved, f"M3: parameters unchanged: {unmoved[:5]}")
+    m_ms = float(np.median(m_s[2:])) * 1e3
+    m_peak = torch.cuda.max_memory_allocated() / 1e9
+    print(f"[M3] train deepseek-moe-16b (2 layers: dense + MoE) B=4 S=128: "
+          f"loss {m_loss[0]:.4f} -> {m_loss[-1]:.4f}, moe_aux "
+          f"{m_aux[0]:.4f} -> {m_aux[-1]:.4f}, {m_ms:.2f} ms/step (median of "
+          f"steps 3-10), peak {m_peak:.2f} GB; every parameter moved, no "
+          "kernel launched")
+    moe_rep["train"] = {"losses": m_loss, "moe_aux": m_aux,
+                        "ms_per_step": m_ms, "peak_gb": m_peak,
+                        "phase_s": time.perf_counter() - t_phase}
+    del mtm, mst, mstep, mb_, mbefore
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_rep["phase_s"] = time.perf_counter() - t_m
+    print(f"[M] M0-M3 {moe_rep['phase_s']:.1f} s")
+    report["moe"] = moe_rep
 
     # ---- T1. training at published width --------------------------------
     t_phase = time.perf_counter()
@@ -2270,8 +2707,8 @@ def main():
 
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
         cli = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-               "smollm-135m", "--steps", "40", "--batch", "8", "--seq",
-               "128", "--ckpt-every", "20", "--ckpt-dir"]
+               "smollm-135m", "--steps", "20", "--batch", "8", "--seq",
+               "128", "--ckpt-every", "10", "--ckpt-dir"]
         d1, d2 = str(ck_root / "straight"), str(ck_root / "restarted")
         t0 = time.perf_counter()
         r1 = subprocess.run(cli + [d1], env=env, capture_output=True,
@@ -2284,22 +2721,22 @@ def main():
                                 stderr=subprocess.DEVNULL, text=True)
         try:
             for line in proc.stdout:
-                if line.startswith("[train] checkpoint @ 20"):
+                if line.startswith("[train] checkpoint @ 10"):
                     break
         finally:
             proc.kill()
             proc.wait(timeout=60)
             proc.stdout.close()
-        check(ck.latest_step(d2) == 20, f"T2: the killed run left "
+        check(ck.latest_step(d2) == 10, f"T2: the killed run left "
                                         f"checkpoint {ck.latest_step(d2)}")
         r2 = subprocess.run(cli + [d2, "--resume"], env=env,
                             capture_output=True, text=True, timeout=400)
         t_restart = time.perf_counter() - t0
-        check(r2.returncode == 0 and "[train] resumed from step 20"
+        check(r2.returncode == 0 and "[train] resumed from step 10"
               in r2.stdout, f"T2: the resumed run failed: "
                             f"{r2.stdout[-1000:]} {r2.stderr[-2000:]}")
-        a, _ = ck.load_leaves(d1, 40)
-        b, _ = ck.load_leaves(d2, 40)
+        a, _ = ck.load_leaves(d1, 20)
+        b, _ = ck.load_leaves(d2, 20)
         check(sorted(a) == sorted(b), "T2: the checkpoints hold other leaves")
 
         def bits(x):
@@ -2309,15 +2746,15 @@ def main():
                            8: torch.int64}[x.element_size()])
 
         differ = [k for k in a if not torch.equal(bits(a[k]), bits(b[k]))]
-        check(not differ, f"T2: step_40 of the restarted run differs from "
+        check(not differ, f"T2: step_20 of the restarted run differs from "
                           f"the straight run's in {len(differ)} leaves: "
                           f"{differ[:5]}")
     finally:
         shutil.rmtree(ck_root, ignore_errors=True)
     print(f"[T2] checkpoint of smollm-135m + AdamW state: {ck_bytes / 1e9:.3f}"
-          f" GB, save {t_save:.2f} s, restore {t_restore:.2f} s; CLI 40 "
-          f"steps straight {t_straight:.1f} s, killed at step 20 and resumed "
-          f"{t_restart:.1f} s: step_40 bitwise equal in all {len(a)} leaves")
+          f" GB, save {t_save:.2f} s, restore {t_restore:.2f} s; CLI 20 "
+          f"steps straight {t_straight:.1f} s, killed at step 10 and resumed "
+          f"{t_restart:.1f} s: step_20 bitwise equal in all {len(a)} leaves")
     t_t2 = time.perf_counter() - t_phase
     print(f"[T2] phase {t_t2:.1f} s")
     report["checkpoint"] = {"phase_s": t_t2, "bytes": ck_bytes,
@@ -2477,6 +2914,7 @@ def main():
             "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
             "library_ms": first["library_ms"]})
     report["kernels"] = kernels
+    report["path_seconds"] = path_seconds
     report["wall_s"] = time.perf_counter() - T_START
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,5 +1,6 @@
-"""Architecture registry of the port: the four dense GQA gateway tiers and
-the two recurrent families (the RG-LRU hybrid and the pure SSD model).
+"""Architecture registry of the port: the four dense GQA gateway tiers, the
+two recurrent families (the RG-LRU hybrid and the pure SSD model) and the
+two MoE families (fine-grained top-6 + shared, top-1 + shared).
 
 ``get_config`` gives the published widths, ``get_smoke`` the small
 configuration the tests run.  Arch ids take dashes or underscores.
@@ -18,6 +19,8 @@ ARCH_IDS = (
     "llama3-8b",         # cloud tier (untied head)
     "recurrentgemma-2b",  # RG-LRU + local attention hybrid
     "mamba2-780m",       # attention-free SSD
+    "deepseek-moe-16b",  # 64 experts top-6 + 2 shared, first layer dense
+    "llama4-scout-17b-a16e",  # 16 experts top-1 + 1 shared, every layer
 )
 
 

@@ -48,9 +48,20 @@ def _layer_blocks(stages, cfg: ModelConfig):
                 layer += 1
 
 
+def _walk(prefix: str, tree: dict):
+    """(dotted name, leaf) of a nested dict: an MoE's ``shared`` expert is a
+    dict inside the ``ffn`` subtree."""
+    for name, leaf in tree.items():
+        if isinstance(leaf, dict):
+            yield from _walk(f"{prefix}.{name}", leaf)
+        else:
+            yield f"{prefix}.{name}", leaf
+
+
 def _named_leaves(np_tree: dict, cfg: ModelConfig):
     """(port parameter name, numpy leaf) of a JAX ``init_params`` /
-    ``init_safety`` tree, repeat axes unstacked."""
+    ``init_safety`` tree, repeat axes unstacked (only those: an MoE's
+    (E, ...) expert stacks keep their layout)."""
     safety = "head_w" in np_tree
     top = ["embed", "final_norm"]
     top += ["head_w", "head_b"] if safety else (
@@ -60,10 +71,10 @@ def _named_leaves(np_tree: dict, cfg: ModelConfig):
     n = 0
     for layer, blk, r in _layer_blocks(np_tree["stages"], cfg):
         for part in ("mixer", "ffn"):
-            for name, leaf in blk.get(part, {}).items():
+            for name, leaf in _walk(f"layers.{layer}.{part}",
+                                    blk.get(part, {})):
                 a = np.asarray(leaf)
-                yield f"layers.{layer}.{part}.{name}", (a if r is None
-                                                        else a[r])
+                yield name, a if r is None else a[r]
         n = layer + 1
     if n != cfg.num_layers:
         raise ValueError(f"JAX tree has {n} layers, cfg {cfg.num_layers}")

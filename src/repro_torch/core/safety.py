@@ -70,7 +70,7 @@ def safety_score(params: SafetyClassifier, cfg: ModelConfig,
     if mask is None:
         mask = (tokens > 0).float()
     x = T.embed_inputs(params, cfg, {"tokens": tokens.clamp_min(0)})
-    x = T.run_layers(params.layers, x, cfg, train=train)
+    x, _ = T.run_layers(params.layers, x, cfg, train=train)
     xf = x.float() * mask[..., None]
     pooled = xf.sum(1) / mask.sum(1, keepdim=True).clamp_min(1.0)
     logit = pooled @ params.head_w.float() + params.head_b.float()

@@ -3,8 +3,12 @@
 Mirrors ``repro/models/transformer.py`` for the mixers the port serves:
 GQA attention (global and windowed ``attn_local``), the RG-LRU recurrence
 (``models/rglru.py``) and the Mamba-2 SSD block (``models/ssm.py``), each
-followed by the gated MLP (none after an SSD layer).  MoE layers are not
-ported yet and raise.  The JAX package scans stacked stage parameters;
+followed by the gated MLP or the mixture of experts (``models/moe.py``;
+none after an SSD layer).  Configs with a ``frontend`` (vision or audio
+embeddings) are not ported yet and raise.  MoE layers run ``moe_block``
+on the full-sequence path (``forward`` returns their summed aux loss),
+``moe_prefill_block`` in ``prefill`` and ``moe_decode_block`` in the
+decode steps.  The JAX package scans stacked stage parameters;
 here the layers are an ``nn.ModuleList`` in layer order and each parameter
 keeps its JAX layout, so converting a JAX parameter tree is a copy
 (``repro_torch.convert``).
@@ -39,7 +43,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.models import attention, ffn, rglru, ssm
+from repro_torch.models import attention, ffn, moe, rglru, ssm
 from repro_torch.models.common import ModelConfig, frozen_zeros, rmsnorm
 
 ATTN = ("attn", "attn_local")
@@ -48,7 +52,7 @@ STATE_TYPES = (rglru.RGLRUState, ssm.SSMState)
 
 class Block(nn.Module):
     """One layer: ``mixer`` (attention, RG-LRU or SSD) and, unless the
-    layer plan says "none", the MLP ``ffn``."""
+    layer plan says "none", the FFN ``ffn``: an MLP or an MoE."""
 
     def __init__(self, cfg: ModelConfig, kind: tuple[str, str], device=None):
         super().__init__()
@@ -60,7 +64,9 @@ class Block(nn.Module):
         elif mixer == "ssd":
             self.mixer = ssm.SSD(cfg, device)
         if f == "mlp":
-            self.ffn = ffn.MLP(cfg, device)
+            self.ffn = ffn.MLP(cfg, device=device)
+        elif f == "moe":
+            self.ffn = moe.MoE(cfg, device)
 
 
 class Transformer(nn.Module):
@@ -69,12 +75,17 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
+        if cfg.frontend is not None:
+            raise NotImplementedError(
+                f"{cfg.name}: the {cfg.frontend!r} frontend is not ported yet "
+                "(embed_inputs reads tokens only)")
         for mixer, f in cfg.layer_plan():
-            if mixer not in ATTN + ("rglru", "ssd") or f not in ("mlp",
-                                                               "none"):
+            if mixer not in ATTN + ("rglru", "ssd") or f not in (
+                    "mlp", "moe", "none"):
                 raise NotImplementedError(
                     f"{cfg.name}: layer kind {(mixer, f)} is not ported yet "
-                    "(attention, RG-LRU and SSD mixers with an MLP only)")
+                    "(attention, RG-LRU and SSD mixers with an MLP or an "
+                    "MoE)")
         self.cfg = cfg
         D, V = cfg.d_model, cfg.vocab_size
         z = dict(dtype=cfg.dtype, device=device)
@@ -115,8 +126,9 @@ _SPECIAL_INIT = {"lam": rglru.lam_init, "A_log": ssm.a_init,
 def init_weights(model: nn.Module, cfg: ModelConfig,
                  generator: torch.Generator) -> nn.Module:
     """Fill ``model`` in place with the JAX init distribution: normal(0.02)
-    drawn in f32 then cast, the output projections (``wo``, ``w_down``,
-    ``w_out``, ``out_proj``) at 0.02/sqrt(2L), norms and biases 0, the
+    drawn in f32 then cast (the MoE router and expert stacks too), the
+    output projections (``wo``, ``w_down`` of MLPs, experts and shared
+    experts, ``w_out``, ``out_proj``) at 0.02/sqrt(2L), norms and biases 0, the
     recurrences' own inits for ``lam``, ``A_log`` and ``dt_bias``, and
     ``D_skip`` 1.  Shared by every module built on the ``Transformer`` body
     (the safety classifier too)."""
@@ -191,19 +203,32 @@ def _logits(params: Transformer, cfg: ModelConfig,
     return x @ params.head().to(x.dtype)
 
 
-def _ffn(layer: Block, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return ffn.mlp_block(layer.ffn, x, cfg) if hasattr(layer, "ffn") else x
+def _ffn(layer: Block, x: torch.Tensor, cfg: ModelConfig,
+         positions: torch.Tensor | None = None) -> torch.Tensor:
+    """A serving step's FFN: the MLP, or the MoE's prefill dispatch over
+    ``positions`` (its decode dispatch when None); the MoE aux is dropped,
+    as the reference's serving path drops it."""
+    f = getattr(layer, "ffn", None)
+    if isinstance(f, moe.MoE):
+        if positions is None:
+            return moe.moe_decode_block(f, x, cfg)[0]
+        return moe.moe_prefill_block(f, x, cfg, positions)[0]
+    return x if f is None else ffn.mlp_block(f, x, cfg)
 
 
 def run_layers(layers: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
-               *, train: bool = False) -> torch.Tensor:
+               *, train: bool = False, moe_groups: int = 1
+               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Every layer's full-sequence block over x (B,S,D), in layer order: the
     counterpart of the JAX ``_run_stage`` over all stages (attention at
-    positions 0..S-1, no cache; the recurrences from a zero state).
+    positions 0..S-1, no cache; the recurrences from a zero state; MoE
+    layers through ``moe_block`` in ``moe_groups`` groups).  Returns (x,
+    the MoE layers' aux losses summed in f32, 0 without MoE layers).
     ``train=True`` attends through ``attention.chunked_attention``,
-    differentiable by autograd (the recurrences are plain PyTorch either
-    way)."""
-    for layer, (mixer, _) in zip(layers, cfg.layer_plan()):
+    differentiable by autograd (the other mixers and the FFNs are plain
+    PyTorch either way)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for layer, (mixer, f) in zip(layers, cfg.layer_plan()):
         if mixer in ATTN:
             x = attention.attn_block(layer.mixer, x, cfg,
                                      local=(mixer == "attn_local"),
@@ -212,29 +237,36 @@ def run_layers(layers: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
             x = rglru.rglru_block(layer.mixer, x, cfg)
         else:
             x = ssm.ssd_block(layer.mixer, x, cfg)
-        x = _ffn(layer, x, cfg)
-    return x
+        if f == "moe":
+            x, a = moe.moe_block(layer.ffn, x, cfg, groups=moe_groups)
+            aux = aux + a
+        elif f == "mlp":
+            x = ffn.mlp_block(layer.ffn, x, cfg)
+    return x, aux
 
 
 def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
-            train: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward -> (logits (B,S,V), moe_aux = 0)."""
-    tokens = batch["tokens"]
-    x = run_layers(params.layers, embed_inputs(params, cfg, batch), cfg,
-                   train=train)
-    return (_logits(params, cfg, x),
-            torch.zeros((), dtype=torch.float32, device=tokens.device))
+            train: bool = False,
+            moe_groups: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward -> (logits (B,S,V), moe_aux): the MoE layers'
+    aux losses summed in f32 (0 without MoE layers)."""
+    x, aux = run_layers(params.layers, embed_inputs(params, cfg, batch), cfg,
+                        train=train, moe_groups=moe_groups)
+    return _logits(params, cfg, x), aux
 
 
 def loss_fn(params: Transformer, cfg: ModelConfig, batch: dict, *,
-            aux_coef: float = 0.01) -> tuple[torch.Tensor, dict]:
+            aux_coef: float = 0.01,
+            moe_groups: int = 1) -> tuple[torch.Tensor, dict]:
     """Next-token cross entropy over the training forward: logsumexp -
     gold logit under ``loss_mask``, in f32.  Returns (loss, metrics
-    {nll, moe_aux, tokens}), the metrics detached.  The reference takes
+    {nll, moe_aux, tokens}), the metrics detached; ``aux_coef`` weighs the
+    MoE aux loss into the loss.  The reference takes
     the gold logit with an iota compare (a gather on a vocab-sharded dim
     would all-gather the logits); on one device a gather is the same
     number."""
-    logits, aux = forward(params, cfg, batch, train=True)
+    logits, aux = forward(params, cfg, batch, train=True,
+                          moe_groups=moe_groups)
     labels = batch["labels"].long()
     mask = batch.get("loss_mask")
     if mask is None:
@@ -281,7 +313,7 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
             fn = rglru.rglru_prefill if mixer == "rglru" else ssm.ssd_prefill
             x, _ = fn(layer.mixer, x, c, positions, cfg,
                       continuation=continuation)
-        x = _ffn(layer, x, cfg)
+        x = _ffn(layer, x, cfg, positions)
     return _logits(params, cfg, x), cache
 
 

@@ -48,26 +48,31 @@ def value_and_grad(fn, model: nn.Module, *args, has_aux: bool = False):
 
 
 def build_train_step(cfg: ModelConfig, ocfg: opt.AdamWConfig, mesh=None, *,
-                     microbatches: int = 1):
+                     microbatches: int = 1, moe_groups: int = 1):
     """The training step.  With ``microbatches`` > 1 the batch splits along
     its first dim; gradients are summed in f32 over the microbatches and
-    divided by their number, the loss and metrics are their means."""
+    divided by their number, the loss and metrics are their means.
+    ``moe_groups`` is the MoE layers' dispatch group count (the reference
+    passes its data shards; 1 on one device)."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh-sharded training is not ported to the PyTorch package "
             "yet; train on one device (mesh=None)")
 
+    def loss_fn(model, batch):
+        return T.loss_fn(model, cfg, batch, moe_groups=moe_groups)
+
     def step(model, opt_state, batch):
         if microbatches == 1:
             (loss, metrics), grads = value_and_grad(
-                T.loss_fn, model, cfg, batch, has_aux=True)
+                loss_fn, model, batch, has_aux=True)
         else:
             split = {k: x.reshape((microbatches, -1) + tuple(x.shape[1:]))
                      for k, x in batch.items()}
             grads, loss, per = None, 0.0, []
             for i in range(microbatches):
                 (l, m), g = value_and_grad(
-                    T.loss_fn, model, cfg, {k: x[i] for k, x in split.items()},
+                    loss_fn, model, {k: x[i] for k, x in split.items()},
                     has_aux=True)
                 if grads is None:
                     grads = {n: torch.zeros(t.shape, dtype=torch.float32,

@@ -19,6 +19,7 @@ kernel runs here.
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # parallel pytest workers share the cores
 
 from repro_torch.kernels.decode_attention import ops as dops
 from repro_torch.kernels.decode_attention import ref as dref

@@ -28,6 +28,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # parallel pytest workers share the cores
 
 from repro_torch import configs as TC
 from repro_torch.convert import from_jax_params

@@ -27,6 +27,7 @@ import re
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # parallel pytest workers share the cores
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import ops as fops

@@ -28,6 +28,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # parallel pytest workers share the cores
 
 from test_torch_engine import assert_greedy_match_modulo_ties
 

@@ -20,6 +20,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # parallel pytest workers share the cores
 
 from repro_torch import configs as TC
 from repro_torch.core.uncertainty import UncertaintyConfig
@@ -46,8 +47,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _model(device, dtype=torch.float32):
-    cfg = dataclasses.replace(TC.get_smoke("llama3-8b"), vocab_size=512,
+MOE_ARCHS = ("deepseek-moe-16b", "llama4-scout-17b-a16e")
+
+
+def _model(device, dtype=torch.float32, arch="llama3-8b"):
+    cfg = dataclasses.replace(TC.get_smoke(arch), vocab_size=512,
                               dtype=dtype)
     gen = torch.Generator(device=device).manual_seed(0)
     return cfg, TT.init_params(cfg, gen, device=device)
@@ -152,6 +156,28 @@ def test_serve_through_graphs_is_bitwise_eager(route, greedy):
         assert all(torch.equal(x, y) for x, y in zip(_state(a["state"]),
                                                      _state(b["state"])))
     _pools_equal(outs[0][0], gr)
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_dispatches_through_graphs_are_bitwise_eager(arch, route):
+    """The MoE smoke models (the decode dispatch's argsort, topk, cummax,
+    scatter into the capacity buffer and expert bmm inside the captured
+    closure): sessions and ``serve()`` bitwise the eager loop."""
+    model = _model("cpu", arch=arch)
+    eager = _engine(route, "cpu", model, graphed=False)
+    graph = _engine(route, "cpu", model, graphed=True)
+    _assert_same(_session(graph, True), _session(eager, True))
+    _pools_equal(graph, eager)
+    fins = []
+    for eng in (eager, graph):
+        reqs = [Request(rid=i, prompt=PROMPTS[i].tolist(), max_new=n)
+                for i, n in enumerate((5, 7, 3))]
+        fins.append(sorted(eng.serve(reqs, n_slots=2, decode_chunk=4),
+                           key=lambda r: r["rid"]))
+    for a, b in zip(*fins):
+        np.testing.assert_array_equal(a["tokens"], b["tokens"])
+        assert a["u"] == b["u"]
 
 
 @pytest.mark.parametrize("route", list(ROUTES))
@@ -264,3 +290,29 @@ def test_cuda_graph_counts_and_clones(cuda, route):
     assert torch.equal(a["logits"], keep[0])
     assert all(torch.equal(x, y) for x, y in zip(_state(a["state"]),
                                                  keep[1]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", list(ROUTES))
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_cuda_moe_graphs_are_bitwise_eager(cuda, arch, route):
+    """On the card: an MoE decode dispatch (argsort, topk, cummax, the
+    capacity buffer's ``index_put_`` and the expert bmm) captured into a
+    CUDA graph, replayed bitwise the eager loop: cold, continuation and
+    ``_extend`` dispatches, the pools, and ``serve()``."""
+    model = _model(cuda, torch.bfloat16, arch=arch)
+    eager = _engine(route, cuda, model, graphed=False)
+    graph = _engine(route, cuda, model, graphed=True)
+    assert isinstance(graph._graphs.backend, graphs.CudaGraphs)
+    _assert_same(_session(graph, True), _session(eager, True))
+    _pools_equal(graph, eager)
+    assert graph._graphs.stats["captures"] >= 3
+    fins = []
+    for eng in (eager, graph):
+        reqs = [Request(rid=i, prompt=PROMPTS[i].tolist(), max_new=n)
+                for i, n in enumerate((5, 7, 3))]
+        fins.append(sorted(eng.serve(reqs, n_slots=2, decode_chunk=4),
+                           key=lambda r: r["rid"]))
+    for a, b in zip(*fins):
+        np.testing.assert_array_equal(a["tokens"], b["tokens"])
+        assert a["u"] == b["u"]

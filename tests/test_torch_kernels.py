@@ -18,6 +18,7 @@ variance 5e-3 (a difference of squares of logits of size ~10).
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # parallel pytest workers share the cores
 
 from repro_torch.kernels import blocking
 from repro_torch.kernels.decode_attention import ops as dops

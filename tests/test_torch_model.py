@@ -19,6 +19,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # parallel pytest workers share the cores
 
 # the JAX reference; a CUDA machine without JAX skips this file
 jax = pytest.importorskip("jax")
@@ -90,7 +91,8 @@ def _tol(tc):
 
 
 def test_config_mirrors_reference():
-    for arch in ARCHS + ("recurrentgemma-2b", "mamba2-780m"):
+    for arch in ARCHS + ("recurrentgemma-2b", "mamba2-780m",
+                         "deepseek-moe-16b", "llama4-scout-17b-a16e"):
         for get, tget in ((C.get_config, TC.get_config),
                           (C.get_smoke, TC.get_smoke)):
             jc, tc = get(arch), tget(arch)
@@ -100,8 +102,8 @@ def test_config_mirrors_reference():
             assert tc.layer_plan() == jc.layer_plan()
             assert [(s.blocks, s.repeat) for s in tc.stage_plan()] == \
                 [(s.blocks, s.repeat) for s in jc.stage_plan()]
-    with pytest.raises(ValueError):        # MoE is not ported yet
-        TC.get_config("deepseek-moe-16b")
+    with pytest.raises(ValueError):        # not ported yet
+        TC.get_config("command-r-plus-104b")
 
 
 def test_common_ops_match_reference():
@@ -238,10 +240,18 @@ def test_init_params_distribution():
 
 
 def test_other_mixers_are_refused():
-    """MoE layers are not ported yet: a layer plan with a ``moe`` FFN is
-    refused (RG-LRU and SSD mixers are served, ``test_torch_recurrent.py``)."""
-    tc = dataclasses.replace(TC.get_smoke("smollm-135m"), num_experts=4,
-                             top_k=2, expert_d_ff=32)
-    assert any(f == "moe" for _, f in tc.layer_plan())
-    with pytest.raises(NotImplementedError):
-        TT.Transformer(tc)
+    """What is not ported is refused instead of run wrong: a config with a
+    ``frontend`` (llava-next's vision, hubert's audio embeddings, which
+    ``embed_inputs`` would ignore) and a layer kind the port does not know.
+    RG-LRU, SSD (``test_torch_recurrent.py``) and MoE
+    (``test_torch_moe.py``) layers are served."""
+    base = TC.get_smoke("smollm-135m")
+    for frontend in ("vision_patches", "audio_frames"):
+        tc = dataclasses.replace(base, frontend=frontend, frontend_tokens=4)
+        with pytest.raises(NotImplementedError, match="frontend"):
+            TT.Transformer(tc)
+    with pytest.raises(NotImplementedError, match="not ported"):
+        TT.Transformer(dataclasses.replace(base, mixer_pattern=("conv",)))
+    moe = dataclasses.replace(base, num_experts=4, top_k=2, expert_d_ff=32)
+    assert any(f == "moe" for _, f in moe.layer_plan())
+    TT.Transformer(moe)

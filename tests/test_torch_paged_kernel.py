@@ -21,6 +21,7 @@ delta row; the tests below pin both behaviours down.
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # parallel pytest workers share the cores
 
 from repro_torch.kernels.decode_attention import ops as dops
 from repro_torch.models import quant as TQ

@@ -7,6 +7,7 @@ and the mode checks raise as the reference's do."""
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # parallel pytest workers share the cores
 
 from repro_torch.models import quant as TQ
 

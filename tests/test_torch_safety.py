@@ -19,6 +19,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # parallel pytest workers share the cores
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402

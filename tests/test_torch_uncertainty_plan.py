@@ -26,6 +26,7 @@ import zlib
 import numpy as np
 import pytest
 import torch
+torch.set_num_threads(1)  # parallel pytest workers share the cores
 
 from repro_torch.kernels.swarm_uncertainty import ops as uops
 from repro_torch.kernels.swarm_uncertainty import ref as uref
