@@ -1,6 +1,10 @@
-"""Architecture registry of the port: the four dense GQA gateway tiers, the
-two recurrent families (the RG-LRU hybrid and the pure SSD model) and the
-two MoE families (fine-grained top-6 + shared, top-1 + shared).
+"""Architecture registry of the port: every architecture of the reference's
+``configs.ARCH_IDS`` — the four dense GQA gateway tiers and
+``command-r-plus-104b``, the two recurrent families (the RG-LRU hybrid and
+the pure SSD model), the two MoE families (fine-grained top-6 + shared,
+top-1 + shared) and the two frontend backbones (``llava-next``'s vision
+patches ahead of its text, ``hubert``'s audio frames into a bidirectional
+encoder).
 
 ``get_config`` gives the published widths, ``get_smoke`` the small
 configuration the tests run.  Arch ids take dashes or underscores.
@@ -21,6 +25,9 @@ ARCH_IDS = (
     "mamba2-780m",       # attention-free SSD
     "deepseek-moe-16b",  # 64 experts top-6 + 2 shared, first layer dense
     "llama4-scout-17b-a16e",  # 16 experts top-1 + 1 shared, every layer
+    "command-r-plus-104b",  # dense GQA, G=12, vocab 256000
+    "llava-next-mistral-7b",  # vision patches + text, Mistral backbone
+    "hubert-xlarge",     # audio frames, bidirectional gelu encoder
 )
 
 

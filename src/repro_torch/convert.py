@@ -110,15 +110,15 @@ def from_jax_opt_state(np_state, cfg: ModelConfig, device=None) -> OptState:
 def from_jax_lora(np_tree: dict, cfg: ModelConfig, device=None) -> dict:
     """``np_tree``: a JAX ``lora.init_lora`` tree with numpy leaves.
     Returns the port's adapter tree {parameter name: {"a", "b"}} (f32
-    tensors, repeat axes unstacked)."""
-    out = {}
+    tensors, repeat axes unstacked), nested dicts walked to any depth (an
+    MoE's shared expert: ``ffn.shared.w_up``) as ``models/lora.py::
+    lora_defs`` names them."""
+    out: dict = {}
     for layer, blk, r in _layer_blocks(np_tree.get("stages", {}), cfg):
-        for part, sub in blk.items():
-            for name, ab in sub.items():
-                out[f"layers.{layer}.{part}.{name}"] = {
-                    k: torch.from_numpy(np.array(
-                        a if r is None else a[r], np.float32)).to(device)
-                    for k, a in ab.items()}
+        for name, a in _walk(f"layers.{layer}", blk):
+            target, k = name.rsplit(".", 1)         # k: "a" or "b"
+            out.setdefault(target, {})[k] = torch.from_numpy(np.array(
+                a if r is None else a[r], np.float32)).to(device)
     return out
 
 

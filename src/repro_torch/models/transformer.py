@@ -4,8 +4,11 @@ Mirrors ``repro/models/transformer.py`` for the mixers the port serves:
 GQA attention (global and windowed ``attn_local``), the RG-LRU recurrence
 (``models/rglru.py``) and the Mamba-2 SSD block (``models/ssm.py``), each
 followed by the gated MLP or the mixture of experts (``models/moe.py``;
-none after an SSD layer).  Configs with a ``frontend`` (vision or audio
-embeddings) are not ported yet and raise.  MoE layers run ``moe_block``
+none after an SSD layer).  A config with a ``frontend`` (llava-next's
+vision patches, hubert's audio frames) takes precomputed embeddings in the
+batch's ``frontend_embeds``, placed ahead of any text tokens
+(``embed_inputs``); ``causal=False`` makes the attention bidirectional.
+MoE layers run ``moe_block``
 on the full-sequence path (``forward`` returns their summed aux loss),
 ``moe_prefill_block`` in ``prefill`` and ``moe_decode_block`` in the
 decode steps.  The JAX package scans stacked stage parameters;
@@ -75,10 +78,6 @@ class Transformer(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if cfg.frontend is not None:
-            raise NotImplementedError(
-                f"{cfg.name}: the {cfg.frontend!r} frontend is not ported yet "
-                "(embed_inputs reads tokens only)")
         for mixer, f in cfg.layer_plan():
             if mixer not in ATTN + ("rglru", "ssd") or f not in (
                     "mlp", "moe", "none"):
@@ -193,8 +192,16 @@ def grow_cache(cfg: ModelConfig, cache: list, batch: int, new_len: int,
 
 def embed_inputs(params: Transformer, cfg: ModelConfig,
                  batch: dict) -> torch.Tensor:
-    """batch["tokens"] (B,S) -> (B,S,D) in the compute dtype."""
-    return params.embed[batch["tokens"].long()].to(cfg.comp_dtype)
+    """The batch's inputs as (B, S, D) in the compute dtype: its
+    ``frontend_embeds`` (B, F, D) and the embedding rows of its ``tokens``
+    (B, S_text), either or both; with both, [frontend | text] along the
+    sequence."""
+    parts = []
+    if "frontend_embeds" in batch:
+        parts.append(batch["frontend_embeds"].to(cfg.comp_dtype))
+    if batch.get("tokens") is not None:
+        parts.append(params.embed[batch["tokens"].long()].to(cfg.comp_dtype))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
 
 
 def _logits(params: Transformer, cfg: ModelConfig,
@@ -258,13 +265,15 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
 def loss_fn(params: Transformer, cfg: ModelConfig, batch: dict, *,
             aux_coef: float = 0.01,
             moe_groups: int = 1) -> tuple[torch.Tensor, dict]:
-    """Next-token cross entropy over the training forward: logsumexp -
-    gold logit under ``loss_mask``, in f32.  Returns (loss, metrics
-    {nll, moe_aux, tokens}), the metrics detached; ``aux_coef`` weighs the
-    MoE aux loss into the loss.  The reference takes
-    the gold logit with an iota compare (a gather on a vocab-sharded dim
-    would all-gather the logits); on one device a gather is the same
-    number."""
+    """Next-token (for an encoder, masked-unit) cross entropy over the
+    training forward: logsumexp - gold logit under ``loss_mask``, in f32.
+    Frontend positions carry no labels: the logits cover [frontend |
+    text] and the labels the text (llava-next), or every frame (hubert),
+    so the logits are cut to the labels' last positions.  Returns (loss,
+    metrics {nll, moe_aux, tokens}), the metrics detached; ``aux_coef``
+    weighs the MoE aux loss into the loss.  The reference takes the gold
+    logit with an iota compare (a gather on a vocab-sharded dim would
+    all-gather the logits); on one device a gather is the same number."""
     logits, aux = forward(params, cfg, batch, train=True,
                           moe_groups=moe_groups)
     labels = batch["labels"].long()

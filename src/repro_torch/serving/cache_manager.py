@@ -66,6 +66,13 @@ class EvictedSessionError(ValueError):
     """A paged session handle was used after release / TTL eviction."""
 
 
+class QuantMismatchError(ValueError):
+    """A session checkpoint's cache representation does not match the
+    restoring engine's (``cache_quant`` differs, or a quantized paged
+    checkpoint meets a monolithic engine).  Raised instead of silently
+    changing the session's numeric precision mid-conversation."""
+
+
 @dataclasses.dataclass
 class PagedHandle:
     """A session's view into a :class:`CachePool`.

@@ -40,8 +40,16 @@ tokens at real positions, as in the reference.
 
 The engine runs on CUDA unless the caller passes ``device="cpu"``; with
 ``device=None`` and no card it raises instead of running on the CPU.
-Meshes are not ported yet and raise ``NotImplementedError``; session
-checkpoints and ``weight_quant`` are not ported either.
+Meshes are not ported yet and raise ``NotImplementedError``;
+``weight_quant`` is not ported either.  An encoder config
+(``causal=False``, hubert) has no decode step and is refused when the engine
+is built; a config with a ``frontend`` (llava-next) serves its token
+backbone, as the reference's engine does.
+
+``checkpoint_session`` / ``restore_session`` persist a session through
+``training/checkpoint.py`` in its slot-linear monolithic view, so a chat
+survives an engine restart and moves between paged and monolithic
+engines in either direction.
 
 Unlike JAX's immutable arrays, the port's caches and pools are written in
 place: a monolithic ``SessionState`` is single use (extending it writes its
@@ -67,10 +75,12 @@ from repro_torch.models.common import (ModelConfig, resolve_device,
                                        use_f32_accumulation)
 from repro_torch.serving.cache_manager import (CachePool,
                                                EvictedSessionError,
-                                               PagedHandle)
+                                               PagedHandle,
+                                               QuantMismatchError)
 from repro_torch.serving import graphs
 from repro_torch.serving.faults import PoolExhaustedError
 from repro_torch.serving.scheduler import ContinuousBatcher, Request
+from repro_torch.training import checkpoint as ck
 
 PAD = 0
 
@@ -145,6 +155,12 @@ def _fork(gen: torch.Generator | None) -> torch.Generator | None:
     return out
 
 
+def _cache_tree(cache: list) -> dict:
+    """A per-layer cache list as the checkpoint's nested dict {layer:
+    {field: tensor}}, sharing the tensors (restore fills them in place)."""
+    return {str(i): dict(zip(c._fields, c)) for i, c in enumerate(cache)}
+
+
 @dataclasses.dataclass
 class InferenceEngine:
     """One swarm member: a model + its two-phase serving runtime.
@@ -183,6 +199,11 @@ class InferenceEngine:
     def __post_init__(self):
         if self.mesh is not None:
             raise _not_ported("mesh-sharded serving")
+        if not self.cfg.causal:
+            raise NotImplementedError(
+                f"{self.cfg.name}: an encoder-only config (causal=False) has "
+                "no decode step; run transformer.forward or train it "
+                "instead of serving it")
         self.device = resolve_device(self.device, "InferenceEngine")
         if self.device.type == "cuda":
             use_f32_accumulation()
@@ -565,6 +586,116 @@ class InferenceEngine:
             raise ValueError(f"fanout needs a batch-1 state, got "
                              f"{state.batch}")
         return self.state_select(state, np.zeros((n,), np.int32))
+
+    # ------------------------------------------------------------------
+    # session durability: checkpoint and restore through
+    # training/checkpoint.py
+    # ------------------------------------------------------------------
+
+    @torch.inference_mode()
+    def checkpoint_session(self, state: SessionState, ckpt_dir: str, *,
+                           step: int = 0, keep: int = 3) -> str:
+        """Write a session to disk (``training/checkpoint.save``: an atomic
+        publish) so a chat survives an engine restart.  Returns the path.
+
+        The cache is saved in its slot-linear MONOLITHIC view (a paged
+        session's blocks and state rows gathered and dequantized first by
+        ``transformer.paged_gather``), so a checkpoint restores on a paged
+        or a monolithic engine alike.  Global-attention KV and recurrent
+        state rows round-trip bitwise; a local-attention ring that has
+        wrapped is clamped to its window view.  ``pos``, ``cur``, ``last``,
+        ``max_len``, ``offset``, ``exact``, the engine's ``cache_quant`` and
+        the sampling generator's state go with it."""
+        self._state_kind_check(state)
+        if self.paged:
+            h = state.cache
+            cov_len = int(h.tables.shape[1]) * self.block_len
+            cache = T.paged_gather(
+                self.cfg, self._paged_dev_cache(h.tables, h.rows))
+        else:
+            cov_len = int(state.max_len)
+            cache = state.cache
+        tree = {"cache": _cache_tree(cache), "pos": state.pos,
+                "cur": state.cur, "last": state.last}
+        if state.gen is not None:
+            tree["gen"] = state.gen.get_state()
+        extra = {"kind": "session", "batch": state.batch,
+                 "max_len": int(state.max_len), "offset": int(state.offset),
+                 "cov_len": cov_len, "exact": bool(state.exact),
+                 "has_gen": state.gen is not None,
+                 # the saved view is dequantized, but a quantized session's
+                 # numbers are budgeted, not bitwise: restore refuses
+                 # another representation (QuantMismatchError)
+                 "cache_quant": self.cache_quant}
+        return ck.save(ckpt_dir, step, tree, extra=extra, keep=keep)
+
+    @torch.inference_mode()
+    def restore_session(self, ckpt_dir: str,
+                        step: int | None = None) -> SessionState:
+        """A checkpointed session rebuilt on THIS engine (the latest
+        checkpoint when ``step`` is None).  A paged engine scatters the
+        saved linear view into freshly allocated blocks and state rows
+        (``transformer.paged_scatter_back``) and registers the handle; a
+        monolithic one adopts the view as its cache.  The resumed chat
+        continues bitwise where the round trip is exact
+        (``checkpoint_session``).  Raises ``FileNotFoundError`` without a
+        checkpoint, ``ValueError`` for one that is not a session's and
+        ``QuantMismatchError`` for another cache representation."""
+        if step is None:
+            step = ck.latest_step(ckpt_dir)
+            if step is None:
+                raise FileNotFoundError(f"no session checkpoint in "
+                                        f"{ckpt_dir!r}")
+        extra = ck.read_extra(ckpt_dir, step)
+        if extra.get("kind") != "session":
+            raise ValueError(f"checkpoint at {ckpt_dir!r} step {step} is "
+                             "not a session checkpoint")
+        saved_q = extra.get("cache_quant")
+        if saved_q != self.cache_quant:
+            raise QuantMismatchError(
+                f"session checkpoint at {ckpt_dir!r} step {step} was saved "
+                f"from a cache_quant={saved_q!r} engine but this engine is "
+                f"cache_quant={self.cache_quant!r}"
+                + ("" if self.paged else " (monolithic)")
+                + "; restoring would silently change the session's numeric "
+                "precision: restore on a matching engine or re-absorb the "
+                "conversation")
+        B, cov_len = int(extra["batch"]), int(extra["cov_len"])
+        if self.paged and cov_len % self.block_len:
+            raise ValueError(f"a {cov_len}-slot session does not fill whole "
+                             f"blocks of {self.block_len}")
+        cache = T.init_cache(self.cfg, B, cov_len, device=self.device)
+        like = {"cache": _cache_tree(cache),
+                "pos": self._full(B, 0), "cur": self._full(B, 0),
+                "last": torch.zeros((B, self.cfg.vocab_size),
+                                    dtype=torch.float32, device=self.device)}
+        gen = None
+        if extra["has_gen"]:
+            gen = torch.Generator(device=self.device)
+            like["gen"] = gen.get_state()
+        tree, _ = ck.restore(ckpt_dir, step, like)
+        if gen is not None:
+            gen.set_state(tree["gen"])
+        if self.paged:
+            handle = self.pool.alloc(B, cov_len // self.block_len)
+            T.paged_scatter_back(
+                self.cfg, self._paged_dev_cache(handle.tables, handle.rows),
+                cache, self._full(B, 0), self._full(B, cov_len))
+            cache, max_len = handle, int(extra["max_len"])
+        else:
+            # a monolithic cache is as long as its max_len: a paged-saved
+            # session arrives trimmed to the blocks it covers and grows back
+            # to its max_len (empty slots), so its dispatches keep the
+            # source's shapes (on the card another length tiles the decode
+            # kernel's keys otherwise, and the sums differ in their last
+            # bits)
+            max_len = int(extra["max_len"])
+            if max_len > cov_len:
+                cache = T.grow_cache(self.cfg, cache, B, max_len,
+                                     device=self.device)
+        return SessionState(cache, tree["pos"], tree["cur"], tree["last"],
+                            max_len, int(extra["offset"]), gen,
+                            bool(extra["exact"]))
 
     def _state_kind_check(self, state: SessionState):
         """A paged engine takes only PagedHandle states and a monolithic

@@ -113,6 +113,12 @@ def latest_step(ckpt_dir: str) -> int | None:
         return int(f.read().strip())
 
 
+def read_extra(ckpt_dir: str, step: int) -> dict:
+    """The ``extra`` dict checkpoint ``step`` was saved with."""
+    with open(os.path.join(ckpt_dir, f"step_{step}", "manifest.json")) as f:
+        return json.load(f)["extra"]
+
+
 def load_leaves(ckpt_dir: str, step: int) -> tuple[dict, dict]:
     """({path: CPU tensor, or int for a 0-d integer leaf}, extra) of one
     checkpoint, each leaf in its logical dtype."""

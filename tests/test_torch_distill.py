@@ -5,6 +5,8 @@ package's, and the reference's LoRA distillation case.
 Adapters come from the JAX ``init_lora`` (B then drawn at random, so the
 merge is not a no-op) and are converted with ``convert.from_jax_lora``;
 base weights from ``init_params`` through ``convert.from_jax_params``.
+The MoE smokes' adapter trees nest the shared expert's adapter one level
+deeper (``ffn.shared.w_up``) beside the stacked experts' ``ffn.w_up``.
 
 Budgets (f32 models): the merged weights 1e-6 (one f32 product and add);
 ``distill_loss`` 2e-5 relative (the training forward rounds q, k, v and P
@@ -140,3 +142,36 @@ def test_lora_distillation_moves_student():
     assert all(not ab["b"].any() for ab in first.values())
     for n, q in model.named_parameters():
         assert torch.equal(q, base[n]), n
+
+
+@pytest.mark.parametrize("arch", ["deepseek-moe-16b",
+                                  "llama4-scout-17b-a16e"])
+def test_moe_lora_merge_and_distill_step_match_jax(arch):
+    """An MoE adapter tree: the stacked experts' ``w_up`` and the shared
+    expert's, one level deeper (``ffn.shared.w_up``), convert, merge and
+    take a distillation step as the reference's do (budgets as above)."""
+    jc, tc, p, lora, model, tl = _setup(arch)
+    defs = TL.lora_defs(model, rank=4)
+    assert sorted(defs) == sorted(tl)
+    assert any(n.endswith("ffn.shared.w_up") for n in tl)
+    assert any(n.endswith("ffn.w_up") and tl[n]["a"].ndim == 3 for n in tl)
+    for n, ab in tl.items():
+        assert tuple(ab["a"].shape) == defs[n]["a"], n
+        assert tuple(ab["b"].shape) == defs[n]["b"], n
+    want = from_jax_params(jax.tree.map(np.asarray, JL.merge(p, lora,
+                                                             scale=0.5)), tc)
+    got = TL.merge(model, tl, scale=0.5)
+    for n, t in want.named_parameters():
+        np.testing.assert_allclose(got[n].detach().numpy(), t.numpy(),
+                                   atol=1e-6, rtol=0, err_msg=n)
+    b, teacher = _batch()
+    jb = {k: jnp.asarray(v) for k, v in b.items()}
+    tb = {k: torch.as_tensor(v) for k, v in b.items()}
+    lora, jl = JD.distill_step(lora, p, jc, jb, jnp.asarray(teacher), lr=0.1)
+    tl, tloss = TD.distill_step(tl, model, tc, tb, torch.as_tensor(teacher),
+                                lr=0.1)
+    assert abs(float(tloss) / float(jl) - 1) < 2e-5
+    for n, ab in from_jax_lora(jax.tree.map(np.asarray, lora), tc).items():
+        for k in "ab":
+            np.testing.assert_allclose(tl[n][k].numpy(), ab[k].numpy(),
+                                       atol=1e-6, rtol=0, err_msg=(n, k))

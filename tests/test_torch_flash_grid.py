@@ -239,6 +239,8 @@ def test_launch_plan_refuses_bf16_head_dims(D):
     (1, 260, 260, 8, 2, 64, False, 150),   # window without causal
     (2, 70, 70, 4, 2, 16, True, None),     # D = 16
     (1, 200, 200, 4, 2, 256, True, None),  # D = 256 (K/V tiles of 64)
+    (4, 1000, 1000, 16, 16, 80, False, None),  # hubert: D = 80 padded to 128
+    (2, 130, 130, 8, 2, 80, True, None),   # D = 80, causal, ragged
 ], ids=_ids)
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_kernel_matches_plain(cuda, case, dtype):

@@ -91,8 +91,8 @@ def _tol(tc):
 
 
 def test_config_mirrors_reference():
-    for arch in ARCHS + ("recurrentgemma-2b", "mamba2-780m",
-                         "deepseek-moe-16b", "llama4-scout-17b-a16e"):
+    assert sorted(TC.ARCH_IDS) == sorted(C.ARCH_IDS)
+    for arch in C.ARCH_IDS:
         for get, tget in ((C.get_config, TC.get_config),
                           (C.get_smoke, TC.get_smoke)):
             jc, tc = get(arch), tget(arch)
@@ -102,8 +102,8 @@ def test_config_mirrors_reference():
             assert tc.layer_plan() == jc.layer_plan()
             assert [(s.blocks, s.repeat) for s in tc.stage_plan()] == \
                 [(s.blocks, s.repeat) for s in jc.stage_plan()]
-    with pytest.raises(ValueError):        # not ported yet
-        TC.get_config("command-r-plus-104b")
+    with pytest.raises(ValueError):        # an unknown arch id
+        TC.get_config("gpt-2-xl")
 
 
 def test_common_ops_match_reference():
@@ -240,16 +240,17 @@ def test_init_params_distribution():
 
 
 def test_other_mixers_are_refused():
-    """What is not ported is refused instead of run wrong: a config with a
-    ``frontend`` (llava-next's vision, hubert's audio embeddings, which
-    ``embed_inputs`` would ignore) and a layer kind the port does not know.
-    RG-LRU, SSD (``test_torch_recurrent.py``) and MoE
-    (``test_torch_moe.py``) layers are served."""
+    """What the port does not run is refused instead of run wrong: a layer
+    kind the port does not know, and an engine over an encoder-only config
+    (``causal=False``: no decode step), which still builds as a model.
+    RG-LRU, SSD (``test_torch_recurrent.py``), MoE (``test_torch_moe.py``)
+    and frontend configs (``test_torch_archs.py``) are ported."""
+    from repro_torch.serving.engine import InferenceEngine
     base = TC.get_smoke("smollm-135m")
-    for frontend in ("vision_patches", "audio_frames"):
-        tc = dataclasses.replace(base, frontend=frontend, frontend_tokens=4)
-        with pytest.raises(NotImplementedError, match="frontend"):
-            TT.Transformer(tc)
+    enc = dataclasses.replace(base, causal=False)
+    model = TT.Transformer(enc)
+    with pytest.raises(NotImplementedError, match="encoder-only"):
+        InferenceEngine("enc", enc, model, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         TT.Transformer(dataclasses.replace(base, mixer_pattern=("conv",)))
     moe = dataclasses.replace(base, num_experts=4, top_k=2, expert_d_ff=32)
