@@ -50,6 +50,29 @@ def topk_logit_variance(logits: torch.Tensor, k: int) -> torch.Tensor:
     return z.var(dim=-1, unbiased=False)
 
 
+def _masked_mean(per: torch.Tensor, mask: torch.Tensor | None
+                 ) -> torch.Tensor:
+    if mask is None:
+        return per.mean(dim=-1)
+    m = mask.float()
+    return (per * m).sum(-1) / m.sum(-1).clamp_min(1.0)
+
+
+def sequence_entropy(logits: torch.Tensor, tokens: torch.Tensor,
+                     mask: torch.Tensor | None = None,
+                     mode: str = "token") -> torch.Tensor:
+    """Eq. 2 averaged over the valid positions. Returns (...)."""
+    per = (token_nent(logits, tokens) if mode == "token"
+           else dist_entropy(logits))
+    return _masked_mean(per, mask)
+
+
+def mean_logit_variance(logits: torch.Tensor, k: int,
+                        mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Eq. 3 averaged over the valid positions. Returns (...)."""
+    return _masked_mean(topk_logit_variance(logits, k), mask)
+
+
 def normalise_variance(v, v_scale: float):
     return v / (v + v_scale)
 
@@ -84,3 +107,8 @@ def difficulty(logits: torch.Tensor, tokens: torch.Tensor,
         d = m.sum(-1).clamp_min(1.0)
         h, v = (h_per * m).sum(-1) / d, (v_per * m).sum(-1) / d
     return combine_terms(h, v, cfg)
+
+
+# the reference jits ``difficulty``; here it is the same function (eager
+# PyTorch, the terms through the fused op)
+difficulty_jit = difficulty

@@ -88,13 +88,13 @@ def init_kv_cache(cfg: ModelConfig, batch: int, length: int, local: bool,
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum('bsd,dhk->bshk') as one matmul."""
     D, H, Dh = w.shape
-    return (x @ w.to(x.dtype).reshape(D, H * Dh)).unflatten(-1, (H, Dh))
+    return (x @ Q.cast(w, x.dtype).reshape(D, H * Dh)).unflatten(-1, (H, Dh))
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     """einsum('bshk,hkd->bsd') as one matmul."""
     H, Dh, D = wo.shape
-    return out.flatten(-2) @ wo.to(out.dtype).reshape(H * Dh, D)
+    return out.flatten(-2) @ Q.cast(wo, out.dtype).reshape(H * Dh, D)
 
 
 def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
@@ -117,7 +117,12 @@ def _scatter_kv(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
     """Write roped span K/V into the cache at slot = position (ring slot =
     position % T for windowed layers), in place.  Negative positions (and,
     like JAX's dropped out-of-bounds scatter, positions past the cache) are
-    not written."""
+    not written.
+
+    No host sync, so a captured prefill can run it: every column writes,
+    and a dropped column repeats the write of its row's last kept column
+    (the same value to the same slot, so the duplicate is harmless).  A row
+    with no kept column rewrites one slot with the value already there."""
     B, S = positions.shape
     T = cache.k.shape[1]
     ring = local and cfg.window is not None
@@ -126,11 +131,19 @@ def _scatter_kv(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
         pmax = positions.max(dim=1, keepdim=True).values
         positions = torch.where(positions > pmax - T, positions, -1)
     slot = positions % T if ring else positions
-    b, s = torch.nonzero((positions >= 0) & (slot < T), as_tuple=True)
-    sl = slot[b, s]
-    cache.k.index_put_((b, sl), k[b, s].to(cache.k.dtype))
-    cache.v.index_put_((b, sl), v[b, s].to(cache.v.dtype))
-    cache.pos.index_put_((b, sl), positions[b, s].to(torch.int32))
+    keep = (positions >= 0) & (slot < T)
+    # each row's kept column with the highest position (column 0 if none)
+    rep = torch.where(keep, positions, torch.iinfo(positions.dtype).min
+                      ).argmax(dim=1, keepdim=True)
+    col = torch.where(keep, torch.arange(S, device=positions.device), rep)
+    any_keep = keep.any(dim=1)[:, None]
+    b = torch.arange(B, device=positions.device)[:, None].expand(B, S)
+    sl = slot.gather(1, col).clamp(0, T - 1)
+    for t, val in ((cache.k, k), (cache.v, v), (cache.pos, positions)):
+        new = val[b, col].to(t.dtype)
+        old = t[b, sl]
+        keep_b = any_keep.view(B, 1, *(1,) * (new.dim() - 2))
+        t.index_put_((b, sl), torch.where(keep_b, new, old))
     return cache
 
 

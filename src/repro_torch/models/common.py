@@ -95,6 +95,23 @@ class ModelConfig:
     def ssm_nheads(self) -> int:
         return self.ssm_d_inner // self.ssm_head_dim
 
+    def num_params(self) -> int:
+        """Parameter count of the model, counted on a ``Transformer`` built
+        on the meta device (no memory)."""
+        from repro_torch.models.transformer import Transformer
+        model = Transformer(self, device="meta")
+        return sum(p.numel() for p in model.parameters())
+
+    def active_params(self) -> int:
+        """Parameters a token reads: the routed experts counted top_k of
+        num_experts times per MoE layer."""
+        n = self.num_params()
+        if self.num_experts and self.top_k:
+            expert = 3 * self.d_model * self.expert_d_ff
+            n_moe = sum(1 for _, f in self.layer_plan() if f == "moe")
+            n -= n_moe * (self.num_experts - self.top_k) * expert
+        return n
+
     def layer_plan(self) -> tuple[tuple[str, str], ...]:
         """Per-layer (mixer, ffn) kinds."""
         plan = []

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.models import quant as Q
 from repro_torch.models.common import (ACTIVATIONS, ModelConfig,
                                        frozen_zeros, rmsnorm)
 
@@ -39,9 +40,9 @@ def mlp_body(p: MLP, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The MLP on normed activations h (..., D), in h's dtype (the JAX
     ``_mlp_body``)."""
     act = ACTIVATIONS[cfg.ffn_act]
-    up = h @ p.w_up.to(h.dtype)
+    up = h @ Q.cast(p.w_up, h.dtype)
     if hasattr(p, "w_gate"):
-        up = act(h @ p.w_gate.to(h.dtype)) * up
+        up = act(h @ Q.cast(p.w_gate, h.dtype)) * up
     else:
         up = act(up)
-    return up @ p.w_down.to(h.dtype)
+    return up @ Q.cast(p.w_down, h.dtype)

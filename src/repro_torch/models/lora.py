@@ -16,6 +16,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.models import quant as Q
+
 # leaf name -> number of trailing dims that form the weight (in, out...) block
 _TARGETS = {"wq": 3, "wv": 3, "w_up": 2}
 
@@ -23,6 +25,7 @@ _TARGETS = {"wq": 3, "wv": 3, "w_up": 2}
 def lora_defs(params: nn.Module, rank: int = 8) -> dict:
     """{name: {"a": shape, "b": shape}} for every adapted parameter of
     ``params``."""
+    Q.refuse_quantized(params, "LoRA")
     out = {}
     for name, p in params.named_parameters():
         nd = _TARGETS.get(name.rsplit(".", 1)[-1])
@@ -60,6 +63,7 @@ def merge(params: nn.Module, lora: dict, scale: float = 1.0,
     """Effective parameters by name: W + scale * A.B on adapted leaves (in
     f32, cast back to W's dtype), W elsewhere, every base W detached when
     ``freeze_base``."""
+    Q.refuse_quantized(params, "a LoRA merge")
     out = {}
     for name, w in params.named_parameters():
         base = w.detach() if freeze_base else w

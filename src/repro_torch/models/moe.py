@@ -43,6 +43,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import ffn
+from repro_torch.models import quant as Q
 from repro_torch.models.common import (ACTIVATIONS, ModelConfig,
                                        frozen_zeros, rmsnorm)
 
@@ -147,9 +148,9 @@ def _experts(p: MoE, hf: torch.Tensor, gates: torch.Tensor,
     buf = torch.zeros((E, M + 1, D), dtype=dt, device=hf.device)
     buf = buf.index_put_((e_idx, r_idx), src)[:, :M]
     act = ACTIVATIONS[cfg.ffn_act]
-    gate_h = torch.bmm(buf, p.w_gate.to(dt))                # (E, M, Fe)
-    up_h = torch.bmm(buf, p.w_up.to(dt))
-    out_buf = torch.bmm(act(gate_h) * up_h, p.w_down.to(dt))   # (E, M, D)
+    gate_h = torch.bmm(buf, Q.cast(p.w_gate, dt))           # (E, M, Fe)
+    up_h = torch.bmm(buf, Q.cast(p.w_up, dt))
+    out_buf = torch.bmm(act(gate_h) * up_h, Q.cast(p.w_down, dt))  # (E,M,D)
     # dropped assignments read a real row and weigh it 0
     y = out_buf[e_idx, torch.where(keep, r_idx, gl * C + C - 1)]
     w = (gates.reshape(g, A) * keep).float()
@@ -220,15 +221,12 @@ def moe_prefill_block(p: MoE, x: torch.Tensor, cfg: ModelConfig,
     return x + y.to(x.dtype), aux
 
 
-def _take_expert_rows(w: torch.Tensor, idx: torch.Tensor,
-                      dt) -> torch.Tensor:
-    """The k selected experts' weight rows, w (E, ...) -> (T, k, ...).
-    Quantized expert weights (the reference's ``QTensor.take_rows``) are
-    not ported."""
-    if type(w) not in (torch.Tensor, nn.Parameter):
-        raise NotImplementedError(
-            "quantized expert weights (weight_quant) are not ported to the "
-            "PyTorch package yet")
+def _take_expert_rows(w, idx: torch.Tensor, dt) -> torch.Tensor:
+    """The k selected experts' weight rows, w (E, ...) -> (T, k, ...).  A
+    ``QTensor`` gathers payload and scale rows and dequantizes after the
+    gather, so the decode reads k/E of the stack's bytes."""
+    if isinstance(w, Q.QTensor):
+        return w.take_rows(idx, dt)
     return w[idx].to(dt)
 
 

@@ -47,6 +47,7 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention, ffn, moe, rglru, ssm
+from repro_torch.models import quant as Q
 from repro_torch.models.common import ModelConfig, frozen_zeros, rmsnorm
 
 ATTN = ("attn", "attn_local")
@@ -96,7 +97,8 @@ class Transformer(nn.Module):
             self.lm_head = frozen_zeros(D, V, **z)
 
     def head(self) -> torch.Tensor:
-        """(D, V): the tied ``embed.T`` or the untied ``lm_head``."""
+        """(D, V): the tied ``embed.T`` or the untied ``lm_head`` (a
+        ``quant.QTensor`` in a model from ``quant.quantize_params``)."""
         return self.embed.T if self.cfg.tie_embeddings else self.lm_head
 
     def forward(self, batch: dict, *, train: bool = False):
@@ -207,7 +209,7 @@ def embed_inputs(params: Transformer, cfg: ModelConfig,
 def _logits(params: Transformer, cfg: ModelConfig,
             x: torch.Tensor) -> torch.Tensor:
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
-    return x @ params.head().to(x.dtype)
+    return x @ Q.cast(params.head(), x.dtype)
 
 
 def _ffn(layer: Block, x: torch.Tensor, cfg: ModelConfig,
@@ -296,7 +298,8 @@ def loss_fn(params: Transformer, cfg: ModelConfig, batch: dict, *,
 
 def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
             cache: list, positions: torch.Tensor, *,
-            continuation: bool = False) -> tuple[torch.Tensor, list]:
+            continuation: bool = False,
+            check: bool = True) -> tuple[torch.Tensor, list]:
     """Absorb a whole span in one pass, filling every layer cache in place.
 
     tokens (B,S); positions (B,S) int32 absolute positions (negative = inert
@@ -306,12 +309,12 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     0, the same row for every batch row by construction.
     ``continuation=True`` (warm): a RIGHT-padded span absorbed into an
     already-filled cache at offset positions, whose rows must agree (one
-    check per call, not per layer); attention then reads the whole cache.
+    check per call, not per layer; ``check=False`` skips it for a caller
+    that checked already: the check reads the positions on the host, which
+    a captured prefill cannot do); attention then reads the whole cache.
     Returns (logits (B,S,V), cache)."""
-    if continuation and positions.shape[0] > 1 and not torch.equal(
-            positions, positions[:1].expand_as(positions)):
-        raise ValueError("prefill needs the same positions in every batch "
-                         "row (sessions of one batch advance together)")
+    if continuation and check:
+        check_positions(positions)
     x = embed_inputs(params, cfg, {"tokens": tokens})
     for layer, c, (mixer, _) in zip(params.layers, cache, cfg.layer_plan()):
         if mixer in ATTN:
@@ -324,6 +327,16 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
                       continuation=continuation)
         x = _ffn(layer, x, cfg, positions)
     return _logits(params, cfg, x), cache
+
+
+def check_positions(positions: torch.Tensor) -> None:
+    """Raise unless every batch row of ``positions`` is the same: one
+    position row serves the whole batch (the reference reads row 0's).
+    Reads the positions on the host."""
+    if positions.shape[0] > 1 and not torch.equal(
+            positions, positions[:1].expand_as(positions)):
+        raise ValueError("prefill needs the same positions in every batch "
+                         "row (sessions of one batch advance together)")
 
 
 def _state_decode(layer: Block, x: torch.Tensor, state, cfg: ModelConfig,

@@ -182,10 +182,12 @@ class CachePool:
         return (len(self._free) >= n_blocks
                 and len(self._free_rows) >= n_rows)
 
-    def alloc_blocks(self, n: int, *, reset: bool = True) -> np.ndarray:
+    def alloc_blocks(self, n: int, *,
+                     reset: bool | str = True) -> np.ndarray:
         """Take ``n`` free blocks (refcount 1).  ``reset=True`` zeroes their
         K/V and sets pos -1: O(n), the paged replacement for the monolithic
-        ``grow_cache`` copy."""
+        ``grow_cache`` copy; ``"dispatch"`` leaves that to the caller's
+        dispatch (``alloc``)."""
         if len(self._free) < n:
             raise PoolExhaustedError(
                 f"cache pool exhausted: need {n} blocks, "
@@ -199,7 +201,8 @@ class CachePool:
         self.counters["high_water"] = max(self.counters["high_water"],
                                           self.blocks_in_use)
         if reset and n:
-            T.reset_blocks(self.cfg, self.arrays, ids)
+            if reset != "dispatch":
+                T.reset_blocks(self.cfg, self.arrays, ids)
             self.counters["blocks_reset"] += n
         return ids
 
@@ -216,7 +219,7 @@ class CachePool:
     def share_blocks(self, ids: np.ndarray) -> None:
         np.add.at(self.ref, np.asarray(ids, np.int64).ravel(), 1)
 
-    def alloc_rows(self, n: int) -> np.ndarray:
+    def alloc_rows(self, n: int, *, reset: bool | str = True) -> np.ndarray:
         """Take ``n`` free state rows, zeroed in place (refcount 1)."""
         if len(self._free_rows) < n:
             raise PoolExhaustedError(
@@ -225,7 +228,7 @@ class CachePool:
         ids = np.array([heapq.heappop(self._free_rows) for _ in range(n)],
                        np.int32)
         self.row_ref[ids] = 1
-        if n:
+        if n and reset != "dispatch":
             T.reset_rows(self.cfg, self.arrays, ids)
         return ids
 
@@ -250,11 +253,17 @@ class CachePool:
         self._sessions[sid] = {"handle": h, "last_used": self._clock()}
         return h
 
-    def alloc(self, batch: int, nb: int) -> PagedHandle:
+    def alloc(self, batch: int, nb: int, *,
+              reset: bool | str = True) -> PagedHandle:
         """A fresh session: ``batch`` runs of ``nb`` reset blocks and
-        ``batch`` zeroed state rows."""
-        tables = self.alloc_blocks(batch * nb).reshape(batch, nb)
-        return self.register(tables, self.alloc_rows(batch))
+        ``batch`` zeroed state rows.  ``reset="dispatch"``: the caller's
+        next dispatch writes every block and row of the session whole (a
+        cold whole-generation dispatch writes the reset values past its
+        span), so nothing is written here; the blocks still count in
+        ``counters["blocks_reset"]``."""
+        tables = self.alloc_blocks(batch * nb, reset=reset).reshape(batch,
+                                                                    nb)
+        return self.register(tables, self.alloc_rows(batch, reset=reset))
 
     def check(self, handle: PagedHandle) -> None:
         """Validate + touch a handle; raises on released/evicted ones."""

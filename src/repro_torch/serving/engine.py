@@ -8,10 +8,19 @@ Mirrors the single-device branches of ``repro/serving/engine.py``:
   * **decode** runs ``max_new`` steps of ``transformer.decode_step`` with
     the probe inside; token ``t``'s probe terms come from the logits
     *entering* step ``t`` (the logits that chose it), through the fused
-    uncertainty op.  On the card a dispatch is ONE replay of a captured
-    CUDA graph (``serving/graphs.py``), as the JAX ``lax.scan`` is one
-    device call; the eager Python loop is the oracle and the CPU's route.
-    Prefill stays eager (its cache scatter syncs the host);
+    uncertainty op;
+  * **one device call per generate**: on the card a whole ``generate`` —
+    the bucketing columns' positions, prefill, the first token's logits,
+    the decode loop with the probe, the Eq. 4 combine and, on a paged
+    engine, the gather and the scatter back — is ONE replay of a captured
+    CUDA graph (``serving/graphs.py``), the port of the reference's
+    ``_generate_fused`` / ``_generate_continue`` and their paged siblings.
+    The prompt's length and a continuation's start are staged as device
+    inputs, so one graph serves every prompt length of a bucket.  A
+    decode-only extension and each ``serve()`` chunk are one replay of a
+    decode graph (``_decode_scan``); ``absorb`` and ``serve()``'s
+    admissions prefill eagerly.  The eager Python route runs the same
+    bodies: it is the oracle and the CPU's route;
   * **sessions**: ``generate(..., return_state=True)`` and ``absorb`` hand
     back a ``SessionState``; ``generate(span, k, state=...)`` absorbs a new
     span by ONE continuation prefill (right-padded, the cached context
@@ -40,8 +49,11 @@ tokens at real positions, as in the reference.
 
 The engine runs on CUDA unless the caller passes ``device="cpu"``; with
 ``device=None`` and no card it raises instead of running on the CPU.
-Meshes are not ported yet and raise ``NotImplementedError``;
-``weight_quant`` is not ported either.  An encoder config
+Meshes are not ported yet and raise ``NotImplementedError``.
+``weight_quant`` (``"int8"`` / ``"fp8"``, monolithic or paged) serves from
+``quant.quantize_params``'s copy of the model: the attention, MLP and
+expert matmul weights and an untied head stored per-row quantized and
+dequantized at each matmul, the caller's model untouched.  An encoder config
 (``causal=False``, hubert) has no decode step and is refused when the engine
 is built; a config with a ``frontend`` (llava-next) serves its token
 backbone, as the reference's engine does.
@@ -180,7 +192,10 @@ class InferenceEngine:
     ``"gather"`` gathers the monolithic view and runs the monolithic decode
     (the oracle: bitwise the monolithic engine).  ``cache_quant``
     (``"int8"`` / ``"fp8"``, paged only) stores the pool quantized with
-    per-row f32 scales."""
+    per-row f32 scales.  ``weight_quant`` (``"int8"`` / ``"fp8"``) serves
+    from a copy of ``params`` whose matmul weights are ``quant.QTensor``s
+    (``quant.quantize_params``, after the move to ``device``); ``params``
+    itself is not changed."""
     name: str
     cfg: ModelConfig
     params: Any
@@ -195,6 +210,7 @@ class InferenceEngine:
     pool_rows: int | None = None
     attn_decode_impl: str | None = None
     cache_quant: str | None = None
+    weight_quant: str | None = None
 
     def __post_init__(self):
         if self.mesh is not None:
@@ -207,8 +223,9 @@ class InferenceEngine:
         self.device = resolve_device(self.device, "InferenceEngine")
         if self.device.type == "cuda":
             use_f32_accumulation()
-        # decode dispatches: one CUDA-graph replay each on the card
-        # (``_dispatch``); None runs the eager loop, the oracle
+        # whole generations and decode dispatches: one CUDA-graph replay
+        # each on the card (``_generate_fused``, ``_dispatch``); None runs
+        # the same bodies eagerly, the oracle
         self._graphs = (graphs.DecodeGraphs(graphs.CudaGraphs(self.device))
                         if self.device.type == "cuda" else None)
         # host-side dispatch accounting: cold prefills, warm continuation
@@ -224,6 +241,9 @@ class InferenceEngine:
                          "requeued": 0, "reprefill_cold": 0,
                          "backpressure_deferred": 0}
         self.params = self.params.to(self.device)
+        Q.check_quant(self.weight_quant)
+        if self.weight_quant is not None:
+            self.params = Q.quantize_params(self.params, self.weight_quant)
         self._recurrent = any(m in ("rglru", "ssd")
                               for m, _ in self.cfg.layer_plan())
         kvb = self.cfg.attn_kv_block
@@ -257,6 +277,12 @@ class InferenceEngine:
         self.pool = CachePool(self.cfg, L, n_blocks, n_rows,
                               cache_quant=self.cache_quant,
                               device=self.device)
+
+    def weight_bytes(self) -> int:
+        """Bytes the served model's weights hold on the device: parameters
+        and buffers (a ``QTensor``'s payload and scales), each once."""
+        return sum(t.nbytes for t in {id(t): t for t in [
+            *self.params.parameters(), *self.params.buffers()]}.values())
 
     # ------------------------------------------------------------------
     def _round_len(self, need: int) -> int:
@@ -316,6 +342,15 @@ class InferenceEngine:
     def _tokens(self, prompts: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(prompts, dtype=torch.int32, device=self.device)
 
+    def _span(self, prompts: np.ndarray, s_orig: int, device=None):
+        """A bucketed span and its real length as int32 tensors (B, Sb) and
+        (1,), on ``device`` (default: the engine's).  The length is data, not
+        a shape: a captured dispatch stages it, so one graph serves every
+        length of a bucket."""
+        dev = self.device if device is None else device
+        return (torch.as_tensor(prompts, dtype=torch.int32, device=dev),
+                torch.tensor([s_orig], dtype=torch.int32, device=dev))
+
     def _full(self, B: int, value) -> torch.Tensor:
         return torch.full((B,), value, dtype=torch.int32, device=self.device)
 
@@ -323,42 +358,47 @@ class InferenceEngine:
     # prefill and decode bodies
     # ------------------------------------------------------------------
 
-    def _prefill_into(self, prompts: np.ndarray, s_orig: int, cache):
-        """Cold prefill of bucketed ``prompts`` (B, Sb) into ``cache`` (a
-        fresh monolithic cache or the gathered view of freshly reset pool
-        blocks) -> (first greedy token (B,) int32, its logits (B, V) f32,
-        cache)."""
-        B, S = prompts.shape
+    def _prefill_into(self, tokens: torch.Tensor, s_orig: torch.Tensor,
+                      cache):
+        """Cold prefill of a bucketed, LEFT-padded span ``tokens`` (B, Sb)
+        of ``s_orig`` (1,) real tokens into ``cache`` (a fresh monolithic
+        cache, or the view of freshly reset pool blocks) -> (first greedy
+        token (B,) int32, its logits (B, V) f32, cache).  No host sync."""
+        B, S = tokens.shape
         # columns left of the caller's prompt get negative positions (inert)
-        positions = (torch.arange(S, dtype=torch.int32, device=self.device)
+        positions = (torch.arange(S, dtype=torch.int32, device=tokens.device)
                      - (S - s_orig)).expand(B, S)
-        logits, cache = T.prefill(self.params, self.cfg,
-                                  self._tokens(prompts), cache, positions)
+        logits, cache = T.prefill(self.params, self.cfg, tokens, cache,
+                                  positions)
         # contiguous: in an f32 model ``.float()`` is the strided view,
         # and the uncertainty kernel takes contiguous rows
         last = logits[:, -1].float().contiguous()
         return last.argmax(-1).to(torch.int32), last, cache
 
-    def _prefill_absorb(self, prompts: np.ndarray, s_orig: int,
-                        max_len: int):
-        """Monolithic cold prefill into a fresh (B, max_len) cache."""
-        cache = T.init_cache(self.cfg, prompts.shape[0], max_len,
-                             device=self.device)
-        return self._prefill_into(prompts, s_orig, cache)
+    def _prefill_absorb(self, tokens, s_orig, max_len: int):
+        """Monolithic cold prefill into a fresh (B, max_len) cache; the span
+        as tensors, or as a numpy array and an int."""
+        if not isinstance(tokens, torch.Tensor):
+            tokens, s_orig = self._span(tokens, s_orig)
+        cache = T.init_cache(self.cfg, tokens.shape[0], max_len,
+                             device=tokens.device)
+        return self._prefill_into(tokens, s_orig, cache)
 
-    def _prefill_continue(self, prompts: np.ndarray, s_orig: int,
+    def _prefill_continue(self, tokens: torch.Tensor, s_orig: torch.Tensor,
                           start: torch.Tensor, cache):
-        """Continuation prefill: absorb a RIGHT-padded span (B, Sb) of
-        ``s_orig`` real tokens into a filled cache at positions ``start``
-        (B,) onward -> (first greedy token, its logits, cache)."""
-        B, S = prompts.shape
-        col = torch.arange(S, dtype=torch.int32, device=self.device)[None]
+        """Continuation prefill: absorb a RIGHT-padded span ``tokens`` (B,
+        Sb) of ``s_orig`` (1,) real tokens into a filled cache at positions
+        ``start`` (B,) onward -> (first greedy token, its logits, cache).
+        The rows of ``start`` must agree (the caller checks:
+        ``transformer.check_positions``); nothing here syncs the host."""
+        B, S = tokens.shape
+        col = torch.arange(S, dtype=torch.int32, device=tokens.device)[None]
         positions = torch.where(col < s_orig, start[:, None] + col, col - S)
-        logits, cache = T.prefill(self.params, self.cfg,
-                                  self._tokens(prompts), cache,
+        logits, cache = T.prefill(self.params, self.cfg, tokens, cache,
                                   positions.to(torch.int32),
-                                  continuation=True)
-        last = logits[:, s_orig - 1].float().contiguous()
+                                  continuation=True, check=False)
+        last = logits.index_select(1, (s_orig - 1).long())[:, 0]
+        last = last.float().contiguous()
         return last.argmax(-1).to(torch.int32), last, cache
 
     def _next(self, lg: torch.Tensor, greedy: bool,
@@ -434,18 +474,13 @@ class InferenceEngine:
         inputs = {"cur": cur, "last": last, "pos": pos}
         io, fill = (), None
         if route == "mono":
-            io = [t for c in cache for t in c]
-            width = max((c.k.shape[1] for c in cache
-                         if not isinstance(c, T.STATE_TYPES)), default=0)
-            types = [(type(c), len(c)) for c in cache]
+            io, types = _flatten(cache)
+            width = _width(cache)
 
             def run(staged, arena, g):
-                lin, i = [], 0
-                for kind, n in types:
-                    lin.append(kind(*arena[i:i + n]))
-                    i += n
-                return body(self, staged["cur"], staged["last"], lin,
-                            staged["pos"], steps, greedy, g, with_logits)
+                return body(self, staged["cur"], staged["last"],
+                            _unflatten(types, arena), staged["pos"], steps,
+                            greedy, g, with_logits), None
         else:
             inputs["table"] = cache["table"]
             inputs["rows"] = cache["rows"]
@@ -457,9 +492,11 @@ class InferenceEngine:
                 c = T.paged_cache(self.pool.arrays, staged["table"],
                                   staged["rows"])
                 return body(self, staged["cur"], staged["last"], c,
-                            staged["pos"], steps, greedy, g, with_logits)
+                            staged["pos"], steps, greedy, g,
+                            with_logits), None
         key = (route, int(cur.shape[0]), width, steps, greedy, with_logits)
-        return self._graphs.run(key, run, inputs, io, gen=gen, fill=fill)
+        return self._graphs.run(key, run, inputs, io, gen=gen,
+                                fill=fill)[0]
 
     def _generator(self, greedy: bool, seed: int):
         if greedy:
@@ -491,22 +528,23 @@ class InferenceEngine:
                                   state.pos.cpu().numpy())
         return self._paged_dev_cache(tables, handle.rows), disp
 
-    def _prefill_into_paged(self, prompts, s_orig: int, cache: dict):
+    def _prefill_into_paged(self, tokens, s_orig: torch.Tensor,
+                            cache: dict):
         """Paged cold prefill: gather -> ``_prefill_into`` -> write blocks
         [0, s_orig) back."""
-        B = prompts.shape[0]
+        B = tokens.shape[0]
         lin = T.paged_gather(self.cfg, cache)
-        cur, last, lin = self._prefill_into(prompts, s_orig, lin)
+        cur, last, lin = self._prefill_into(tokens, s_orig, lin)
         T.paged_scatter_back(self.cfg, cache, lin, self._full(B, 0),
-                             self._full(B, s_orig))
+                             s_orig.expand(B))
         return cur, last, cache
 
-    def _prefill_continue_paged(self, prompts, s_orig: int,
+    def _prefill_continue_paged(self, tokens, s_orig: torch.Tensor,
                                 start: torch.Tensor, cache: dict):
         """Paged continuation prefill: gather -> ``_prefill_continue`` ->
         write blocks [start, start + s_orig) back."""
         lin = T.paged_gather(self.cfg, cache)
-        cur, last, lin = self._prefill_continue(prompts, s_orig, start, lin)
+        cur, last, lin = self._prefill_continue(tokens, s_orig, start, lin)
         T.paged_scatter_back(self.cfg, cache, lin, start, start + s_orig)
         return cur, last, cache
 
@@ -538,30 +576,123 @@ class InferenceEngine:
         T.paged_scatter_back(self.cfg, cache, lin, pos, pos + steps)
         return out
 
-    def _generate_paged(self, prompts, s_orig: int, start, cache: dict,
-                        max_new: int, greedy: bool, gen):
-        """Paged prefill (cold with ``start=None``, else continuation from
-        ``start``) + decode.  ``"kernel"``: the prefill gathers once and
-        writes its span back, then decode reads the pool in place.
-        ``"gather"``: one gather, prefill and decode on it, one writeback
-        of the whole written range."""
-        B = prompts.shape[0]
-        lin = T.paged_gather(self.cfg, cache)
-        if start is None:
-            start = self._full(B, 0)
-            cur, last, lin = self._prefill_into(prompts, s_orig, lin)
-        else:
-            cur, last, lin = self._prefill_continue(prompts, s_orig, start,
-                                                    lin)
+    # ------------------------------------------------------------------
+    # whole generation in one dispatch
+    # ------------------------------------------------------------------
+
+    def _generate_body(self, route: str, tokens, s_orig, start, cache,
+                       max_len: int, max_new: int, greedy: bool, gen):
+        """Prefill + decode + the Eq. 4 combine: the body of one fused
+        ``generate`` (the reference's ``_generate_fused`` with
+        ``start=None``, else ``_generate_continue``; their ``_paged``
+        siblings for ``route`` "kernel" and "gather").  tokens (B, Sb), the
+        real length s_orig (1,) and start (B,) are device tensors, so
+        nothing here syncs the host.  Returns ((tokens, logits, u, h_mean,
+        v_mean, cur, last, pos), cache): the cache a cold monolithic
+        generate made, else None.
+
+        Cold monolithic: the cache is made here, as the reference makes it
+        inside its trace; captured, it lives in the graph's memory pool.
+        Cold paged: the session's blocks come unreset from the pool
+        (``CachePool.alloc(reset="dispatch")``); the prefill runs on a
+        fresh cache, the view of reset blocks, and writes the whole table
+        back (its reset values past the span).  ``"kernel"`` writes the
+        prefill back, then decodes in place through the block table;
+        ``"gather"`` decodes the view and writes back the written range.
+        Warm: the continuation prefill over the session's cache (paged:
+        its gathered view)."""
+        B = tokens.shape[0]
+        cold = start is None
+        if cold:
+            start = torch.zeros((B,), dtype=torch.int32, device=tokens.device)
         pos = start + s_orig
-        if self.attn_decode_impl == "kernel":
-            T.paged_scatter_back(self.cfg, cache, lin, start, pos)
-            return self._dispatch("kernel", cur, last, cache, pos, max_new,
-                                  greedy, gen)
-        out = self._dispatch("mono", cur, last, lin, pos, max_new, greedy,
-                             gen)
-        T.paged_scatter_back(self.cfg, cache, lin, start, pos + max_new)
-        return out
+        if route == "mono":
+            if cold:
+                cache = T.init_cache(self.cfg, B, max_len,
+                                     device=tokens.device)
+                cur, last, cache = self._prefill_into(tokens, s_orig, cache)
+            else:
+                cur, last, cache = self._prefill_continue(tokens, s_orig,
+                                                          start, cache)
+            out = self._mono_body(cur, last, cache, pos, max_new, greedy,
+                                  gen)
+            return _combine(out, self.ucfg), (cache if cold else None)
+        if cold:
+            lin = T.init_cache(self.cfg, B, max_len, device=tokens.device)
+            cur, last, lin = self._prefill_into(tokens, s_orig, lin)
+            end = torch.full((B,), max_len, dtype=torch.int32,
+                             device=tokens.device)
+        else:
+            lin = T.paged_gather(self.cfg, cache)
+            cur, last, lin = self._prefill_continue(tokens, s_orig, start,
+                                                    lin)
+            end = pos if route == "kernel" else pos + max_new
+        if route == "kernel":
+            T.paged_scatter_back(self.cfg, cache, lin, start, end)
+            out = self._kernel_body(cur, last, cache, pos, max_new, greedy,
+                                    gen)
+        else:
+            out = self._mono_body(cur, last, lin, pos, max_new, greedy, gen)
+            T.paged_scatter_back(self.cfg, cache, lin, start, end)
+        return _combine(out, self.ucfg), None
+
+    def _generate_fused(self, prompts: np.ndarray, s_orig: int, start,
+                        cache, max_len: int, max_new: int, greedy: bool,
+                        gen, keep_cache: bool = False):
+        """One whole ``generate`` as one dispatch: cold with ``start`` None
+        (``cache`` None on a monolithic engine), else a continuation from
+        ``start`` (B,) over ``cache`` (a per-layer list, written in place)
+        or a paged dict.  Returns ``_generate_body``'s pair; the cold
+        monolithic cache only when ``keep_cache``.
+
+        On the card it is one replay of the graph of its key (kind, route,
+        B, bucket, cache length or table width, max_new, greedy and, cold
+        monolithic, ``keep_cache``): the span, its length, the start and a
+        paged table and state rows go through staging buffers, a warm
+        monolithic cache through the graph's arena (copied in and out, as a
+        decode dispatch's is); a cold monolithic cache is made inside the
+        graph and copied out only when the caller keeps it, so a one-shot
+        generate copies no cache.  ``self._graphs`` None runs the same body
+        eagerly: the CPU's route and the card's oracle."""
+        route = self._route
+        B, Sb = prompts.shape
+        gen = None if greedy else gen
+        host = torch.device("cpu")
+        tokens, s_len = self._span(prompts, s_orig, device=host)
+        inputs = {"tokens": tokens, "s_orig": s_len}
+        if start is not None:
+            inputs["start"] = start
+        io, types, fill = (), None, {"s_orig": 1}
+        if route != "mono":
+            inputs["table"], inputs["rows"] = cache["table"], cache["rows"]
+            width = cache["table"].shape[1]
+            # a Rerun capture runs the body: it writes the sinks
+            fill.update(table=self.pool.n_blocks, rows=self.pool.n_rows)
+        elif start is not None:
+            io, types = _flatten(cache)
+            width = _width(cache)
+        else:
+            width = max_len
+
+        def run(staged, arena, g):
+            if route != "mono":
+                c = T.paged_cache(self.pool.arrays, staged["table"],
+                                  staged["rows"])
+            else:
+                c = None if start is None else _unflatten(types, arena)
+            out, made = self._generate_body(
+                route, staged["tokens"], staged["s_orig"],
+                staged.get("start"), c, max_len, max_new, greedy, g)
+            return out, (made if keep_cache else None)
+
+        if self._graphs is None:
+            staged = {n: t.to(self.device) for n, t in inputs.items()}
+            return run(staged, list(io), gen)
+        kind = "cold" if start is None else "warm"
+        key = ("generate", kind, route, B, Sb, width, max_new, greedy,
+               keep_cache)
+        return self._graphs.run(key, run, inputs, io, gen=gen, fill=fill,
+                                extra=keep_cache)
 
     # ------------------------------------------------------------------
     # session handles
@@ -763,40 +894,42 @@ class InferenceEngine:
             max_len = self._cache_len(pb.shape[1], max_new)
             self.counters["prefill"] += 1
             if self.paged:
-                cache = self.pool.alloc(B, max_len // self.block_len)
-                out = self._generate_paged(
+                # the dispatch writes every block of the new session
+                cache = self.pool.alloc(B, max_len // self.block_len,
+                                        reset="dispatch")
+                out, _ = self._generate_fused(
                     pb, s_orig, None,
                     self._paged_dev_cache(cache.tables, cache.rows),
-                    max_new, greedy, gen)
+                    max_len, max_new, greedy, gen)
             else:
-                cur, last, cache = self._prefill_absorb(pb, s_orig, max_len)
-                out = self._dispatch("mono", cur, last, cache,
-                                     self._full(B, s_orig), max_new, greedy,
-                                     gen)
+                out, cache = self._generate_fused(
+                    pb, s_orig, None, None, max_len, max_new, greedy, gen,
+                    keep_cache=return_state)
             offset = s_orig + max_new
         else:
             if state.batch != B:
                 raise ValueError(f"state batch {state.batch} != prompt "
                                  f"batch {B}")
+            # one position row serves the batch: checked on the host here,
+            # outside the dispatch (a captured prefill cannot read it)
+            T.check_positions(state.pos[:, None])
             pb, s_orig = self._bucket_right(prompts)
             need = state.offset + pb.shape[1] + max_new
             self.counters["prefill_continue"] += 1
             if self.paged:
                 cache = state.cache
                 dev, max_len = self._paged_grown(state, need)
-                out = self._generate_paged(pb, s_orig, state.pos, dev,
-                                           max_new, greedy, gen)
             else:
                 cache, max_len = self._grown_cache(state, need)
-                cur, last, cache = self._prefill_continue(
-                    pb, s_orig, state.pos, cache)
-                out = self._dispatch("mono", cur, last, cache,
-                                     state.pos + s_orig, max_new, greedy,
-                                     gen)
+                dev = cache
+            out, _ = self._generate_fused(pb, s_orig, state.pos, dev,
+                                          max_len, max_new, greedy, gen)
             offset = state.offset + s_orig + max_new
-        toks, lgs, h_per, v_per, (cur, last, pos) = out
-        res = self._result(toks, lgs, h_per, v_per,
-                           (prompts != PAD).sum(axis=1))
+        toks, lgs, u, h, v, cur, last, pos = out
+        res = {"tokens": toks.cpu().numpy(), "u": u.cpu().numpy(),
+               "logits": lgs, "h_mean": h.cpu().numpy(),
+               "v_mean": v.cpu().numpy(),
+               "prompt_lengths": (prompts != PAD).sum(axis=1)}
         if self.paged and not return_state and state is None:
             self.pool.release(cache)        # one-shot: blocks back now
         elif self.paged:
@@ -857,31 +990,35 @@ class InferenceEngine:
             pb, s_orig = self._bucket(prompts)
             max_len = self._cache_len(pb.shape[1], 0)
             self.counters["prefill"] += 1
+            tokens, s_len = self._span(pb, s_orig)
             if self.paged:
                 cache = self.pool.alloc(B, max_len // self.block_len)
                 cur, last, _ = self._prefill_into_paged(
-                    pb, s_orig,
+                    tokens, s_len,
                     self._paged_dev_cache(cache.tables, cache.rows))
             else:
-                cur, last, cache = self._prefill_absorb(pb, s_orig, max_len)
+                cur, last, cache = self._prefill_absorb(tokens, s_len,
+                                                        max_len)
             pos, offset = self._full(B, s_orig), s_orig
         else:
             if state.batch != B:
                 raise ValueError(f"state batch {state.batch} != prompt "
                                  f"batch {B}")
             self._state_kind_check(state)
+            T.check_positions(state.pos[:, None])
             pb, s_orig = self._bucket_right(prompts)
+            tokens, s_len = self._span(pb, s_orig)
             need = state.offset + pb.shape[1]
             self.counters["prefill_continue"] += 1
             if self.paged:
                 cache = state.cache
                 dev, max_len = self._paged_grown(state, need)
                 cur, last, _ = self._prefill_continue_paged(
-                    pb, s_orig, state.pos, dev)
+                    tokens, s_len, state.pos, dev)
             else:
                 cache, max_len = self._grown_cache(state, need)
                 cur, last, cache = self._prefill_continue(
-                    pb, s_orig, state.pos, cache)
+                    tokens, s_len, state.pos, cache)
             pos, offset = state.pos + s_orig, state.offset + s_orig
         if self.paged:
             self.pool.trim(cache, -(-offset // self.block_len))
@@ -1169,7 +1306,7 @@ class InferenceEngine:
                     self.counters["prefill_continue"] += 1
                     fn = (self._prefill_continue_paged if paged
                           else self._prefill_continue)
-                    c1, l1, k1 = fn(pb, s_orig, st.pos, c1g)
+                    c1, l1, k1 = fn(*self._span(pb, s_orig), st.pos, c1g)
                     p0 = st.offset + s_orig
                 elif st is not None:                 # pure decode resume
                     self.counters["decode_only"] += 1
@@ -1179,12 +1316,11 @@ class InferenceEngine:
                     pb, s_orig = self._bucket(
                         np.asarray(req.prompt, np.int32)[None])
                     self.counters["prefill"] += 1
+                    span = self._span(pb, s_orig)
                     if paged:
-                        c1, l1, k1 = self._prefill_into_paged(pb, s_orig,
-                                                              c1g)
+                        c1, l1, k1 = self._prefill_into_paged(*span, c1g)
                     else:
-                        c1, l1, k1 = self._prefill_absorb(pb, s_orig,
-                                                          max_len)
+                        c1, l1, k1 = self._prefill_absorb(*span, max_len)
                     p0 = s_orig
                 if not paged:                        # splice into slot i
                     for dst, src in zip(cache, k1):
@@ -1277,6 +1413,36 @@ class InferenceEngine:
     # ------------------------------------------------------------------
     def token_count(self, prompts: np.ndarray, max_new: int) -> np.ndarray:
         return (np.asarray(prompts) != PAD).sum(axis=1) + max_new
+
+
+def _flatten(cache: list):
+    """A monolithic cache's tensors in layer order, and the (type, count)
+    of each layer entry to rebuild it (``_unflatten``)."""
+    return ([t for c in cache for t in c],
+            [(type(c), len(c)) for c in cache])
+
+
+def _unflatten(types, tensors) -> list:
+    out, i = [], 0
+    for kind, n in types:
+        out.append(kind(*tensors[i:i + n]))
+        i += n
+    return out
+
+
+def _width(cache: list) -> int:
+    """The longest KV cache of a monolithic cache (0 without attention)."""
+    return max((c.k.shape[1] for c in cache
+                if not isinstance(c, T.STATE_TYPES)), default=0)
+
+
+def _combine(out, ucfg: UncertaintyConfig):
+    """A decode dispatch's (tokens, logits, h, v, (cur, last, pos)) as
+    (tokens, logits, u, h_mean, v_mean, cur, last, pos): the Eq. 2-3 means
+    and the Eq. 4 combine, on the device."""
+    toks, lgs, h_per, v_per, (cur, last, pos) = out
+    h, v = h_per.mean(-1), v_per.mean(-1)
+    return toks, lgs, U.combine_terms(h, v, ucfg), h, v, cur, last, pos
 
 
 # the eager body of each decode route (``InferenceEngine._dispatch``)

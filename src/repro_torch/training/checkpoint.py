@@ -29,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.models import quant as Q
 from repro_torch.training.optimizer import OptState
 
 SEP = "/"
@@ -37,6 +38,7 @@ SEP = "/"
 def _children(tree: Any) -> dict | None:
     """A node's children by name, or None for a leaf."""
     if isinstance(tree, nn.Module):
+        Q.refuse_quantized(tree, "a checkpoint")
         return dict(tree.named_parameters())
     if isinstance(tree, OptState):
         return {f.name: getattr(tree, f.name)

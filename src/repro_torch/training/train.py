@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.models import quant as Q
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig
 from repro_torch.training import optimizer as opt
@@ -31,6 +32,7 @@ def value_and_grad(fn, model: nn.Module, *args, has_aux: bool = False):
     ``requires_grad`` is on for this call only, so the model stays frozen
     for inference outside it.  ``value`` is detached; with ``has_aux`` it is
     ``(loss, aux)`` as ``fn`` returns it."""
+    Q.refuse_quantized(model, "a training step")
     names, prms = zip(*model.named_parameters())
     with torch.enable_grad():
         for p in prms:

@@ -222,7 +222,9 @@ def test_graph_cache_is_bounded():
     eng = _engine("mono", "cpu", _model("cpu"), graphed=True, max_graphs=2)
     for n in (2, 3, 2, 4):
         eng.generate(PROMPTS, n)
-    assert [k[3] for k in eng._graphs.graphs] == [2, 4]
+    # a generate's key: ("generate", kind, route, B, bucket, cache length,
+    # max_new, ...)
+    assert [k[6] for k in eng._graphs.graphs] == [2, 4]
     assert eng._graphs.stats["captures"] == 3
 
 

@@ -265,14 +265,25 @@ def test_gather_decode_matches_jax_and_dispatch(arch, dtype):
     torch.testing.assert_close(ty.float(), dy.float(), atol=2e-2, rtol=2e-2)
 
 
-def test_quantized_expert_weights_are_refused():
-    _, tc = _cfgs("deepseek-moe-16b")
-
-    class QT:                       # stands in for a quantized weight
-        pass
-    with pytest.raises(NotImplementedError, match="weight_quant"):
-        TM._take_expert_rows(QT(), torch.zeros(2, 1, dtype=torch.long),
-                             torch.float32)
+@pytest.mark.parametrize("quant", ["int8", "fp8"])
+def test_quantized_expert_rows_match_jax(quant):
+    """A quantized expert stack's gathered rows (payload and scales taken
+    first, dequantized after) equal the reference's ``take_rows``
+    bitwise."""
+    from repro.models import quant as JQ
+    from repro_torch.models import quant as TQ
+    w = np.random.default_rng(3).standard_normal((6, 8, 16)).astype(
+        np.float32)
+    jw = jnp.asarray(w).astype(jnp.bfloat16)
+    tw = torch.from_numpy(np.asarray(jw.astype(jnp.float32))).to(
+        torch.bfloat16)
+    idx = np.array([[0, 5], [3, 3], [1, 4]], np.int32)
+    got = TM._take_expert_rows(TQ.quantize_tensor(tw, quant),
+                               torch.from_numpy(idx).long(), torch.bfloat16)
+    want = JM._take_expert_rows(JQ.quantize_tensor(jw, quant),
+                                jnp.asarray(idx), jnp.bfloat16)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
