@@ -88,6 +88,19 @@ Q1. quantized serving weights: the reference's budget against the bf16
    reads; ``deepseek-moe-16b`` (2 layers, int8) gather decode against
    dispatch decode within 0.02; the dequantization bitwise
    ``(q.float() * scale).to(bf16)``;
+D1. serving on a (data, model) mesh: on the (1, 1) NCCL mesh (a world of
+   one over a ``HashStore``) the probe (30 layers, phase 4's prompts,
+   ``max_new=32``) and ``llama3-8b`` (4 layers) on phases 4-5's weights,
+   ``generate`` bitwise the single-device engine's, one graph launch per
+   ``generate``, rows 1-3 launched and no plain version, ms per
+   ``generate`` beside the single-device engine's; two ranks on the one
+   card over gloo (``d1_rank``, spawned after the build): ``llama3-8b`` on
+   (data=1, model=2) and the probe on (data=2, model=1), tokens, greedy
+   and sampled, tie-aware equal to the single-device engine's (a sampled
+   stream in its race's scores), per rank its weight bytes, kernels
+   launched, ms per ``generate`` and the collectives' share of host and
+   device time; after 7p, phase 7's gateway on the (1, 1) mesh: the same
+   decisions, u and answers;
 4f. ``serve()`` under a ``FaultPlan`` at the probe's full width on a paged
    probe: two famine rounds, a forced eviction of a warm handle (cold
    re-prefill from ``cold_prompt``), two slot failures (requeue) and a
@@ -247,7 +260,8 @@ T2. checkpoint and restart through the CLI: ``python -m
    optimizer state; save and restore seconds and bytes of one checkpoint
    (10 steps, to keep the script inside its time);
 T3. the trained gateway, the paper's study: ``launch.serve.build_gateway(
-   train_steps=400)`` (the reference CLI's default) trains the four smoke
+   train_steps=300)`` (the reference CLI's default is 400; cut for the
+   script's time) trains the four smoke
    tiers (vocabulary 512) and the classifier and calibrates tau; every
    tier's final loss must be finite and below its first, ``answer_batch``
    on the study workload must take every route with ``u`` spanning more
@@ -317,6 +331,9 @@ SEED = 0
 # The reference's smoke budget, on logits of size ~1, is 0.01.
 TIE_ATOL = 0.03
 TIE_ULPS = 4
+# T3's training steps per tier unit (the reference CLI's default is 400;
+# cut to 300 to keep the script inside its time)
+T3_STEPS = 300
 SERVE_KERNELS = ("flash_attention_positions", "decode_attention",
                  "swarm_uncertainty")                   # one tier's generate
 MONO_KERNELS = SERVE_KERNELS + ("flash_attention",)     # + the safety gate
@@ -393,13 +410,17 @@ def check(cond: bool, msg: str):
 
 
 def tie_reading(out_tokens, ref_tokens, ref_logits, out_logits=None,
-                atol=None):
+                atol=None, noise=None):
     """Compare two greedy runs tie-aware (tests/test_continuation.py's rule,
     with the flip's own logits held too): tokens agree up to the first
     mismatch, the logits up to and at it differ by at most atol (those at
     it come from the same tokens in both runs), and at it the reference's
     top-2 logit gap is at most 2 * atol (atol per row as TIE_ATOL above
     says, or the ``atol`` given).
+
+    A sampled run passes its race's log-noise ``noise`` (B, steps, V)
+    (``race_noise``): the gap at a flip is then that of the race's scores,
+    logits minus log-noise.
 
     Returns (rows that diverged, reading, largest logit difference up to a
     flip): the reading is, over rows, the largest ratio of the least atol
@@ -420,11 +441,28 @@ def tie_reading(out_tokens, ref_tokens, ref_logits, out_logits=None,
             need = float(np.abs(out_logits[b, :k] - ref_logits[b, :k]).max())
             dmax = max(dmax, need)
         if len(mism):
-            top2 = np.sort(ref_logits[b, m])[-2:]
+            top2 = np.sort(ref_logits[b, m] if noise is None
+                           else ref_logits[b, m] - noise[b, m])[-2:]
             need = max(need, float(top2[1] - top2[0]) / 2)
             flips += 1
         reading = max(reading, need / atol)
     return flips, reading, dmax
+
+
+def race_noise(seed: int, B: int, n: int, V: int, device):
+    """The log-noise (B, n, V) of a sampled ``generate`` of seed ``seed``
+    over a batch of B: the engine draws one (B, V) exponential per decode
+    step from a generator of that seed on ``device`` and emits the argmax of
+    logits minus log-noise; token 0 is the prefill's argmax (no noise) and
+    token t >= 1 came from draw t - 1."""
+    import numpy as np
+    import torch
+    g = torch.Generator(device=device).manual_seed(seed)
+    out = np.zeros((B, n, V), np.float32)
+    for t in range(1, n):
+        out[:, t] = torch.empty((B, V), device=device).exponential_(
+            1, generator=g).log().cpu().numpy()
+    return out
 
 
 def tie_aware(label, *args, **kw):
@@ -657,6 +695,342 @@ def phase_f1(c):
           f"{io[1] / 1e6:.1f} MB, warm {io[2] / 1e6:.1f} MB; phase "
           f"{rep['phase_s']:.1f} s")
     c.report["fused"] = rep
+
+
+# D1's two ranks on the one card: (arch, layers or None for all, model
+# parallelism, max_new); each job runs on a (data, model) mesh of the two
+D1_JOBS = (("llama3-8b", 4, 2, 16), ("smollm-135m", None, 1, 32))
+D1_COLLECTIVES = ("mesh.all_reduce", "mesh.all_gather")
+D1_SAMPLE_SEED = 5          # D1's sampled generate
+
+
+def collective_share(prof) -> tuple[float, float]:
+    """(device ms inside the mesh's collectives, device ms in all) of a
+    profile: each kernel and copy counted once, under the CPU op that
+    launched it; a collective's range holds its staging copies."""
+    import torch
+    cpu = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CPU]
+    coll = sum(e.device_time_total for e in cpu
+               if e.name in D1_COLLECTIVES) / 1e3
+    return coll, sum(e.self_device_time_total for e in cpu) / 1e3
+
+
+def d1_rank(rank: int, world: int, store: str, out_dir: str, prompts,
+            jobs, device: str = "cuda"):
+    """One of D1's ranks on the card, joined over gloo through a
+    ``FileStore`` (NCCL refuses two ranks on one device).  For each job:
+    the (data, model) mesh, the seeded model at published width (phase 4's
+    and 5's weights), the mesh engine (the eager route: a gloo collective
+    cannot be captured); a warm-up ``generate``, then one timed with the
+    kernel counts and the collectives' counts zeroed just before and read
+    just after, a profiled 2-token one for the collectives' device share,
+    and a sampled one (seed ``D1_SAMPLE_SEED``).  Writes its numbers to
+    ``out_dir/rank{rank}.json`` and rank 0 the tokens and logits of the
+    greedy and the sampled run to ``out_dir/<arch>.npz``."""
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        from repro_torch import configs
+        from repro_torch.core.uncertainty import UncertaintyConfig
+        from repro_torch.kernels.decode_attention import ops as dops
+        from repro_torch.kernels.flash_attention import ops as fops
+        from repro_torch.kernels.swarm_uncertainty import ops as uops
+        from repro_torch.launch.mesh import serving_mesh
+        from repro_torch.models.transformer import init_params
+        from repro_torch.serving.engine import InferenceEngine
+        counts = dict(zip(KERNELS, (fops.counts, dops.counts, uops.counts,
+                                    fops.grid_counts, dops.paged_counts)))
+        dev = torch.device(device)
+        ucfg = UncertaintyConfig(alpha=1.0, mode="distribution")
+        out = {}
+        for arch, layers, mp, max_new in jobs:
+            cfg = configs.get_config(arch)
+            if layers is not None:
+                cfg = dataclasses.replace(cfg, num_layers=layers)
+            mesh = serving_mesh(model_parallel=mp)
+            model = init_params(cfg, torch.Generator(device=dev).manual_seed(
+                SEED), device=dev)
+            eng = InferenceEngine(f"{arch}-d1", cfg, model, ucfg,
+                                  device=dev, mesh=mesh)
+            del model
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+                sync = torch.cuda.synchronize
+            else:
+                def sync():
+                    return None
+            eng.generate(prompts, max_new)                      # warm up
+            sync()
+            for c in counts.values():
+                c.reset()
+            eng.comm.reset()
+            t = time.perf_counter()
+            res = eng.generate(prompts, max_new)
+            sync()
+            ms = (time.perf_counter() - t) * 1e3
+            stats = dict(eng.comm.stats)
+            launches = {n: c.launches for n, c in counts.items()}
+            plain = {n: c.plain for n, c in counts.items()}
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if dev.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            eng.generate(prompts, 2)
+            with torch.profiler.profile(activities=acts) as prof:
+                eng.generate(prompts, 2)
+                sync()
+            coll_ms, dev_ms = collective_share(prof)
+            smp = eng.generate(prompts, max_new, greedy=False,
+                               seed=D1_SAMPLE_SEED)
+            out[arch] = {
+                "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                "weight_bytes": eng.weight_bytes(),
+                "local_heads": [eng._mcfg.num_heads,
+                                eng._mcfg.num_kv_heads, eng._mcfg.d_ff],
+                "launches": launches, "plain": plain,
+                "ms_per_generate": ms, "collectives": stats,
+                "host_share": stats["host_s"] * 1e3 / ms,
+                "profile_device_ms": dev_ms, "profile_collective_ms":
+                    coll_ms, "mesh_eager": eng.counters["mesh_eager"]}
+            if rank == 0:
+                np.savez(os.path.join(out_dir, f"{arch}.npz"),
+                         tokens=res["tokens"], u=res["u"],
+                         logits=res["logits"].float().cpu().numpy(),
+                         s_tokens=smp["tokens"],
+                         s_logits=smp["logits"].float().cpu().numpy())
+            del eng, res, smp
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_d1(c):
+    """D1. serving on a (data, model) mesh.  In process, on the (1, 1)
+    NCCL mesh (a world of one over a ``HashStore``): the probe at full
+    width and depth (phase 4's prompts, ``max_new=32``) and ``llama3-8b``
+    (4 layers, 16 tokens), each engine on phase 4's and 5's weights —
+    ``generate`` bitwise the single-device engine's (tokens, logits, u,
+    h/v means), one graph launch per ``generate`` (profiled at
+    ``max_new=2``), rows 1-3 launched and no plain version, ms per
+    ``generate`` beside the single-device engine's in turns.  Then two
+    ranks on the one card over gloo, spawned after the build (``d1_rank``):
+    ``llama3-8b`` 4 layers on (data=1, model=2) (H32/K8: case (a)) and the
+    probe on (data=2, model=1), tokens tie-aware equal to the single-device
+    engine's, greedy and sampled (seed ``D1_SAMPLE_SEED``: a stream that
+    depends on the batch's split fails), each rank's weight bytes, kernels
+    launched, ms per ``generate`` and the collectives' share of the host
+    and device time; a failed rank fails the script."""
+    np, torch = c.np, c.torch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import serving_mesh
+    t_ph = time.perf_counter()
+    mesh = serving_mesh(device=c.dev)
+    check(sh.axis_sizes(mesh) == {"data": 1, "model": 1}
+          and torch.distributed.get_backend() == (
+              "nccl" if c.dev.type == "cuda" else "gloo"),
+          f"D1: the mesh of one card is {sh.axis_sizes(mesh)} over "
+          f"{torch.distributed.get_backend()}")
+    c.mesh11 = mesh
+    rep = {"mesh11": {}, "ranks": {}}
+    CPU = torch.profiler.ProfilerActivity.CPU
+    CUDA = torch.profiler.ProfilerActivity.CUDA
+
+    def wall(fn, n=3):
+        ts = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t)
+        return float(np.median(ts)) * 1e3
+
+    def differ(a, b) -> dict:
+        """The fields of two ``generate`` results that are not bitwise
+        equal, with their largest difference."""
+        out = {}
+        for k in ("tokens", "logits", "u", "h_mean", "v_mean"):
+            x, y = a[k], b[k]
+            if isinstance(x, torch.Tensor):
+                x, y = x.float().cpu().numpy(), y.float().cpu().numpy()
+            if not np.array_equal(x, y):
+                out[k] = float(np.abs(np.asarray(x, np.float64)
+                                      - np.asarray(y, np.float64)).max())
+        return out
+
+    for label, base, mn in (("smollm", c.probe, c.max_new),
+                            ("llama3", c.cloud, 16)):
+        pr = c.prompts
+        me = c.InferenceEngine(base.name + "-mesh11", base.cfg, base.params,
+                               base.ucfg, mesh=mesh)
+        check(me._graphs is not None and not me._multi_rank
+              and not any(hasattr(m, "tp") for m in me.params.modules()),
+              f"D1 {label}: the (1, 1) mesh engine does not capture, or its "
+              "model would cross the mesh")
+        me.generate(pr, mn)                                  # capture
+        torch.cuda.synchronize()
+        r1 = c.counted(f"mesh11 {label} generate", SERVE_KERNELS,
+                       lambda: me.generate(pr, mn),
+                       forbid=("paged_decode_attention",))
+        d = differ(r1, base.generate(pr, mn))
+        check(not d, f"D1 {label}: the (1, 1) mesh engine's generate is not "
+                     f"bitwise the single-device engine's: {d}")
+        check(me.comm.stats["all_reduce"] + me.comm.stats["all_gather"]
+              == 0, f"D1 {label}: collectives on a (1, 1) mesh")
+        me.generate(pr, 2)                                   # capture
+        st0 = dict(me._graphs.stats)
+        with torch.profiler.profile(activities=[CPU, CUDA]) as prof:
+            with torch.profiler.record_function("D1 generate"):
+                me.generate(pr, 2)
+            torch.cuda.synchronize()
+        st1 = dict(me._graphs.stats)
+        calls = runtime_calls(prof, "D1 generate")
+        check(calls["graph_launches_all"] == 1
+              and st1["replays"] == st0["replays"] + 1
+              and st1["captures"] == st0["captures"],
+              f"D1 {label}: {calls['graph_launches_all']} graph launches, "
+              f"{st1['replays'] - st0['replays']} replays and "
+              f"{st1['captures'] - st0['captures']} captures in one "
+              "generate, want 1, 1, 0")
+        turns = [(n, wall(lambda e=e: e.generate(pr, mn)))
+                 for n, e in (("single", base), ("mesh", me), ("mesh", me),
+                              ("single", base))]
+        ms_s = float(np.mean([t for n, t in turns if n == "single"]))
+        ms_m = float(np.mean([t for n, t in turns if n == "mesh"]))
+        rep["mesh11"][label] = {
+            "max_new": mn, "ms_single": ms_s, "ms_mesh": ms_m,
+            "turns_ms": turns, "weight_bytes": me.weight_bytes(),
+            "graph_launches": calls["graph_launches_all"],
+            "kernel_launches_host": calls["kernel_launches_all"]}
+        print(f"[D1] (1, 1) mesh {label} generate B=8 max_new={mn}: bitwise "
+              f"the single-device engine; one graph launch; {ms_m:.2f} ms "
+              f"against {ms_s:.2f} ms single-device (turns "
+              + ", ".join(f"{n} {t:.2f}" for n, t in turns) + ")")
+        del me
+
+    # two ranks on the one card, spawned after the build
+    out_dir = ROOT / "build" / "d1"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ctx = torch.multiprocessing.start_processes(
+        d1_rank, args=(2, str(out_dir / "store"), str(out_dir), c.prompts,
+                       D1_JOBS, c.dev.type),
+        nprocs=2, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > 400:
+                fail("D1: the two ranks did not finish in 400 s")
+    except Exception as e:          # a rank raised or died: fail the script
+        fail(f"D1: a rank failed: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join(10)
+    t_ranks = time.perf_counter() - t0
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(2)]
+    refs = {"llama3-8b": (c.cloud, 16), "smollm-135m": (c.probe, c.max_new)}
+    for arch, layers, mp, mn in D1_JOBS:
+        got = np.load(out_dir / f"{arch}.npz")
+        eng, n = refs[arch]
+        ref = eng.generate(c.prompts, n)
+        flips, reading, dlog = tie_aware(
+            f"D1 {arch} on {ranks[0][arch]['mesh']}", got["tokens"],
+            ref["tokens"], ref["logits"].float().cpu().numpy(),
+            got["logits"])
+        sref = eng.generate(c.prompts, n, greedy=False, seed=D1_SAMPLE_SEED)
+        s_lr = sref["logits"].float().cpu().numpy()
+        check(not np.array_equal(sref["tokens"], ref["tokens"]),
+              f"D1 {arch}: the sampled stream is the greedy one")
+        s_flips, s_reading, s_dlog = tie_aware(
+            f"D1 {arch} sampled on {ranks[0][arch]['mesh']}",
+            got["s_tokens"], sref["tokens"], s_lr, got["s_logits"],
+            noise=race_noise(D1_SAMPLE_SEED, *s_lr.shape, c.dev))
+        del sref, s_lr
+        for r, rr in enumerate(ranks):
+            x = rr[arch]
+            for k in SERVE_KERNELS:
+                check(x["launches"][k] > 0,
+                      f"D1 {arch} rank {r}: {k} was never launched")
+            check(sum(x["plain"].values()) == 0,
+                  f"D1 {arch} rank {r}: plain versions ran: {x['plain']}")
+            check(x["mesh_eager"] > 0, f"D1 {arch} rank {r}: no dispatch "
+                                       "on the eager route")
+            dev_share = (x["profile_collective_ms"]
+                         / max(x["profile_device_ms"], 1e-9))
+            x["device_share"] = dev_share
+            print(f"[D1] {arch} on {x['mesh']} rank {r}: weights "
+                  f"{x['weight_bytes'] / 1e9:.4f} GB (heads/KV heads/d_ff "
+                  f"{x['local_heads']}), {x['ms_per_generate']:.1f} ms per "
+                  f"generate (B=8, {mn} tokens, eager), launches "
+                  f"{ {k: v for k, v in x['launches'].items() if v} }, "
+                  f"collectives {x['collectives']['all_reduce']} all-reduce "
+                  f"+ {x['collectives']['all_gather']} all-gather, "
+                  f"{x['collectives']['bytes'] / 1e6:.1f} MB, "
+                  f"{x['collectives']['staged_bytes'] / 1e6:.1f} MB staged "
+                  f"through the host; host share {x['host_share']:.3f}, "
+                  f"device share {dev_share:.4f} "
+                  f"({x['profile_collective_ms']:.2f} of "
+                  f"{x['profile_device_ms']:.2f} device ms, a 2-token "
+                  "generate)")
+        print(f"[D1] {arch} on {ranks[0][arch]['mesh']}: tie-aware equal to "
+              f"the single-device engine ({flips} rows diverged at a tie, "
+              f"logits {dlog:.4f} apart, reading {reading:.3f}); sampled "
+              f"seed {D1_SAMPLE_SEED}: {s_flips} rows diverged, logits "
+              f"{s_dlog:.4f} apart, reading {s_reading:.3f}")
+        rep["ranks"][arch] = {"per_rank": [rr[arch] for rr in ranks],
+                              "tie_flips": flips, "tie_reading": reading,
+                              "max_dlogit": dlog, "sampled_flips": s_flips,
+                              "sampled_reading": s_reading,
+                              "sampled_max_dlogit": s_dlog}
+    shutil.rmtree(out_dir, ignore_errors=True)
+    rep["ranks_s"] = t_ranks
+    rep["phase_s"] = time.perf_counter() - t_ph
+    print(f"[D1] two ranks {t_ranks:.1f} s; phase {rep['phase_s']:.1f} s")
+    c.report["mesh"] = rep
+
+
+def phase_d1_gateway(c):
+    """D1 (gateway). Phase 7's tiers and classifier through
+    ``gateway_from_weights(mesh=...)`` on the (1, 1) NCCL mesh, with phase
+    7's router config and its warm-up-then-counted sequence: the same
+    decisions and u, bitwise, rows 1-4 launched and no plain version."""
+    np, torch = c.np, c.torch
+    t_ph = time.perf_counter()
+    mgw, mprobe, mcloud, _ = c.gateway_from_weights(
+        **c.tiers, safety=c.safety, router_cfg=c.gw.router_cfg,
+        mesh=c.mesh11)
+    check(mprobe.mesh is c.mesh11 and mgw.safety_params is not None,
+          "D1 gateway: the tiers are not on the mesh")
+    mgw.answer_batch(c.queries)                      # warm up, as phase 7
+    torch.cuda.synchronize()
+    mgw.reset_fault_state()
+    t0 = time.perf_counter()
+    mlog = c.counted("mesh11 gateway answer_batch", MONO_KERNELS,
+                     lambda: mgw.answer_batch(c.queries),
+                     forbid=("paged_decode_attention",))
+    t_b = time.perf_counter() - t0
+    check(np.array_equal(mlog.decision, c.log.decision)
+          and np.array_equal(mlog.u, c.log.u)
+          and np.array_equal(mlog.answers, c.log.answers),
+          "D1 gateway: decisions, u or answers differ from phase 7's")
+    c.report["mesh"]["gateway"] = {"answer_batch_s": t_b,
+                                   "phase_s": time.perf_counter() - t_ph}
+    print(f"[D1] gateway answer_batch on the (1, 1) mesh: {t_b:.3f} s, "
+          "decisions, u and answers equal phase 7's")
+    del mgw, mprobe, mcloud
+    torch.distributed.destroy_process_group()
 
 
 def step_bytes(eng) -> int:
@@ -1486,7 +1860,7 @@ def main():
         prompts[i, S - len(p):] = p                 # left-padded with PAD=0
     max_new = 32
 
-    PROF_STEPS = 8
+    PROF_STEPS = 4
 
     def decode_rate(eng, pr=None, steps=None):
         """Decode ms/step of ``eng`` on the prompts ``pr`` (phase 4's by
@@ -1916,6 +2290,9 @@ def main():
     phase_f1(ctx)
     # ---- Q1. quantized serving weights -----------------------------------
     phase_q1(ctx)
+    # ---- D1. serving on a (data, model) mesh -----------------------------
+    phase_d1(ctx)
+    mesh11 = ctx.mesh11
     del ctx, paged4g
 
     # ---- 4f. serve() under injected faults, at the probe's full width ---
@@ -2350,6 +2727,12 @@ def main():
         "tier_tie_readings": {k: list(v) for k, v in tier_read.items()},
         "blocks_in_use": in_use}
     del pgw, pgprobe, pgcloud, pmembers
+    # ---- D1 (gateway). phase 7's gateway on the (1, 1) mesh --------------
+    phase_d1_gateway(SimpleNamespace(
+        np=np, torch=torch, gateway_from_weights=gateway_from_weights,
+        tiers=tiers, safety=(scfg, sparams), gw=gw, mesh11=mesh11,
+        queries=queries, counted=counted, log=log, report=report))
+    del mesh11
 
     # ---- 8. the full-sequence forward: kernel vs plain version ---------
     @contextlib.contextmanager
@@ -3722,14 +4105,15 @@ def main():
     serve_mod.train_safety = timed_train(orig_safety, lambda a: "safety")
     try:
         t0 = time.perf_counter()
-        tgw, tprobe, tcloud, tworld = serve_mod.build_gateway(train_steps=400)
+        tgw, tprobe, tcloud, tworld = serve_mod.build_gateway(
+            train_steps=T3_STEPS)
         t_build = time.perf_counter() - t0
     finally:
         serve_mod.train_lm, serve_mod.train_safety = orig_lm, orig_safety
     for name, ls in tier_losses.items():
         check(bool(np.isfinite(ls).all()) and ls[-1] < ls[0],
               f"T3: {name} loss {ls[0]} -> {ls[-1]}")
-    print(f"[T3] build_gateway(train_steps=400): {t_build:.1f} s; "
+    print(f"[T3] build_gateway(train_steps={T3_STEPS}): {t_build:.1f} s; "
           + ", ".join(f"{n} {len(ls)} steps {train_s[n]:.1f} s loss "
                       f"{ls[0]:.3f} -> {ls[-1]:.3f}"
                       for n, ls in tier_losses.items()))

@@ -41,6 +41,9 @@ class SafetyClassifier(T.Transformer):
     head ``head_w`` (D, 1) and ``head_b`` (1,).  ``final_norm`` is kept (the
     JAX tree has it) but, as there, unused."""
 
+    AXES = {**T.Transformer.AXES, "head_w": ("embed", None),
+            "head_b": (None,)}
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__(cfg, device)
         if hasattr(self, "lm_head"):

@@ -8,9 +8,19 @@ tau, and assembles the gateway (``gateway_from_weights``, which also takes
 given weights: converted JAX weights in the tests, published-width random
 weights on the card).  ``main()`` routes the paper's 50-query study
 workload and prints the Table III/IV/V metrics.  Everything runs on the
-card unless the caller passes ``device="cpu"``.
+card unless the caller passes ``device="cpu"`` (``--device cpu``).
+
+``mesh`` (a ``launch.mesh.serving_mesh`` (data, model) mesh) places the
+four tier engines on the mesh, the safety classifier staying off it, as
+the reference does; ``--model-parallel k`` builds one over the ranks:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --train-steps 400
+  PYTHONPATH=src python -m repro_torch.launch.serve --model-parallel 1
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+      --device cpu --model-parallel 2
+
+Under ``torchrun`` every rank runs the gateway on its shards, rank 0's
+trained weights broadcast first, and only rank 0 prints the tables.
 """
 
 from __future__ import annotations
@@ -20,14 +30,16 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import configs as C
 from repro_torch.core import safety as safety_lib
 from repro_torch.core.cost_model import LatencyParams
-from repro_torch.core.router import RouterConfig
+from repro_torch.core.router import DECISION_NAMES, RouterConfig
 from repro_torch.core.uncertainty import UncertaintyConfig
 from repro_torch.data.pipeline import SyntheticLMPipeline, device_put_batch
 from repro_torch.data.workload import FACT_IS, FactWorld
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import transformer as T
 from repro_torch.models.common import (ModelConfig, resolve_device,
                                        use_f32_accumulation)
@@ -138,14 +150,17 @@ def build_gateway(train_steps: int = 150, quorum: int | None = None,
                   router_cfg: RouterConfig | None = None,
                   budget_total: float = 1.0, seed: int = 0,
                   world: FactWorld | None = None, calibrate: bool = True,
-                  engine_kw: dict | None = None, device=None):
+                  engine_kw: dict | None = None, device=None, mesh=None):
     """Train the four tiers and the safety classifier, then construct the
-    three-tier system (``gateway_from_weights``).  Returns (gateway, probe
-    engine, cloud engine, world).
+    three-tier system (``gateway_from_weights``, the tier engines on
+    ``mesh`` when given).  Returns (gateway, probe engine, cloud engine,
+    world).
 
     The probe (the weakest member, the paper's TinyLlama analogue) trains
     3x ``train_steps`` to land near the paper's 0.45-easy edge tier; the
-    cloud FM trains 2.25x with 4 layers and the 2-hop curriculum."""
+    cloud FM trains 2.25x with 4 layers and the 2-hop curriculum.  In a
+    world of several ranks each trains, and rank 0's weights are broadcast,
+    so every rank shards the same models."""
     device = _train_device(device)
     # a compact fact world so the smoke-scale tiers genuinely memorise it
     world = world or FactWorld(n_ent=16, n_rel=6)
@@ -160,10 +175,15 @@ def build_gateway(train_steps: int = 150, quorum: int | None = None,
         "cloud": train_lm("llama3-8b", int(2.25 * train_steps),
                           two_hop=True, seed=seed + 3, num_layers=4, **kw)}
     safety = train_safety(device=device)
+    if mesh is not None:
+        for _, m in (*tiers.values(), safety):
+            for p in m.parameters():
+                sh.broadcast_(p.data)
     return gateway_from_weights(
         **tiers, safety=safety, router_cfg=router_cfg, device=device,
         engine_kw=engine_kw, world=world, sim_cfg=sim_cfg,
-        budget_total=budget_total, quorum=quorum, calibrate=calibrate)
+        budget_total=budget_total, quorum=quorum, calibrate=calibrate,
+        mesh=mesh)
 
 
 def gateway_from_weights(*, probe: tuple, edge_1b: tuple, edge_qwen: tuple,
@@ -173,7 +193,8 @@ def gateway_from_weights(*, probe: tuple, edge_1b: tuple, edge_qwen: tuple,
                          world: FactWorld | None = None,
                          sim_cfg: SimConfig | None = None,
                          budget_total: float = 1.0,
-                         quorum: int | None = None, calibrate: bool = True):
+                         quorum: int | None = None, calibrate: bool = True,
+                         mesh=None):
     """Construct the three-tier system from ``(cfg, weights)`` per tier and
     ``(cfg, classifier)`` for the safety gate.  Returns ``(gateway, probe
     engine, cloud engine, world)`` as the reference does, over ``world``
@@ -185,14 +206,16 @@ def gateway_from_weights(*, probe: tuple, edge_1b: tuple, edge_qwen: tuple,
     ``calibrate_thresholds`` (the default thresholds with ``calibrate``
     False).  ``engine_kw`` goes to every tier's ``InferenceEngine`` (e.g.
     ``dict(paged=True, pool_blocks=1024)``: every tier serves off its own
-    block pool)."""
+    block pool).  ``mesh`` places the four tier engines on a (data, model)
+    mesh (``InferenceEngine(mesh=...)``); the safety classifier stays off
+    it, as in the reference."""
     world = world or FactWorld(n_ent=16, n_rel=6)
     ucfg = UncertaintyConfig(alpha=1.0, mode="distribution")
 
     def engine(name, tier):
         cfg, params = tier
         return InferenceEngine(name, cfg, params, ucfg, device=device,
-                               **(engine_kw or {}))
+                               mesh=mesh, **(engine_kw or {}))
 
     probe_eng = engine("probe-smollm", probe)
     peers = [probe_eng, engine("edge-1b", edge_1b),
@@ -244,6 +267,12 @@ def main(argv=None, device=None):
     ap.add_argument("--train-steps", type=int, default=400)
     ap.add_argument("--quorum", type=int, default=None)
     ap.add_argument("--budget", type=float, default=1.0)
+    ap.add_argument("--model-parallel", type=int, default=0,
+                    help="serve on a (data, model) mesh over the ranks with "
+                         "this much tensor parallelism (0 = single-device "
+                         "engines)")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                    help="where to train and serve (default: the card)")
     ap.add_argument("--paged", action="store_true",
                     help="serve every tier off the paged block-pool cache")
     ap.add_argument("--attn-decode-impl", choices=("kernel", "gather"),
@@ -253,7 +282,15 @@ def main(argv=None, device=None):
                     help="store paged KV blocks quantized with per-row f32 "
                          "scales (implies --paged)")
     args = ap.parse_args(argv)
+    device = args.device or device
 
+    mesh = None
+    if args.model_parallel > 0:
+        from repro_torch.launch.mesh import serving_mesh
+        mesh = serving_mesh(model_parallel=args.model_parallel,
+                            device=device)
+        print(f"[serve] mesh "
+              f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
     engine_kw = {}
     if (args.paged or args.attn_decode_impl is not None
             or args.cache_quant is not None):
@@ -265,14 +302,18 @@ def main(argv=None, device=None):
         engine_kw["cache_quant"] = args.cache_quant
     gw, probe, cloud, world = build_gateway(
         args.train_steps, args.quorum, budget_total=args.budget,
-        engine_kw=engine_kw, device=device)
+        engine_kw=engine_kw, device=device, mesh=mesh)
     queries = world.study_workload()
     log = gw.answer_batch(queries)
     # baselines graded on the SAME answer normalisation as the gateway
     stop = gw.swarm.stop_token
     edge = run_edge_only(queries, probe, gw.sim, stop_token=stop)
     cl = run_cloud_only(queries, cloud, gw.sim, stop_token=stop)
-    print("\n" + tables(edge, cl, log))
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        routes = {n: int((log.decision == c).sum())
+                  for c, n in enumerate(DECISION_NAMES)}
+        print(f"[serve] routes {routes}")
+        print("\n" + tables(edge, cl, log))
     return log, edge, cl
 
 

@@ -40,6 +40,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import row_parallel
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                       paged_decode_attention)
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
@@ -52,6 +53,15 @@ from repro_torch.models.common import (ModelConfig, apply_rope,
 class Attention(nn.Module):
     """Parameters in the JAX layouts: wq (D,H,Dh), wk/wv (D,K,Dh),
     wo (H,Dh,D), zero-centred norm (D,), optional QKV bias."""
+
+    #: each parameter's logical axes, as the reference's ``attn_defs`` tags
+    #: them (``distributed/sharding.py``)
+    AXES = {"norm": ("norm",), "wq": ("embed", "heads", "head_dim"),
+            "wk": ("embed", "kv_heads", "head_dim"),
+            "wv": ("embed", "kv_heads", "head_dim"),
+            "wo": ("heads", "head_dim", "embed"),
+            "bq": ("bias_heads", "head_dim"), "bk": ("kv_heads", "head_dim"),
+            "bv": ("kv_heads", "head_dim")}
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -91,10 +101,11 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ Q.cast(w, x.dtype).reshape(D, H * Dh)).unflatten(-1, (H, Dh))
 
 
-def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """einsum('bshk,hkd->bsd') as one matmul."""
-    H, Dh, D = wo.shape
-    return out.flatten(-2) @ Q.cast(wo, out.dtype).reshape(H * Dh, D)
+def _attn_out(p: Attention, out: torch.Tensor) -> torch.Tensor:
+    """The output projection, einsum('bshk,hkd->bsd') as one matmul;
+    row-parallel on a mesh, where it is summed over the axes the heads were
+    cut over (``shard_params``)."""
+    return row_parallel(p, out.flatten(-2), p.wo)
 
 
 def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
@@ -232,7 +243,7 @@ def _attn_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig,
             kv_block=cfg.attn_kv_block)
     else:
         out = flash_attention(q, k, v, causal=cfg.causal, window=window)
-    return x + _out_proj(out, p.wo), k, v
+    return x + _attn_out(p, out), k, v
 
 
 def attn_block(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
@@ -277,7 +288,7 @@ def attn_prefill(p: Attention, x: torch.Tensor, cache: KVCache,
         q, cache.k, cache.v, q_positions=positions[0].contiguous(),
         kv_positions=cache.pos[0].contiguous(), causal=cfg.causal,
         window=cfg.window if local else None)
-    return x + _out_proj(out, p.wo), cache
+    return x + _attn_out(p, out), cache
 
 
 def _write_slot(t: torch.Tensor, b: torch.Tensor, slot: torch.Tensor,
@@ -314,7 +325,7 @@ def attn_decode(p: Attention, x: torch.Tensor, cache: KVCache,
                            cache.pos, index,
                            window=cfg.window if ring else None)
     out = out.reshape(B, 1, cfg.num_heads, Dh).to(x.dtype)
-    return x + _out_proj(out, p.wo), cache
+    return x + _attn_out(p, out), cache
 
 
 # ---------------------------------------------------------------------------
@@ -522,4 +533,4 @@ def attn_decode_paged(p: Attention, x: torch.Tensor, pool: KVPool,
         v_scale=sv.v_scale, delta_k=delta.k, delta_v=delta.v,
         delta_pos=delta.pos, p0=p0)
     out = out.reshape(B, 1, cfg.num_heads, Dh).to(x.dtype)
-    return x + _out_proj(out, p.wo), delta
+    return x + _attn_out(p, out), delta

@@ -8,6 +8,7 @@ place of ``jnp`` ones.  Parameters live in ``nn.Module``s
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any
 
@@ -172,6 +173,18 @@ def frozen_zeros(*shape: int, dtype, device=None) -> nn.Parameter:
     (``training/train.py::value_and_grad``)."""
     return nn.Parameter(torch.zeros(shape, dtype=dtype, device=device),
                         requires_grad=False)
+
+
+def shallow_copy(m: nn.Module) -> nn.Module:
+    """A copy of the module tree that shares every tensor and owns its own
+    parameter, buffer and child tables, so replacing an entry leaves ``m``
+    as it was (``quant.quantize_params``, ``transformer.shard_params``)."""
+    new = copy.copy(m)
+    new._parameters = dict(m._parameters)
+    new._buffers = dict(m._buffers)
+    new._modules = {k: None if c is None else shallow_copy(c)
+                    for k, c in m._modules.items()}
+    return new
 
 
 def resolve_device(device, what: str) -> torch.device:

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import row_parallel
 from repro_torch.models import quant as Q
 from repro_torch.models.common import (ACTIVATIONS, ModelConfig,
                                        frozen_zeros, rmsnorm)
@@ -15,6 +16,11 @@ class MLP(nn.Module):
     w_down (F,D), and the block's ``norm`` unless ``norm=False`` (an MoE's
     shared expert shares the MoE block's norm).  ``d_ff`` defaults to
     ``cfg.d_ff``."""
+
+    #: each parameter's logical axes, as the reference's ``mlp_defs`` tags
+    #: them (``distributed/sharding.py``)
+    AXES = {"norm": ("norm",), "w_up": ("embed", "ffn"),
+            "w_gate": ("embed", "ffn"), "w_down": ("ffn", "embed")}
 
     def __init__(self, cfg: ModelConfig, d_ff: int | None = None,
                  norm: bool = True, device=None):
@@ -45,4 +51,5 @@ def mlp_body(p: MLP, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         up = act(h @ Q.cast(p.w_gate, h.dtype)) * up
     else:
         up = act(up)
-    return up @ Q.cast(p.w_down, h.dtype)
+    # row-parallel on a mesh: summed over the axes d_ff was cut over
+    return row_parallel(p, up, p.w_down)

@@ -56,6 +56,13 @@ class MoE(nn.Module):
     ``ffn.MLP`` of ``num_shared_experts * expert_d_ff`` with no norm of its
     own (it shares this block's)."""
 
+    #: each parameter's logical axes, as the reference's ``moe_defs`` tags
+    #: them (``distributed/sharding.py``; ``shared`` is an ``ffn.MLP``)
+    AXES = {"norm": ("norm",), "router": ("embed", "experts"),
+            "w_gate": ("experts", "embed", "expert_ffn"),
+            "w_up": ("experts", "embed", "expert_ffn"),
+            "w_down": ("experts", "expert_ffn", "embed")}
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         D, E, Fe = cfg.d_model, cfg.num_experts, cfg.expert_d_ff

@@ -25,10 +25,10 @@ scale gives zeros, so a reset block and a quantized scatter of zeros agree.
 
 from __future__ import annotations
 
-import copy
-
 import torch
 from torch import nn
+
+from repro_torch.models.common import shallow_copy
 
 # largest magnitude per storage format: int8 symmetric (+-127, -128 unused),
 # float8 e4m3fn (+-448, the largest normal)
@@ -164,18 +164,6 @@ _QUANT_KEYS = frozenset({
 })
 
 
-def _shallow(m: nn.Module) -> nn.Module:
-    """A copy of the module tree that shares every tensor and owns its own
-    parameter, buffer and child tables, so replacing an entry leaves ``m``
-    as it was."""
-    new = copy.copy(m)
-    new._parameters = dict(m._parameters)
-    new._buffers = dict(m._buffers)
-    new._modules = {k: None if c is None else _shallow(c)
-                    for k, c in m._modules.items()}
-    return new
-
-
 def quantize_params(model: nn.Module, quant: str) -> nn.Module:
     """A new model whose parameters named in ``_QUANT_KEYS``, wherever they
     sit in the tree (a hybrid's local-attention projections, an MoE's
@@ -185,7 +173,7 @@ def quantize_params(model: nn.Module, quant: str) -> nn.Module:
     check_quant(quant)
     if quant is None:
         raise ValueError("quantize_params needs 'int8' or 'fp8'")
-    out = _shallow(model)
+    out = shallow_copy(model)
     for mod in out.modules():
         if isinstance(mod, QTensor):
             continue
@@ -201,7 +189,7 @@ def dequantize_params(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     parameter of its dequantized values in ``dtype`` (what every matmul of
     the quantized model multiplies by), the other tensors shared: the
     quantized model's unquantized twin."""
-    out = _shallow(model)
+    out = shallow_copy(model)
     for mod in out.modules():
         for name in [n for n, c in mod._modules.items()
                      if isinstance(c, QTensor)]:

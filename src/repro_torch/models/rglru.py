@@ -35,6 +35,15 @@ class RGLRU(nn.Module):
     conv_w (Wc,W), conv_b, wa/wx (W,W), ba/bx (W,), w_out (W,D), norm (D,)
     in the model dtype; lam (W,) in f32."""
 
+    #: each parameter's logical axes, as the reference's ``rglru_defs``
+    #: tags them (``distributed/sharding.py``)
+    AXES = {"norm": ("norm",), "w_in": ("embed", "ssm_inner"),
+            "w_branch": ("embed", "ssm_inner"),
+            "conv_w": ("conv_width", "ssm_inner"), "conv_b": ("ssm_inner",),
+            "wa": ("embed", "ssm_inner"), "ba": ("ssm_inner",),
+            "wx": ("embed", "ssm_inner"), "bx": ("ssm_inner",),
+            "lam": ("ssm_inner",), "w_out": ("ssm_inner", "embed")}
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         D, W = cfg.d_model, cfg.rnn_width or cfg.d_model

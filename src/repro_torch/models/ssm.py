@@ -50,6 +50,13 @@ class SSD(nn.Module):
     conv_w (W, conv_dim), conv_b, gnorm (d_inner,), out_proj (d_inner, D),
     norm (D,) in the model dtype; A_log, dt_bias, D_skip (H,) in f32."""
 
+    #: each parameter's logical axes, as the reference's ``ssd_defs`` tags
+    #: them (``distributed/sharding.py``)
+    AXES = {"norm": ("norm",), "in_proj": ("embed", "ssm_inner"),
+            "conv_w": ("conv_width", "ssm_inner"), "conv_b": ("ssm_inner",),
+            "A_log": ("heads",), "dt_bias": ("heads",), "D_skip": ("heads",),
+            "gnorm": ("ssm_inner",), "out_proj": ("ssm_inner", "embed")}
+
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
         d_inner, H, P, G, N, conv_dim, d_in_proj = _dims(cfg)

@@ -28,6 +28,14 @@ Parameters are created without ``requires_grad``; a training step turns it
 on for the step's own backward only (``training/train.py::value_and_grad``),
 so the weights it hands to serving are frozen as before.
 
+On a mesh a rank holds the shard ``shard_params`` cut for it: each module
+whose contraction was cut (attention's heads, the MLP's d_ff) carries a
+``sharding.Split`` as ``.tp`` and sums its row-parallel product over the
+mesh axes, and a model whose vocabulary was cut looks its tokens up
+vocabulary-parallel and gathers its logits (``_embed``, ``_logits``).
+Without a ``.tp`` nothing crosses a mesh: a (1, 1) mesh, and every model
+off a mesh, computes as one device does.
+
 The paged block pool (``serving/cache_manager.py`` owns the allocator) is
 a list with one entry per layer: an ``attention.KVPool`` of KV blocks for
 an attention layer, or the layer's state type holding ``n_rows`` state
@@ -43,12 +51,16 @@ hold their addresses.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch import nn
 
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import attention, ffn, moe, rglru, ssm
 from repro_torch.models import quant as Q
-from repro_torch.models.common import ModelConfig, frozen_zeros, rmsnorm
+from repro_torch.models.common import (ModelConfig, frozen_zeros, rmsnorm,
+                                       shallow_copy)
 
 ATTN = ("attn", "attn_local")
 STATE_TYPES = (rglru.RGLRUState, ssm.SSMState)
@@ -75,7 +87,13 @@ class Block(nn.Module):
 
 class Transformer(nn.Module):
     """Zero-filled parameters; fill them with ``init_params`` or
-    ``convert.from_jax_params``."""
+    ``convert.from_jax_params``.  A rank's shard on a mesh comes from
+    ``shard_params``."""
+
+    #: each parameter's logical axes, as the reference's ``model_defs``
+    #: tags them (``distributed/sharding.py``)
+    AXES = {"embed": ("vocab", "embed"), "final_norm": ("norm",),
+            "lm_head": ("embed", "vocab")}
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -202,14 +220,35 @@ def embed_inputs(params: Transformer, cfg: ModelConfig,
     if "frontend_embeds" in batch:
         parts.append(batch["frontend_embeds"].to(cfg.comp_dtype))
     if batch.get("tokens") is not None:
-        parts.append(params.embed[batch["tokens"].long()].to(cfg.comp_dtype))
+        parts.append(_embed(params, batch["tokens"]).to(cfg.comp_dtype))
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
+
+
+def _embed(params: Transformer, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens``.  Vocabulary-parallel on a mesh
+    (``shard_params``): a rank holds rows [start, start + size), looks up
+    the tokens in its range and writes zeros for the rest, and the rows are
+    summed over the axes the vocabulary was cut over.  Exactly one rank
+    adds a nonzero row, so the sum is exact."""
+    tokens = tokens.long()
+    tp = getattr(params, "tp", None)
+    if tp is None:
+        return params.embed[tokens]
+    local = tokens - tp.start
+    mine = (local >= 0) & (local < tp.size)
+    rows = params.embed[local.clamp(0, tp.size - 1)]
+    return tp.reduce(rows * mine[..., None].to(rows.dtype))
 
 
 def _logits(params: Transformer, cfg: ModelConfig,
             x: torch.Tensor) -> torch.Tensor:
+    """Final norm and head.  On a vocabulary-parallel shard the logits of
+    the rank's vocabulary range are gathered along the last dim, so
+    sampling and the probe read whole rows."""
     x = rmsnorm(x, params.final_norm, cfg.norm_eps)
-    return x @ Q.cast(params.head(), x.dtype)
+    out = x @ Q.cast(params.head(), x.dtype)
+    tp = getattr(params, "tp", None)
+    return out if tp is None else tp.gather(out, -1)
 
 
 def _ffn(layer: Block, x: torch.Tensor, cfg: ModelConfig,
@@ -298,8 +337,9 @@ def loss_fn(params: Transformer, cfg: ModelConfig, batch: dict, *,
 
 def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
             cache: list, positions: torch.Tensor, *,
-            continuation: bool = False,
-            check: bool = True) -> tuple[torch.Tensor, list]:
+            continuation: bool = False, check: bool = True,
+            logits_at: torch.Tensor | None = None
+            ) -> tuple[torch.Tensor, list]:
     """Absorb a whole span in one pass, filling every layer cache in place.
 
     tokens (B,S); positions (B,S) int32 absolute positions (negative = inert
@@ -312,7 +352,10 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     check per call, not per layer; ``check=False`` skips it for a caller
     that checked already: the check reads the positions on the host, which
     a captured prefill cannot do); attention then reads the whole cache.
-    Returns (logits (B,S,V), cache)."""
+    Returns (logits (B,S,V), cache); with ``logits_at`` (k,) int, the logits
+    of those columns only (B,k,V): the head multiplies k columns, not all
+    S (the engine's prefill reads its last one), and a vocabulary-parallel
+    shard gathers those only."""
     if continuation and check:
         check_positions(positions)
     x = embed_inputs(params, cfg, {"tokens": tokens})
@@ -326,6 +369,8 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
             x, _ = fn(layer.mixer, x, c, positions, cfg,
                       continuation=continuation)
         x = _ffn(layer, x, cfg, positions)
+    if logits_at is not None:
+        x = x.index_select(1, logits_at)
     return _logits(params, cfg, x), cache
 
 
@@ -585,3 +630,159 @@ def paged_scatter_decode(cfg: ModelConfig, cache: dict, delta: list,
         attention.paged_scatter_delta(
             pool, layer_table(cfg, cache, mixer), d, p0, window=win)
     return cache["layers"]
+
+
+# ---------------------------------------------------------------------------
+# Mesh placement
+# ---------------------------------------------------------------------------
+
+def param_axes(model: nn.Module) -> dict[str, tuple]:
+    """{parameter name: its logical axes}: the reference's ``param_axes``
+    under the port's names, read from each module class's ``AXES`` table
+    (what ``ParamDef.axes`` carries there).  The reference stacks repeated
+    layers under a leading "layers" axis, which no rule shards; the port's
+    layers are separate modules."""
+    out = {}
+    for mname, mod in model.named_modules():
+        for pname, _ in mod.named_parameters(recurse=False):
+            out[f"{mname}.{pname}" if mname else pname] = \
+                type(mod).AXES[pname]
+    return out
+
+
+def cache_axes(cfg: ModelConfig) -> list:
+    """The logical axes of ``init_cache``'s tensors, entry for entry (the
+    reference's ``cache_axes`` without the repeat axis)."""
+    kv = attention.KVCache(
+        k=("act_batch", "act_kv_seq", "act_kv_heads", None),
+        v=("act_batch", "act_kv_seq", "act_kv_heads", None),
+        pos=("act_batch", "act_kv_seq"))
+    rg = rglru.RGLRUState(h=("act_batch", "act_ssm_inner"),
+                          conv=("act_batch", None, "act_ssm_inner"))
+    sd = ssm.SSMState(ssd=("act_batch", "act_heads", None, None),
+                      conv=("act_batch", None, "act_ssm_inner"))
+    return [kv if mixer in ATTN else rg if mixer == "rglru" else sd
+            for mixer, _ in cfg.layer_plan()]
+
+
+#: the logical axes a rank's shard may cut: the tensor-parallel ones, whose
+#: products the model sums (row-parallel) or gathers (the vocabulary)
+_TP_AXES = ("vocab", "heads", "bias_heads", "kv_heads", "ffn")
+
+
+def shard_params(model: Transformer, cfg: ModelConfig, mesh, comm=None,
+                 rules=sh.SERVE_RULES) -> Transformer:
+    """This rank's shard of ``model`` on ``mesh``: a new model (``model`` is
+    not changed) holding each parameter cut as ``sharding.spec_for`` under
+    ``rules`` places it, and a ``cfg`` with the rank's ``num_heads``,
+    ``num_kv_heads`` and ``d_ff`` (the vocabulary stays whole: the logits
+    are gathered).  ``SERVE_RULES`` puts the heads, KV heads, QKV biases,
+    d_ff and vocabulary over 'model' and replicates the rest; a tensor the
+    spec does not cut is shared with ``model``, so a (1, 1) mesh copies
+    nothing.  Rules that cut any other dim (``DEFAULT_RULES`` and
+    ``SP_RULES`` put d_model over 'data': FSDP) raise
+    ``NotImplementedError``.
+
+    Attention takes one of three placements, by the size m of the axes the
+    heads go over:
+
+    (a) m divides H and K: heads and KV heads are split, each rank's G
+        unchanged;
+    (b) K divides m and m divides H: each rank holds its H/m query heads
+        and the one KV head they read (its wk/wv columns and biases, as
+        Megatron-LM places them), where the rules replicate the KV heads;
+        the cache is held by heads;
+    (c) m divides neither: attention runs whole on every rank, and only the
+        MLP and the vocabulary are split.
+
+    Any other shape raises ``NotImplementedError``: the reference serves it
+    from a sequence-sharded cache (``act_kv_seq``), which needs the decode
+    kernels to return each row's log-sum-exp.
+
+    Each module whose contraction was cut gets a ``sharding.Split`` as
+    ``.tp`` (attention: wo's heads; the MLP: w_down's d_ff), and the model
+    one when its vocabulary was cut; ``comm`` (a ``sharding.Comm`` of the
+    mesh, made when None) runs their collectives."""
+    sh.check_mesh(mesh)
+    for mixer, f in cfg.layer_plan():
+        if mixer not in ATTN or f != "mlp":
+            raise NotImplementedError(
+                f"{cfg.name}: a ({mixer}, {f}) layer on a mesh is not "
+                "ported yet (the recurrent mixers' 'ssm_inner' and MoE's "
+                "expert parallelism); dense attention + MLP layers are")
+    comm = comm or sh.Comm(mesh)
+    axes = param_axes(model)
+    named = dict(model.named_parameters())
+    specs = {n: sh.spec_for(p.shape, axes[n], mesh, rules.param_rules)
+             for n, p in named.items()}
+    for n, spec in specs.items():
+        for d, part in enumerate(spec):
+            if part is not None and axes[n][d] not in _TP_AXES:
+                raise NotImplementedError(
+                    f"{n}: its {axes[n][d]!r} dim over {part!r} (an FSDP "
+                    "placement) is not ported; serve with SERVE_RULES, whose "
+                    "weights are replicated but for the tensor-parallel dims")
+
+    def part(name: str, dim: int):
+        spec = specs[name]
+        return spec[dim] if dim < len(spec) else None
+
+    def split(p, size: int) -> sh.Split:
+        idx, _ = sh.shard_index(p, mesh)
+        return sh.Split(comm, sh.axes_of(p), idx * size, size)
+
+    new = shallow_copy(model)
+    mods = dict(new.named_modules())
+    with torch.no_grad():
+        for name, p in named.items():
+            mname, _, leaf = name.rpartition(".")
+            t = sh.shard(p, specs[name], mesh)
+            if t is not p:
+                mods[mname]._parameters[leaf] = nn.Parameter(
+                    t, requires_grad=False)
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    H_l, K_l, F_l = H, K, cfg.d_ff
+    for i, layer in enumerate(new.layers):
+        pre = f"layers.{i}."
+        hp, kp = part(pre + "mixer.wq", 1), part(pre + "mixer.wk", 1)
+        _, m = sh.shard_index(hp, mesh)
+        if m > 1:
+            att = layer.mixer
+            H_l = H // m
+            if kp == hp:                                   # (a)
+                K_l = K // m
+            elif kp is None and m % K == 0:                # (b)
+                r, _ = sh.shard_index(hp, mesh)
+                kv = r * H_l // (H // K)
+                K_l = 1
+                with torch.no_grad():
+                    for leaf, dim in (("wk", 1), ("wv", 1), ("bk", 0),
+                                      ("bv", 0)):
+                        w = named.get(pre + "mixer." + leaf)
+                        if w is not None:
+                            att._parameters[leaf] = nn.Parameter(
+                                w.narrow(dim, kv, 1).clone(
+                                    memory_format=torch.contiguous_format),
+                                requires_grad=False)
+            else:
+                raise NotImplementedError(
+                    f"{cfg.name}: {H} heads on {K} KV heads over a "
+                    f"{m}-way model axis need the sequence-sharded KV "
+                    "cache (the reference's act_kv_seq fallback), which is "
+                    "not ported: rows 2 and 5 would have to return each "
+                    "row's log-sum-exp for a merge over 'model'")
+            att.tp = split(hp, H_l)
+        fp = part(pre + "ffn.w_up", 1)
+        _, n = sh.shard_index(fp, mesh)
+        if n > 1:
+            F_l = cfg.d_ff // n
+            layer.ffn.tp = split(fp, F_l)
+    # a cut over axes of size 1 cuts nothing: no Split, so nothing crosses
+    # the mesh and the (1, 1) mesh computes as one device does
+    vp = part("embed", 0)
+    _, n = sh.shard_index(vp, mesh)
+    if n > 1:
+        new.tp = split(vp, cfg.vocab_size // n)
+    new.cfg = dataclasses.replace(cfg, num_heads=H_l, num_kv_heads=K_l,
+                                  d_ff=F_l)
+    return new

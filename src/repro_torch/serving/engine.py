@@ -49,7 +49,24 @@ tokens at real positions, as in the reference.
 
 The engine runs on CUDA unless the caller passes ``device="cpu"``; with
 ``device=None`` and no card it raises instead of running on the CPU.
-Meshes are not ported yet and raise ``NotImplementedError``.
+
+**Meshes.**  ``mesh`` (a ``launch.mesh.serving_mesh`` (data, model)
+``DeviceMesh``) serves a dense attention model SPMD, one engine per rank:
+``transformer.shard_params`` places the weights as
+``sharding.SERVE_RULES`` does (heads, KV heads, d_ff and the vocabulary
+over 'model', the rest replicated), and the model sums its row-parallel
+products and gathers its vocabulary over 'model' (``distributed/
+sharding.py``).  A batch of B is split over 'data' when the data axes
+divide B and replicated otherwise (``serve()``'s batch-1 admissions
+replicate); tokens, logits, the probe terms and a session's ``pos`` /
+``cur`` / ``last`` are gathered, so every rank and the caller see the
+whole result, while a ``SessionState``'s cache holds the rank's own rows
+(``state_select`` gathers the rows it picks and re-splits them).  On the
+(1, 1) mesh no collective is issued and the engine is the single-device
+one, CUDA graphs included; on a mesh of more than one rank it runs the
+eager route (``counters["mesh_eager"]`` counts those dispatches).  Paged
+pools, quantized weights or pools, recurrent and MoE mixers and session
+checkpoints on a mesh raise ``NotImplementedError``.
 ``weight_quant`` (``"int8"`` / ``"fp8"``, monolithic or paged) serves from
 ``quant.quantize_params``'s copy of the model: the attention, MLP and
 expert matmul weights and an untied head stored per-row quantized and
@@ -74,13 +91,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Sequence
+from typing import Any, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
 from repro_torch.core import uncertainty as U
 from repro_torch.core.uncertainty import UncertaintyConfig
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import quant as Q
 from repro_torch.models import transformer as T
 from repro_torch.models.common import (ModelConfig, resolve_device,
@@ -167,6 +185,15 @@ def _fork(gen: torch.Generator | None) -> torch.Generator | None:
     return out
 
 
+class _RankDraw(NamedTuple):
+    """A sampled stream on a mesh whose batch axes split its batch: every
+    rank draws the noise of the whole ``batch`` from ``gen`` and keeps its
+    own rows (``InferenceEngine._next``), so a seed gives the stream one
+    device gives, on any layout."""
+    gen: torch.Generator
+    batch: int
+
+
 def _cache_tree(cache: list) -> dict:
     """A per-layer cache list as the checkpoint's nested dict {layer:
     {field: tensor}}, sharing the tensors (restore fills them in place)."""
@@ -195,7 +222,8 @@ class InferenceEngine:
     per-row f32 scales.  ``weight_quant`` (``"int8"`` / ``"fp8"``) serves
     from a copy of ``params`` whose matmul weights are ``quant.QTensor``s
     (``quant.quantize_params``, after the move to ``device``); ``params``
-    itself is not changed."""
+    itself is not changed.  ``mesh``: serving on a mesh (module
+    docstring); ``comm`` then counts the mesh's collectives."""
     name: str
     cfg: ModelConfig
     params: Any
@@ -214,7 +242,7 @@ class InferenceEngine:
 
     def __post_init__(self):
         if self.mesh is not None:
-            raise _not_ported("mesh-sharded serving")
+            self._refuse_on_mesh()
         if not self.cfg.causal:
             raise NotImplementedError(
                 f"{self.cfg.name}: an encoder-only config (causal=False) has "
@@ -228,6 +256,12 @@ class InferenceEngine:
         # the same bodies eagerly, the oracle
         self._graphs = (graphs.DecodeGraphs(graphs.CudaGraphs(self.device))
                         if self.device.type == "cuda" else None)
+        # a mesh of more than one rank runs the eager route: gloo cannot be
+        # captured, and a multi-card NCCL capture is unchecked
+        self._multi_rank = (self.mesh is not None and math.prod(
+            sh.axis_sizes(self.mesh).values()) > 1)
+        if self._multi_rank:
+            self._graphs = None
         # host-side dispatch accounting: cold prefills, warm continuation
         # prefills and decode-only resumes (the gateway tests assert the
         # swarm round adds no probe prefill), whole-cache growth copies
@@ -239,7 +273,16 @@ class InferenceEngine:
                          "decode_only": 0, "grow_copy": 0,
                          "famine_deferred": 0, "shed": 0, "expired": 0,
                          "requeued": 0, "reprefill_cold": 0,
-                         "backpressure_deferred": 0}
+                         "backpressure_deferred": 0, "mesh_eager": 0}
+        # ``_mcfg``: the config the model computes with, a rank's own heads
+        # and d_ff on a mesh (``transformer.shard_params``); ``comm`` runs
+        # the mesh's collectives and counts them
+        self._mcfg, self.comm = self.cfg, None
+        if self.mesh is not None:
+            self.comm = sh.Comm(self.mesh)
+            self.params = T.shard_params(self.params, self.cfg, self.mesh,
+                                         comm=self.comm)
+            self._mcfg = self.params.cfg
         self.params = self.params.to(self.device)
         Q.check_quant(self.weight_quant)
         if self.weight_quant is not None:
@@ -278,6 +321,20 @@ class InferenceEngine:
                               cache_quant=self.cache_quant,
                               device=self.device)
 
+    def _refuse_on_mesh(self):
+        """What the mesh path does not serve yet raises (ROADMAP A8b)."""
+        sh.check_mesh(self.mesh)
+        missing = []
+        if self.paged:
+            missing.append("the paged block pool over 'data' (act_pool)")
+        if self.cache_quant is not None or self.weight_quant is not None:
+            missing.append("quantized weights and pools "
+                           "(quantize_param_axes)")
+        if missing:
+            raise NotImplementedError(
+                f"{' and '.join(missing)} on a mesh: not ported to the "
+                "PyTorch engine yet")
+
     def weight_bytes(self) -> int:
         """Bytes the served model's weights hold on the device: parameters
         and buffers (a ``QTensor``'s payload and scales), each once."""
@@ -314,7 +371,8 @@ class InferenceEngine:
             return state.cache, state.max_len
         new_len = self._round_len(need)
         self.counters["grow_copy"] += 1
-        return (T.grow_cache(self.cfg, state.cache, state.batch, new_len,
+        rows = len(range(state.batch)[self._rows(state.batch)])
+        return (T.grow_cache(self._mcfg, state.cache, rows, new_len,
                              device=self.device), new_len)
 
     def _bucket(self, prompts: np.ndarray) -> tuple[np.ndarray, int]:
@@ -355,6 +413,54 @@ class InferenceEngine:
         return torch.full((B,), value, dtype=torch.int32, device=self.device)
 
     # ------------------------------------------------------------------
+    # the batch over the mesh's 'data' axes
+    # ------------------------------------------------------------------
+
+    def _batch_part(self, B: int):
+        """The spec entry of a batch of B over the mesh (``act_batch``):
+        its batch axes when they divide B, else None (replicated)."""
+        spec = sh.spec_for((B,), ("act_batch",), self.mesh,
+                           sh.SERVE_RULES.act_rules)
+        return spec[0] if spec else None
+
+    def _rows(self, B: int) -> slice:
+        """This rank's rows of a batch of B: its shard over the batch axes,
+        or every row where the batch is replicated (as ``act_batch``'s chain
+        falls back) and off a mesh."""
+        if self.mesh is None:
+            return slice(None)
+        return sh.local_slices((B,), (self._batch_part(B),), self.mesh)[0]
+
+    def _mine(self, x):
+        """This rank's rows of ``x``, a batch along dim 0 that every rank
+        holds whole."""
+        return sh.constrain(x, ("act_batch",) + (None,) * (x.ndim - 1),
+                            self.mesh, sh.SERVE_RULES)
+
+    def _whole(self, xs, B: int):
+        """The whole batch of per-rank tensors (this rank's rows of a batch
+        of B each, or None): gathered over the batch axes in rank order, so
+        every rank and the caller see every row."""
+        if self.mesh is None:
+            return xs
+        part = self._batch_part(B)
+        out = [None if x is None else self.comm.all_gather(x, part, 0)
+               for x in xs]
+        return type(xs)(*out) if hasattr(xs, "_fields") else type(xs)(out)
+
+    def _slot_cache(self, cache: list, i: int, n: int) -> list:
+        """Slot ``i`` of a ``serve()`` cache over ``n`` slots as a batch-1
+        cache of its own that every rank holds (on a mesh whose batch axes
+        split the slots, the owner's row, gathered)."""
+        mine = range(n)[self._rows(n)]
+        if len(mine) == n:
+            return [type(c)(*(t[i:i + 1].clone() for t in c)) for c in cache]
+        j = i - mine.start if i in mine else 0
+        owner = i // len(mine)
+        return [type(c)(*(t[owner:owner + 1] for t in self._whole(
+            type(c)(*(t[j:j + 1] for t in c)), n))) for c in cache]
+
+    # ------------------------------------------------------------------
     # prefill and decode bodies
     # ------------------------------------------------------------------
 
@@ -368,11 +474,14 @@ class InferenceEngine:
         # columns left of the caller's prompt get negative positions (inert)
         positions = (torch.arange(S, dtype=torch.int32, device=tokens.device)
                      - (S - s_orig)).expand(B, S)
-        logits, cache = T.prefill(self.params, self.cfg, tokens, cache,
-                                  positions)
+        # the head runs on the last column only (a vocabulary-parallel
+        # shard gathers that column's logits only)
+        at = torch.arange(S - 1, S, device=tokens.device)
+        logits, cache = T.prefill(self.params, self._mcfg, tokens, cache,
+                                  positions, logits_at=at)
         # contiguous: in an f32 model ``.float()`` is the strided view,
         # and the uncertainty kernel takes contiguous rows
-        last = logits[:, -1].float().contiguous()
+        last = logits[:, 0].float().contiguous()
         return last.argmax(-1).to(torch.int32), last, cache
 
     def _prefill_absorb(self, tokens, s_orig, max_len: int):
@@ -380,7 +489,7 @@ class InferenceEngine:
         as tensors, or as a numpy array and an int."""
         if not isinstance(tokens, torch.Tensor):
             tokens, s_orig = self._span(tokens, s_orig)
-        cache = T.init_cache(self.cfg, tokens.shape[0], max_len,
+        cache = T.init_cache(self._mcfg, tokens.shape[0], max_len,
                              device=tokens.device)
         return self._prefill_into(tokens, s_orig, cache)
 
@@ -394,11 +503,12 @@ class InferenceEngine:
         B, S = tokens.shape
         col = torch.arange(S, dtype=torch.int32, device=tokens.device)[None]
         positions = torch.where(col < s_orig, start[:, None] + col, col - S)
-        logits, cache = T.prefill(self.params, self.cfg, tokens, cache,
+        at = (s_orig - 1).long()
+        logits, cache = T.prefill(self.params, self._mcfg, tokens, cache,
                                   positions.to(torch.int32),
-                                  continuation=True, check=False)
-        last = logits.index_select(1, (s_orig - 1).long())[:, 0]
-        last = last.float().contiguous()
+                                  continuation=True, check=False,
+                                  logits_at=at)
+        last = logits[:, 0].float().contiguous()
         return last.argmax(-1).to(torch.int32), last, cache
 
     def _next(self, lg: torch.Tensor, greedy: bool,
@@ -409,7 +519,11 @@ class InferenceEngine:
         # probabilities, the same numbers), without its validity check: a
         # host sync, which a captured dispatch cannot hold
         probs = torch.softmax(lg, dim=-1)
-        q = torch.empty_like(probs).exponential_(1, generator=gen)
+        if isinstance(gen, _RankDraw):
+            q = probs.new_empty((gen.batch, probs.shape[-1])).exponential_(
+                1, generator=gen.gen)[self._rows(gen.batch)]
+        else:
+            q = torch.empty_like(probs).exponential_(1, generator=gen)
         return (probs / q).argmax(-1).to(torch.int32)
 
     def _decode(self, cur, last, pos, steps: int, greedy: bool, gen, step,
@@ -440,7 +554,7 @@ class InferenceEngine:
                    with_logits=True):
         """Decode over a monolithic cache (or a gathered view), in place."""
         def step(tokens, index, t):
-            return T.decode_step(self.params, self.cfg, tokens, cache,
+            return T.decode_step(self.params, self._mcfg, tokens, cache,
                                  index)[0]
         return self._decode(cur, last, pos, steps, greedy, gen, step,
                             with_logits)
@@ -469,6 +583,7 @@ class InferenceEngine:
         body = _BODIES[route]
         gen = None if greedy else gen
         if self._graphs is None:
+            self.counters["mesh_eager"] += self._multi_rank
             return body(self, cur, last, cache, pos, steps, greedy, gen,
                         with_logits)
         inputs = {"cur": cur, "last": last, "pos": pos}
@@ -503,6 +618,13 @@ class InferenceEngine:
             return None
         return torch.Generator(device=self.device).manual_seed(seed)
 
+    def _draw(self, gen: torch.Generator | None, B: int):
+        """``gen`` as a dispatch over a batch of B draws from it: a
+        ``_RankDraw`` where the mesh's batch axes split B, else ``gen``."""
+        if gen is None or len(range(B)[self._rows(B)]) == B:
+            return gen
+        return _RankDraw(gen, B)
+
     # ------------------------------------------------------------------
     # paged dispatches
     # ------------------------------------------------------------------
@@ -533,9 +655,9 @@ class InferenceEngine:
         """Paged cold prefill: gather -> ``_prefill_into`` -> write blocks
         [0, s_orig) back."""
         B = tokens.shape[0]
-        lin = T.paged_gather(self.cfg, cache)
+        lin = T.paged_gather(self._mcfg, cache)
         cur, last, lin = self._prefill_into(tokens, s_orig, lin)
-        T.paged_scatter_back(self.cfg, cache, lin, self._full(B, 0),
+        T.paged_scatter_back(self._mcfg, cache, lin, self._full(B, 0),
                              s_orig.expand(B))
         return cur, last, cache
 
@@ -543,9 +665,9 @@ class InferenceEngine:
                                 start: torch.Tensor, cache: dict):
         """Paged continuation prefill: gather -> ``_prefill_continue`` ->
         write blocks [start, start + s_orig) back."""
-        lin = T.paged_gather(self.cfg, cache)
+        lin = T.paged_gather(self._mcfg, cache)
         cur, last, lin = self._prefill_continue(tokens, s_orig, start, lin)
-        T.paged_scatter_back(self.cfg, cache, lin, start, start + s_orig)
+        T.paged_scatter_back(self._mcfg, cache, lin, start, start + s_orig)
         return cur, last, cache
 
     def _kernel_body(self, cur, last, cache: dict, pos, steps: int,
@@ -556,24 +678,24 @@ class InferenceEngine:
         every replay); the delta rows go into the pool once, at the end of
         the dispatch."""
         p0 = pos
-        delta = T.paged_decode_carry(self.cfg, cache, steps)
+        delta = T.paged_decode_carry(self._mcfg, cache, steps)
 
         def step(tokens, index, t):
-            return T.paged_decode_step(self.params, self.cfg, tokens, cache,
+            return T.paged_decode_step(self.params, self._mcfg, tokens, cache,
                                        delta, index, t, p0)[0]
         out = self._decode(cur, last, pos, steps, greedy, gen, step,
                            with_logits)
-        T.paged_scatter_decode(self.cfg, cache, delta, p0)
+        T.paged_scatter_decode(self._mcfg, cache, delta, p0)
         return out
 
     def _gather_body(self, cur, last, cache: dict, pos, steps: int,
                      greedy: bool, gen, with_logits: bool = True):
         """Gather-path paged decode: gather the monolithic view, decode it
         and write blocks [pos, pos + steps) back."""
-        lin = T.paged_gather(self.cfg, cache)
+        lin = T.paged_gather(self._mcfg, cache)
         out = self._mono_body(cur, last, lin, pos, steps, greedy, gen,
                               with_logits)
-        T.paged_scatter_back(self.cfg, cache, lin, pos, pos + steps)
+        T.paged_scatter_back(self._mcfg, cache, lin, pos, pos + steps)
         return out
 
     # ------------------------------------------------------------------
@@ -608,7 +730,7 @@ class InferenceEngine:
         pos = start + s_orig
         if route == "mono":
             if cold:
-                cache = T.init_cache(self.cfg, B, max_len,
+                cache = T.init_cache(self._mcfg, B, max_len,
                                      device=tokens.device)
                 cur, last, cache = self._prefill_into(tokens, s_orig, cache)
             else:
@@ -618,22 +740,22 @@ class InferenceEngine:
                                   gen)
             return _combine(out, self.ucfg), (cache if cold else None)
         if cold:
-            lin = T.init_cache(self.cfg, B, max_len, device=tokens.device)
+            lin = T.init_cache(self._mcfg, B, max_len, device=tokens.device)
             cur, last, lin = self._prefill_into(tokens, s_orig, lin)
             end = torch.full((B,), max_len, dtype=torch.int32,
                              device=tokens.device)
         else:
-            lin = T.paged_gather(self.cfg, cache)
+            lin = T.paged_gather(self._mcfg, cache)
             cur, last, lin = self._prefill_continue(tokens, s_orig, start,
                                                     lin)
             end = pos if route == "kernel" else pos + max_new
         if route == "kernel":
-            T.paged_scatter_back(self.cfg, cache, lin, start, end)
+            T.paged_scatter_back(self._mcfg, cache, lin, start, end)
             out = self._kernel_body(cur, last, cache, pos, max_new, greedy,
                                     gen)
         else:
             out = self._mono_body(cur, last, lin, pos, max_new, greedy, gen)
-            T.paged_scatter_back(self.cfg, cache, lin, start, end)
+            T.paged_scatter_back(self._mcfg, cache, lin, start, end)
         return _combine(out, self.ucfg), None
 
     def _generate_fused(self, prompts: np.ndarray, s_orig: int, start,
@@ -686,6 +808,7 @@ class InferenceEngine:
             return out, (made if keep_cache else None)
 
         if self._graphs is None:
+            self.counters["mesh_eager"] += self._multi_rank
             staged = {n: t.to(self.device) for n, t in inputs.items()}
             return run(staged, list(io), gen)
         kind = "cold" if start is None else "warm"
@@ -736,7 +859,9 @@ class InferenceEngine:
         state rows round-trip bitwise; a local-attention ring that has
         wrapped is clamped to its window view.  ``pos``, ``cur``, ``last``,
         ``max_len``, ``offset``, ``exact``, the engine's ``cache_quant`` and
-        the sampling generator's state go with it."""
+        the sampling generator's state go with it.  Not on a mesh yet
+        (``NotImplementedError``)."""
+        self._refuse_ckpt_on_mesh()
         self._state_kind_check(state)
         if self.paged:
             h = state.cache
@@ -772,6 +897,7 @@ class InferenceEngine:
         (``checkpoint_session``).  Raises ``FileNotFoundError`` without a
         checkpoint, ``ValueError`` for one that is not a session's and
         ``QuantMismatchError`` for another cache representation."""
+        self._refuse_ckpt_on_mesh()
         if step is None:
             step = ck.latest_step(ckpt_dir)
             if step is None:
@@ -795,7 +921,7 @@ class InferenceEngine:
         if self.paged and cov_len % self.block_len:
             raise ValueError(f"a {cov_len}-slot session does not fill whole "
                              f"blocks of {self.block_len}")
-        cache = T.init_cache(self.cfg, B, cov_len, device=self.device)
+        cache = T.init_cache(self._mcfg, B, cov_len, device=self.device)
         like = {"cache": _cache_tree(cache),
                 "pos": self._full(B, 0), "cur": self._full(B, 0),
                 "last": torch.zeros((B, self.cfg.vocab_size),
@@ -822,11 +948,16 @@ class InferenceEngine:
             # bits)
             max_len = int(extra["max_len"])
             if max_len > cov_len:
-                cache = T.grow_cache(self.cfg, cache, B, max_len,
+                cache = T.grow_cache(self._mcfg, cache, B, max_len,
                                      device=self.device)
         return SessionState(cache, tree["pos"], tree["cur"], tree["last"],
                             max_len, int(extra["offset"]), gen,
                             bool(extra["exact"]))
+
+    def _refuse_ckpt_on_mesh(self):
+        if self.mesh is not None:
+            raise _not_ported("a session checkpoint on a mesh (restoring "
+                              "onto another mesh re-shards the cache)")
 
     def _state_kind_check(self, state: SessionState):
         """A paged engine takes only PagedHandle states and a monolithic
@@ -889,6 +1020,7 @@ class InferenceEngine:
             self._check_state(state, extension=False)
         B = prompts.shape[0]
         gen = self._generator(greedy, seed)
+        draw = self._draw(gen, B)
         if state is None:
             pb, s_orig = self._bucket(prompts)
             max_len = self._cache_len(pb.shape[1], max_new)
@@ -900,11 +1032,11 @@ class InferenceEngine:
                 out, _ = self._generate_fused(
                     pb, s_orig, None,
                     self._paged_dev_cache(cache.tables, cache.rows),
-                    max_len, max_new, greedy, gen)
+                    max_len, max_new, greedy, draw)
             else:
                 out, cache = self._generate_fused(
-                    pb, s_orig, None, None, max_len, max_new, greedy, gen,
-                    keep_cache=return_state)
+                    self._mine(pb), s_orig, None, None, max_len, max_new,
+                    greedy, draw, keep_cache=return_state)
             offset = s_orig + max_new
         else:
             if state.batch != B:
@@ -922,10 +1054,11 @@ class InferenceEngine:
             else:
                 cache, max_len = self._grown_cache(state, need)
                 dev = cache
-            out, _ = self._generate_fused(pb, s_orig, state.pos, dev,
-                                          max_len, max_new, greedy, gen)
+            out, _ = self._generate_fused(
+                self._mine(pb), s_orig, self._mine(state.pos), dev,
+                max_len, max_new, greedy, draw)
             offset = state.offset + s_orig + max_new
-        toks, lgs, u, h, v, cur, last, pos = out
+        toks, lgs, u, h, v, cur, last, pos = self._whole(out, B)
         res = {"tokens": toks.cpu().numpy(), "u": u.cpu().numpy(),
                "logits": lgs, "h_mean": h.cpu().numpy(),
                "v_mean": v.cpu().numpy(),
@@ -961,9 +1094,13 @@ class InferenceEngine:
         self.counters["decode_only"] += 1
         gen = state.gen if state.gen is not None else self._generator(
             greedy, seed)
+        B = state.batch
         toks, lgs, h_per, v_per, (cur, last, pos) = self._dispatch(
-            self._route, state.cur, state.last, cache, state.pos, max_new,
-            greedy, gen)
+            self._route, self._mine(state.cur), self._mine(state.last),
+            cache, self._mine(state.pos), max_new, greedy,
+            self._draw(gen, B))
+        toks, lgs, h_per, v_per, cur, last, pos = self._whole(
+            (toks, lgs, h_per, v_per, cur, last, pos), B)
         res = self._result(toks, lgs, h_per, v_per,
                            np.zeros((state.batch,), np.int64))
         offset = state.offset + max_new
@@ -990,7 +1127,7 @@ class InferenceEngine:
             pb, s_orig = self._bucket(prompts)
             max_len = self._cache_len(pb.shape[1], 0)
             self.counters["prefill"] += 1
-            tokens, s_len = self._span(pb, s_orig)
+            tokens, s_len = self._span(self._mine(pb), s_orig)
             if self.paged:
                 cache = self.pool.alloc(B, max_len // self.block_len)
                 cur, last, _ = self._prefill_into_paged(
@@ -1007,7 +1144,7 @@ class InferenceEngine:
             self._state_kind_check(state)
             T.check_positions(state.pos[:, None])
             pb, s_orig = self._bucket_right(prompts)
-            tokens, s_len = self._span(pb, s_orig)
+            tokens, s_len = self._span(self._mine(pb), s_orig)
             need = state.offset + pb.shape[1]
             self.counters["prefill_continue"] += 1
             if self.paged:
@@ -1018,10 +1155,11 @@ class InferenceEngine:
             else:
                 cache, max_len = self._grown_cache(state, need)
                 cur, last, cache = self._prefill_continue(
-                    tokens, s_len, state.pos, cache)
+                    tokens, s_len, self._mine(state.pos), cache)
             pos, offset = state.pos + s_orig, state.offset + s_orig
         if self.paged:
             self.pool.trim(cache, -(-offset // self.block_len))
+        cur, last = self._whole((cur, last), B)
         return SessionState(cache, pos, cur, last, max_len, offset)
 
     @torch.inference_mode()
@@ -1041,8 +1179,12 @@ class InferenceEngine:
             self._state_kind_check(state)
             cache = self.pool.select(state.cache, idx_np)
         else:
-            cache = [type(c)(*(t.index_select(0, idx) for t in c))
-                     for c in state.cache]
+            # on a mesh the rows it picks may sit on other ranks: gather the
+            # whole batch, pick, and keep this rank's rows of the selection
+            cache = [self._whole(c, state.batch) for c in state.cache]
+            mine = self._mine(idx)
+            cache = [type(c)(*(t.index_select(0, mine) for t in c))
+                     for c in cache]
         return SessionState(cache, state.pos.index_select(0, idx),
                             state.cur.index_select(0, idx),
                             state.last.index_select(0, idx), state.max_len,
@@ -1058,14 +1200,14 @@ class InferenceEngine:
         prompts = np.asarray(prompts, np.int32)
         B, S = prompts.shape
         pb, _ = self._bucket(prompts)
-        cache = T.init_cache(self.cfg, B, self._cache_len(pb.shape[1],
+        cache = T.init_cache(self._mcfg, B, self._cache_len(pb.shape[1],
                                                           max_new),
                              device=self.device)
         gen = self._generator(greedy, seed)
         tok = self._tokens(prompts)
 
         def step(tokens, index, greedy):
-            logits, _ = T.decode_step(self.params, self.cfg, tokens, cache,
+            logits, _ = T.decode_step(self.params, self._mcfg, tokens, cache,
                                       self._full(B, index))
             lg = logits[:, -1].float()
             return self._next(lg, greedy, gen), lg
@@ -1181,7 +1323,11 @@ class InferenceEngine:
             slot_run: list = [None] * n_slots   # the (blocks, row) it owns
             cache = None
         else:
-            cache = T.init_cache(self.cfg, n_slots, max_len, device=dev)
+            # on a mesh whose batch axes divide n_slots, a rank decodes
+            # its own slots (``mine``); admissions prefill replicated
+            # (batch 1) and the owner splices them in
+            mine = range(n_slots)[self._rows(n_slots)]
+            cache = T.init_cache(self._mcfg, len(mine), max_len, device=dev)
         gen = self._generator(greedy, seed)
         acc: dict[int, list] = {}           # rid -> [sum_h, sum_v, n]
         states: dict[int, SessionState] = {}
@@ -1322,10 +1468,10 @@ class InferenceEngine:
                     else:
                         c1, l1, k1 = self._prefill_absorb(*span, max_len)
                     p0 = s_orig
-                if not paged:                        # splice into slot i
+                if not paged and i in mine:          # splice into slot i
                     for dst, src in zip(cache, k1):
                         for a, b in zip(dst, src):
-                            a[i].copy_(b[0])
+                            a[i - mine.start].copy_(b[0])
                 cur[i] = c1[0]
                 last[i] = l1[0]
                 pos[i] = p0
@@ -1337,10 +1483,14 @@ class InferenceEngine:
                         [r.max_new - len(r.generated)
                          for _, r in batcher.active() if r.return_state])
             toks, _, h_per, v_per, (cur, last, pos) = self._dispatch(
-                self._route, cur, last,
+                self._route, self._mine(cur),
+                self._mine(last),
                 self._paged_dev_cache(slot_tables, slot_rows) if paged
-                else cache, pos,
-                chunk, bool(greedy), gen, with_logits=False)
+                else cache, self._mine(pos),
+                chunk, bool(greedy), self._draw(gen, n_slots),
+                with_logits=False)
+            toks, h_per, v_per, cur, last, pos = self._whole(
+                (toks, h_per, v_per, cur, last, pos), n_slots)
             toks_np = toks.cpu().numpy()
             h_np, v_np = h_per.cpu().numpy(), v_per.cpu().numpy()
             slot_of = {r.rid: i for i, r in batcher.active()}
@@ -1370,8 +1520,7 @@ class InferenceEngine:
                 if want_state:
                     handle = None
                     if not paged:
-                        handle = [type(c)(*(t[i:i + 1].clone() for t in c))
-                                  for c in cache]
+                        handle = self._slot_cache(cache, i, n_slots)
                     elif slot_run[i] is not None:
                         blocks, row = slot_run[i]
                         handle = self.pool.adopt(

@@ -183,10 +183,12 @@ class TestPortContracts:
             np.testing.assert_allclose(fin[i]["u"], tres["u"][i], atol=1e-4)
 
     def test_unported_paths_raise(self, engines):
-        """What the port does not serve yet raises: meshes (warm sessions,
-        paged pools, fault injection and the deadline clock are ported:
+        """What the port does not serve yet raises: a paged pool on a mesh
+        (dense engines on a mesh are ported: test_torch_mesh_engine.py; warm
+        sessions, paged pools, fault injection and the deadline clock:
         tests/test_torch_continuation.py, test_torch_paged.py,
-        test_torch_faults.py).  An empty fault plan and a clock no request
+        test_torch_faults.py), and a mesh that is not a ``DeviceMesh``
+        raises ``TypeError``.  An empty fault plan and a clock no request
         has a deadline on change nothing."""
         _, te, _, tres = engines
         fin = te.serve([Request(rid=0, prompt=PROMPTS[0].tolist(),
@@ -194,7 +196,11 @@ class TestPortContracts:
                        faults=FaultPlan([]), step_time_ms=1.0)
         np.testing.assert_array_equal(fin[0]["tokens"], tres["tokens"][0])
         assert not fin[0].get("shed")
+        from repro_torch.launch.mesh import serving_mesh
         with pytest.raises(NotImplementedError, match="mesh"):
+            TEngine("x", te.cfg, te.params, device="cpu", paged=True,
+                    mesh=serving_mesh(device="cpu"))
+        with pytest.raises(TypeError, match="DeviceMesh"):
             TEngine("x", te.cfg, te.params, device="cpu", mesh=object())
 
 
