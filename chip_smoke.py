@@ -101,6 +101,18 @@ D1. serving on a (data, model) mesh: on the (1, 1) NCCL mesh (a world of
    launched, ms per ``generate`` and the collectives' share of host and
    device time; after 7p, phase 7's gateway on the (1, 1) mesh: the same
    decisions, u and answers;
+D2. the paged pool, quantized weights and pools, and session checkpoints
+   on a mesh: on the (1, 1) NCCL mesh the probe (30 layers, 16 tokens)
+   paged and ``llama3-8b`` (4 layers) with int8 weights and an int8 pool,
+   each ``generate`` bitwise its single-device engine's with one graph
+   launch (``mesh11_generate``); two gloo ranks on the card
+   (``D2_JOBS``): the probe paged on (data=2, model=1), ``llama3-8b``
+   paged with an int8 pool on (1, 2), tie-aware equal to one device, row 5
+   launched on each rank's local pool (its share of the blocks, its KV
+   heads), each session checkpointed on the mesh and restored on one
+   device, its extension tie-aware equal to the uninterrupted one; after
+   7p, phase 7p's paged gateway on the (1, 1) mesh: the same decisions, u
+   and answers;
 4f. ``serve()`` under a ``FaultPlan`` at the probe's full width on a paged
    probe: two famine rounds, a forced eviction of a warm handle (cold
    re-prefill from ``cold_prompt``), two slot failures (requeue) and a
@@ -332,8 +344,9 @@ SEED = 0
 TIE_ATOL = 0.03
 TIE_ULPS = 4
 # T3's training steps per tier unit (the reference CLI's default is 400;
-# cut to 300 to keep the script inside its time)
-T3_STEPS = 300
+# cut to 300, then 250 with D2, to keep the script inside its time; at
+# 200 the local route held 3 of 50 queries, too few for its check)
+T3_STEPS = 250
 SERVE_KERNELS = ("flash_attention_positions", "decode_attention",
                  "swarm_uncertainty")                   # one tier's generate
 MONO_KERNELS = SERVE_KERNELS + ("flash_attention",)     # + the safety gate
@@ -698,8 +711,17 @@ def phase_f1(c):
 
 
 # D1's two ranks on the one card: (arch, layers or None for all, model
-# parallelism, max_new); each job runs on a (data, model) mesh of the two
-D1_JOBS = (("llama3-8b", 4, 2, 16), ("smollm-135m", None, 1, 32))
+# parallelism, max_new, engine keywords); each job runs on a (data, model)
+# mesh of the two
+D1_JOBS = (("llama3-8b", 4, 2, 16, {}), ("smollm-135m", None, 1, 32, {}))
+# D2's: the probe paged on (data=2, model=1) (each rank half the pool's
+# blocks and rows, a batch of 8 split 4 + 4), llama3-8b paged with an int8
+# pool on (1, 2) (each rank 4 of the 8 KV heads); a paged job checkpoints
+# its session and extends it D2_EXTEND tokens
+D2_POOL = dict(paged=True, pool_blocks=256)
+D2_JOBS = (("smollm-135m", None, 1, 16, D2_POOL),
+           ("llama3-8b", 4, 2, 16, dict(D2_POOL, cache_quant="int8")))
+D2_EXTEND = 8
 D1_COLLECTIVES = ("mesh.all_reduce", "mesh.all_gather")
 D1_SAMPLE_SEED = 5          # D1's sampled generate
 
@@ -725,9 +747,13 @@ def d1_rank(rank: int, world: int, store: str, out_dir: str, prompts,
     cannot be captured); a warm-up ``generate``, then one timed with the
     kernel counts and the collectives' counts zeroed just before and read
     just after, a profiled 2-token one for the collectives' device share,
-    and a sampled one (seed ``D1_SAMPLE_SEED``).  Writes its numbers to
-    ``out_dir/rank{rank}.json`` and rank 0 the tokens and logits of the
-    greedy and the sampled run to ``out_dir/<arch>.npz``."""
+    and a sampled one (seed ``D1_SAMPLE_SEED``).  A paged job (D2) keeps
+    the timed run's session instead of the last two: it checkpoints it to
+    ``out_dir/ckpt<i>`` (rank 0 writes) and extends it ``D2_EXTEND``
+    tokens, and reports its pool.  Writes the numbers of job i to
+    ``out_dir/rank{rank}.json`` under "i", and rank 0 the tokens and
+    logits of its greedy, sampled and extension runs to
+    ``out_dir/job<i>.npz``."""
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     import numpy as np
     import torch
@@ -738,6 +764,7 @@ def d1_rank(rank: int, world: int, store: str, out_dir: str, prompts,
         from repro_torch import configs
         from repro_torch.core.uncertainty import UncertaintyConfig
         from repro_torch.kernels.decode_attention import ops as dops
+        from repro_torch.kernels.decode_attention import ref as dref
         from repro_torch.kernels.flash_attention import ops as fops
         from repro_torch.kernels.swarm_uncertainty import ops as uops
         from repro_torch.launch.mesh import serving_mesh
@@ -748,7 +775,7 @@ def d1_rank(rank: int, world: int, store: str, out_dir: str, prompts,
         dev = torch.device(device)
         ucfg = UncertaintyConfig(alpha=1.0, mode="distribution")
         out = {}
-        for arch, layers, mp, max_new in jobs:
+        for i, (arch, layers, mp, max_new, kw) in enumerate(jobs):
             cfg = configs.get_config(arch)
             if layers is not None:
                 cfg = dataclasses.replace(cfg, num_layers=layers)
@@ -756,7 +783,8 @@ def d1_rank(rank: int, world: int, store: str, out_dir: str, prompts,
             model = init_params(cfg, torch.Generator(device=dev).manual_seed(
                 SEED), device=dev)
             eng = InferenceEngine(f"{arch}-d1", cfg, model, ucfg,
-                                  device=dev, mesh=mesh)
+                                  device=dev, mesh=mesh, **kw)
+            paged = bool(kw.get("paged"))
             del model
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
@@ -770,23 +798,49 @@ def d1_rank(rank: int, world: int, store: str, out_dir: str, prompts,
                 c.reset()
             eng.comm.reset()
             t = time.perf_counter()
-            res = eng.generate(prompts, max_new)
+            res = eng.generate(prompts, max_new, return_state=paged)
             sync()
             ms = (time.perf_counter() - t) * 1e3
             stats = dict(eng.comm.stats)
             launches = {n: c.launches for n, c in counts.items()}
             plain = {n: c.plain for n, c in counts.items()}
-            acts = [torch.profiler.ProfilerActivity.CPU]
-            if dev.type == "cuda":
-                acts.append(torch.profiler.ProfilerActivity.CUDA)
-            eng.generate(prompts, 2)
-            with torch.profiler.profile(activities=acts) as prof:
+            extra, arrays = {}, {}
+            if paged:
+                pool = eng.pool
+                extra = {"pool": {
+                    "n_blocks": pool.n_blocks, "n_rows": pool.n_rows,
+                    "block_bytes": pool.block_bytes,
+                    "pool_bytes": pool.pool_bytes,
+                    "blocks_in_use": pool.blocks_in_use,
+                    "kv_heads": eng._mcfg.num_kv_heads}}
+                st = res.pop("state")
+                extra["local_row5"] = local_row5(eng, st, dops, dref, dev,
+                                                 SEED + i)
+                t = time.perf_counter()
+                eng.checkpoint_session(st, os.path.join(out_dir,
+                                                        f"ckpt{i}"))
+                extra["ckpt_s"] = time.perf_counter() - t
+                ext = eng.generate(None, D2_EXTEND, state=st)
+                eng.release(st)
+                arrays = dict(e_tokens=ext["tokens"],
+                              e_logits=ext["logits"].float().cpu().numpy())
+                coll_ms = dev_ms = 0.0
+                del ext
+            else:
+                acts = [torch.profiler.ProfilerActivity.CPU]
+                if dev.type == "cuda":
+                    acts.append(torch.profiler.ProfilerActivity.CUDA)
                 eng.generate(prompts, 2)
-                sync()
-            coll_ms, dev_ms = collective_share(prof)
-            smp = eng.generate(prompts, max_new, greedy=False,
-                               seed=D1_SAMPLE_SEED)
-            out[arch] = {
+                with torch.profiler.profile(activities=acts) as prof:
+                    eng.generate(prompts, 2)
+                    sync()
+                coll_ms, dev_ms = collective_share(prof)
+                smp = eng.generate(prompts, max_new, greedy=False,
+                                   seed=D1_SAMPLE_SEED)
+                arrays = dict(s_tokens=smp["tokens"],
+                              s_logits=smp["logits"].float().cpu().numpy())
+                del smp
+            out[str(i)] = {**extra,
                 "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape)),
                 "weight_bytes": eng.weight_bytes(),
                 "local_heads": [eng._mcfg.num_heads,
@@ -797,12 +851,11 @@ def d1_rank(rank: int, world: int, store: str, out_dir: str, prompts,
                 "profile_device_ms": dev_ms, "profile_collective_ms":
                     coll_ms, "mesh_eager": eng.counters["mesh_eager"]}
             if rank == 0:
-                np.savez(os.path.join(out_dir, f"{arch}.npz"),
+                np.savez(os.path.join(out_dir, f"job{i}.npz"),
                          tokens=res["tokens"], u=res["u"],
                          logits=res["logits"].float().cpu().numpy(),
-                         s_tokens=smp["tokens"],
-                         s_logits=smp["logits"].float().cpu().numpy())
-            del eng, res, smp
+                         **arrays)
+            del eng, res, arrays
             gc.collect()
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
@@ -811,6 +864,150 @@ def d1_rank(rank: int, world: int, store: str, out_dir: str, prompts,
         dist.barrier()
     finally:
         dist.destroy_process_group()
+
+
+def local_row5(eng, st, dops, dref, dev, seed: int) -> dict:
+    """Row 5 on a mesh rank's own pool, against its plain version: the
+    rank's first attention layer's served blocks (their local ids; an
+    int8 pool with its scales), the session ``st``'s tables of the rank's
+    rows, each row's last written position, a seeded query over the
+    rank's KV heads.  Called after the counted run (its launch is not
+    counted there)."""
+    import torch
+    from repro_torch.models.attention import KVPool
+    mc, h = eng._mcfg, st.cache
+    sv = next(a for a in eng.pool.arrays if isinstance(a, KVPool)).served()
+    table = torch.as_tensor(h.tables, device=dev)
+    index = (st.pos[eng._rows(len(st.pos))] - 1).to(torch.int32)
+    K, G = mc.num_kv_heads, mc.num_heads // mc.num_kv_heads
+    q = torch.randn((table.shape[0], K, G, mc.head_dim), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed)
+                    ).to(mc.dtype)
+    args = (q, sv.k, sv.v, sv.pos, table, index)
+    kw = dict(k_scale=sv.k_scale, v_scale=sv.v_scale)
+    out = dops.paged_decode_attention(*args, **kw)
+    ref = dref.paged_decode_attention_ref(*args, **kw)
+    return {"max_abs_err": float((out.float() - ref.float()).abs().max()),
+            "finite": bool(torch.isfinite(out).all()), "tol": 2e-2,
+            "shape": {"B": table.shape[0], "K": K, "G": G, "D": mc.head_dim,
+                      "N": sv.k.shape[0], "nb": table.shape[1],
+                      "pool": str(sv.k.dtype)}}
+
+
+def wall_ms(torch, fn, n=3) -> float:
+    """Median wall ms of ``n`` synchronised calls of ``fn``."""
+    import numpy as np
+    ts = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t)
+    return float(np.median(ts)) * 1e3
+
+
+def differ(a, b) -> dict:
+    """The fields of two ``generate`` results that are not bitwise equal,
+    with their largest difference."""
+    import numpy as np
+    import torch
+    out = {}
+    for k in ("tokens", "logits", "u", "h_mean", "v_mean"):
+        x, y = a[k], b[k]
+        if isinstance(x, torch.Tensor):
+            x, y = x.float().cpu().numpy(), y.float().cpu().numpy()
+        if not np.array_equal(x, y):
+            out[k] = float(np.abs(np.asarray(x, np.float64)
+                                  - np.asarray(y, np.float64)).max())
+    return out
+
+
+def mesh11_generate(c, phase: str, label: str, base, me, mn: int, needs,
+                    forbid) -> dict:
+    """``me`` (an engine on the (1, 1) mesh) against ``base`` (the same
+    engine on one device), phase 4's prompts, ``mn`` tokens: a counted
+    ``generate`` (``needs`` launched, ``forbid`` not, no plain version)
+    bitwise ``base``'s, no collective, one graph launch per ``generate``
+    (profiled at ``max_new=2``), ms per ``generate`` beside ``base``'s in
+    turns.  Returns its numbers."""
+    np, torch = c.np, c.torch
+    CPU = torch.profiler.ProfilerActivity.CPU
+    CUDA = torch.profiler.ProfilerActivity.CUDA
+    pr = c.prompts
+    check(me._graphs is not None and not me._multi_rank
+          and not any(hasattr(m, "tp") for m in me.params.modules()),
+          f"{phase} {label}: the (1, 1) mesh engine does not capture, or its "
+          "model would cross the mesh")
+    me.generate(pr, mn)                                  # capture
+    base.generate(pr, mn)
+    torch.cuda.synchronize()
+    r1 = c.counted(f"mesh11 {label} generate", needs,
+                   lambda: me.generate(pr, mn), forbid=forbid)
+    d = differ(r1, base.generate(pr, mn))
+    check(not d, f"{phase} {label}: the (1, 1) mesh engine's generate is "
+                 f"not bitwise the single-device engine's: {d}")
+    check(me.comm.stats["all_reduce"] + me.comm.stats["all_gather"]
+          + me.comm.stats["agree"] == 0,
+          f"{phase} {label}: collectives on a (1, 1) mesh")
+    me.generate(pr, 2)                                   # capture
+    st0 = dict(me._graphs.stats)
+    with torch.profiler.profile(activities=[CPU, CUDA]) as prof:
+        with torch.profiler.record_function(f"{phase} generate"):
+            me.generate(pr, 2)
+        torch.cuda.synchronize()
+    st1 = dict(me._graphs.stats)
+    calls = runtime_calls(prof, f"{phase} generate")
+    check(calls["graph_launches_all"] == 1
+          and st1["replays"] == st0["replays"] + 1
+          and st1["captures"] == st0["captures"],
+          f"{phase} {label}: {calls['graph_launches_all']} graph launches, "
+          f"{st1['replays'] - st0['replays']} replays and "
+          f"{st1['captures'] - st0['captures']} captures in one "
+          "generate, want 1, 1, 0")
+    turns = [(n, wall_ms(torch, lambda e=e: e.generate(pr, mn)))
+             for n, e in (("single", base), ("mesh", me), ("mesh", me),
+                          ("single", base))]
+    ms_s = float(np.mean([t for n, t in turns if n == "single"]))
+    ms_m = float(np.mean([t for n, t in turns if n == "mesh"]))
+    print(f"[{phase}] (1, 1) mesh {label} generate B=8 max_new={mn}: "
+          f"bitwise the single-device engine; one graph launch; {ms_m:.2f} "
+          f"ms against {ms_s:.2f} ms single-device (turns "
+          + ", ".join(f"{n} {t:.2f}" for n, t in turns) + ")")
+    return {"max_new": mn, "ms_single": ms_s, "ms_mesh": ms_m,
+            "turns_ms": turns, "weight_bytes": me.weight_bytes(),
+            "graph_launches": calls["graph_launches_all"],
+            "kernel_launches_host": calls["kernel_launches_all"]}
+
+
+def spawn_ranks(c, jobs, name: str, limit: float = 400):
+    """``d1_rank`` on two ranks of the one card for ``jobs``, spawned after
+    the build, their numbers and arrays under ``build/<name>``; a failed or
+    late rank fails the script.  Returns (each rank's numbers, seconds,
+    the directory)."""
+    out_dir = ROOT / "build" / name
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    t0 = time.perf_counter()
+    ctx = c.torch.multiprocessing.start_processes(
+        d1_rank, args=(2, str(out_dir / "store"), str(out_dir), c.prompts,
+                       jobs, c.dev.type),
+        nprocs=2, join=False, start_method="spawn")
+    tag = name.upper()
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > limit:
+                fail(f"{tag}: the two ranks did not finish in {limit} s")
+    except Exception as e:          # a rank raised or died: fail the script
+        fail(f"{tag}: a rank failed: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join(10)
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(2)]
+    return ranks, time.perf_counter() - t0, out_dir
 
 
 def phase_d1(c):
@@ -841,112 +1038,27 @@ def phase_d1(c):
           f"{torch.distributed.get_backend()}")
     c.mesh11 = mesh
     rep = {"mesh11": {}, "ranks": {}}
-    CPU = torch.profiler.ProfilerActivity.CPU
-    CUDA = torch.profiler.ProfilerActivity.CUDA
-
-    def wall(fn, n=3):
-        ts = []
-        for _ in range(n):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            ts.append(time.perf_counter() - t)
-        return float(np.median(ts)) * 1e3
-
-    def differ(a, b) -> dict:
-        """The fields of two ``generate`` results that are not bitwise
-        equal, with their largest difference."""
-        out = {}
-        for k in ("tokens", "logits", "u", "h_mean", "v_mean"):
-            x, y = a[k], b[k]
-            if isinstance(x, torch.Tensor):
-                x, y = x.float().cpu().numpy(), y.float().cpu().numpy()
-            if not np.array_equal(x, y):
-                out[k] = float(np.abs(np.asarray(x, np.float64)
-                                      - np.asarray(y, np.float64)).max())
-        return out
-
     for label, base, mn in (("smollm", c.probe, c.max_new),
                             ("llama3", c.cloud, 16)):
-        pr = c.prompts
         me = c.InferenceEngine(base.name + "-mesh11", base.cfg, base.params,
                                base.ucfg, mesh=mesh)
-        check(me._graphs is not None and not me._multi_rank
-              and not any(hasattr(m, "tp") for m in me.params.modules()),
-              f"D1 {label}: the (1, 1) mesh engine does not capture, or its "
-              "model would cross the mesh")
-        me.generate(pr, mn)                                  # capture
-        torch.cuda.synchronize()
-        r1 = c.counted(f"mesh11 {label} generate", SERVE_KERNELS,
-                       lambda: me.generate(pr, mn),
-                       forbid=("paged_decode_attention",))
-        d = differ(r1, base.generate(pr, mn))
-        check(not d, f"D1 {label}: the (1, 1) mesh engine's generate is not "
-                     f"bitwise the single-device engine's: {d}")
-        check(me.comm.stats["all_reduce"] + me.comm.stats["all_gather"]
-              == 0, f"D1 {label}: collectives on a (1, 1) mesh")
-        me.generate(pr, 2)                                   # capture
-        st0 = dict(me._graphs.stats)
-        with torch.profiler.profile(activities=[CPU, CUDA]) as prof:
-            with torch.profiler.record_function("D1 generate"):
-                me.generate(pr, 2)
-            torch.cuda.synchronize()
-        st1 = dict(me._graphs.stats)
-        calls = runtime_calls(prof, "D1 generate")
-        check(calls["graph_launches_all"] == 1
-              and st1["replays"] == st0["replays"] + 1
-              and st1["captures"] == st0["captures"],
-              f"D1 {label}: {calls['graph_launches_all']} graph launches, "
-              f"{st1['replays'] - st0['replays']} replays and "
-              f"{st1['captures'] - st0['captures']} captures in one "
-              "generate, want 1, 1, 0")
-        turns = [(n, wall(lambda e=e: e.generate(pr, mn)))
-                 for n, e in (("single", base), ("mesh", me), ("mesh", me),
-                              ("single", base))]
-        ms_s = float(np.mean([t for n, t in turns if n == "single"]))
-        ms_m = float(np.mean([t for n, t in turns if n == "mesh"]))
-        rep["mesh11"][label] = {
-            "max_new": mn, "ms_single": ms_s, "ms_mesh": ms_m,
-            "turns_ms": turns, "weight_bytes": me.weight_bytes(),
-            "graph_launches": calls["graph_launches_all"],
-            "kernel_launches_host": calls["kernel_launches_all"]}
-        print(f"[D1] (1, 1) mesh {label} generate B=8 max_new={mn}: bitwise "
-              f"the single-device engine; one graph launch; {ms_m:.2f} ms "
-              f"against {ms_s:.2f} ms single-device (turns "
-              + ", ".join(f"{n} {t:.2f}" for n, t in turns) + ")")
+        rep["mesh11"][label] = mesh11_generate(
+            c, "D1", label, base, me, mn, SERVE_KERNELS,
+            ("paged_decode_attention",))
         del me
 
-    # two ranks on the one card, spawned after the build
-    out_dir = ROOT / "build" / "d1"
-    shutil.rmtree(out_dir, ignore_errors=True)
-    out_dir.mkdir(parents=True)
-    t0 = time.perf_counter()
-    ctx = torch.multiprocessing.start_processes(
-        d1_rank, args=(2, str(out_dir / "store"), str(out_dir), c.prompts,
-                       D1_JOBS, c.dev.type),
-        nprocs=2, join=False, start_method="spawn")
-    try:
-        while not ctx.join(timeout=5):
-            if time.perf_counter() - t0 > 400:
-                fail("D1: the two ranks did not finish in 400 s")
-    except Exception as e:          # a rank raised or died: fail the script
-        fail(f"D1: a rank failed: {e}")
-    finally:
-        for p in ctx.processes:
-            if p.is_alive():
-                p.terminate()
-            p.join(10)
-    t_ranks = time.perf_counter() - t0
-    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
-             for r in range(2)]
+    # two ranks on the one card, spawned after the build, for D1's jobs and
+    # D2's (one spawn: each costs the ranks' start and CUDA contexts)
+    ranks, t_ranks, out_dir = spawn_ranks(c, D1_JOBS + D2_JOBS, "d1")
+    c.d2_ranks = ranks, out_dir
     refs = {"llama3-8b": (c.cloud, 16), "smollm-135m": (c.probe, c.max_new)}
-    for arch, layers, mp, mn in D1_JOBS:
-        got = np.load(out_dir / f"{arch}.npz")
+    for j, (arch, layers, mp, mn, _) in enumerate(D1_JOBS):
+        got = np.load(out_dir / f"job{j}.npz")
+        ranks_j = [rr[str(j)] for rr in ranks]
         eng, n = refs[arch]
         ref = eng.generate(c.prompts, n)
         flips, reading, dlog = tie_aware(
-            f"D1 {arch} on {ranks[0][arch]['mesh']}", got["tokens"],
+            f"D1 {arch} on {ranks_j[0]['mesh']}", got["tokens"],
             ref["tokens"], ref["logits"].float().cpu().numpy(),
             got["logits"])
         sref = eng.generate(c.prompts, n, greedy=False, seed=D1_SAMPLE_SEED)
@@ -954,12 +1066,11 @@ def phase_d1(c):
         check(not np.array_equal(sref["tokens"], ref["tokens"]),
               f"D1 {arch}: the sampled stream is the greedy one")
         s_flips, s_reading, s_dlog = tie_aware(
-            f"D1 {arch} sampled on {ranks[0][arch]['mesh']}",
+            f"D1 {arch} sampled on {ranks_j[0]['mesh']}",
             got["s_tokens"], sref["tokens"], s_lr, got["s_logits"],
             noise=race_noise(D1_SAMPLE_SEED, *s_lr.shape, c.dev))
         del sref, s_lr
-        for r, rr in enumerate(ranks):
-            x = rr[arch]
+        for r, x in enumerate(ranks_j):
             for k in SERVE_KERNELS:
                 check(x["launches"][k] > 0,
                       f"D1 {arch} rank {r}: {k} was never launched")
@@ -984,21 +1095,160 @@ def phase_d1(c):
                   f"({x['profile_collective_ms']:.2f} of "
                   f"{x['profile_device_ms']:.2f} device ms, a 2-token "
                   "generate)")
-        print(f"[D1] {arch} on {ranks[0][arch]['mesh']}: tie-aware equal to "
+        print(f"[D1] {arch} on {ranks_j[0]['mesh']}: tie-aware equal to "
               f"the single-device engine ({flips} rows diverged at a tie, "
               f"logits {dlog:.4f} apart, reading {reading:.3f}); sampled "
               f"seed {D1_SAMPLE_SEED}: {s_flips} rows diverged, logits "
               f"{s_dlog:.4f} apart, reading {s_reading:.3f}")
-        rep["ranks"][arch] = {"per_rank": [rr[arch] for rr in ranks],
+        rep["ranks"][arch] = {"per_rank": ranks_j,
                               "tie_flips": flips, "tie_reading": reading,
                               "max_dlogit": dlog, "sampled_flips": s_flips,
                               "sampled_reading": s_reading,
                               "sampled_max_dlogit": s_dlog}
-    shutil.rmtree(out_dir, ignore_errors=True)
     rep["ranks_s"] = t_ranks
     rep["phase_s"] = time.perf_counter() - t_ph
-    print(f"[D1] two ranks {t_ranks:.1f} s; phase {rep['phase_s']:.1f} s")
+    print(f"[D1] two ranks (D1's and D2's jobs) {t_ranks:.1f} s; phase "
+          f"{rep['phase_s']:.1f} s")
     c.report["mesh"] = rep
+
+
+def phase_d2(c):
+    """D2. the paged pool, quantized weights and pools, and session
+    checkpoints on a mesh.  On the (1, 1) NCCL mesh: the probe (30 layers,
+    phase 4's prompts, 16 tokens) paged, and ``llama3-8b`` (4 layers) with
+    int8 weights and an int8 pool, each ``generate`` bitwise its
+    single-device engine's with one graph launch (``mesh11_generate``).
+    Then two gloo ranks on the card (``d1_rank``, ``D2_JOBS``, spawned
+    with D1's jobs in ``phase_d1``): the probe
+    paged on (data=2, model=1) and ``llama3-8b`` paged with an int8 pool on
+    (1, 2), tie-aware equal to their single-device engines, row 5 launched
+    on each rank's local pool (half the blocks and rows; 4 of the 8 KV
+    heads) and no plain version; each session checkpointed on the mesh
+    (rank 0 writes) and restored on one device, its extension tie-aware
+    equal to the mesh's uninterrupted one (and that one to one device's on
+    the rows that have not flipped at a tie)."""
+    np, torch = c.np, c.torch
+    t_ph = time.perf_counter()
+    rep = {"mesh11": {}, "ranks": {}}
+    base_p = c.paged4g["kernel"]
+    check(base_p.pool.n_blocks == D2_POOL["pool_blocks"]
+          and base_p.attn_decode_impl == "kernel",
+          "D2: phase 4g's paged probe is not the D2 pool")
+    me = c.InferenceEngine("probe-paged-mesh11", c.cfg, c.probe.params,
+                           c.ucfg, mesh=c.mesh11, **D2_POOL)
+    rep["mesh11"]["smollm paged"] = mesh11_generate(
+        c, "D2", "smollm paged", base_p, me, 16, PAGED_SERVE,
+        ("decode_attention",))
+    del me
+    qkw = dict(D2_POOL, cache_quant="int8", weight_quant="int8")
+    base_q = c.InferenceEngine("llama3-q", c.lcfg, c.cloud.params, c.ucfg,
+                               **qkw)
+    me = c.InferenceEngine("llama3-q-mesh11", c.lcfg, c.cloud.params,
+                           c.ucfg, mesh=c.mesh11, **qkw)
+    check(me.weight_bytes() == base_q.weight_bytes(),
+          "D2: the (1, 1) mesh's quantized weights are not one device's")
+    rep["mesh11"]["llama3 int8"] = mesh11_generate(
+        c, "D2", "llama3 int8", base_q, me, 16, PAGED_SERVE,
+        ("decode_attention",))
+    del me, base_q
+    torch.cuda.empty_cache()
+
+    ranks, out_dir = c.d2_ranks
+    refs = {"smollm-135m": base_p,
+            "llama3-8b": c.InferenceEngine("llama3-int8pool", c.lcfg,
+                                           c.cloud.params, c.ucfg,
+                                           **dict(D2_POOL,
+                                                  cache_quant="int8"))}
+    for j, (arch, layers, mp, mn, kw) in enumerate(D2_JOBS, len(D1_JOBS)):
+        got = np.load(out_dir / f"job{j}.npz")
+        ranks_j = [rr[str(j)] for rr in ranks]
+        eng = refs[arch]
+        ref = eng.generate(c.prompts, mn, return_state=True)
+        where = f"D2 {arch} {kw} on {ranks_j[0]['mesh']}"
+        flips, reading, dlog = tie_aware(
+            where, got["tokens"], ref["tokens"],
+            ref["logits"].float().cpu().numpy(), got["logits"])
+        ext = eng.generate(None, D2_EXTEND, state=ref["state"])
+        eng.release(ref["state"])
+        # the mesh's uninterrupted extension against one device's, on the
+        # rows whose streams agree so far (a row that flipped at a tie
+        # continues another history)
+        same = [b for b in range(len(ref["tokens"]))
+                if np.array_equal(got["tokens"][b], ref["tokens"][b])]
+        check(len(same) > 0, f"{where}: every row flipped")
+        e_flips, e_reading, _ = tie_aware(
+            where + " extension", got["e_tokens"][same],
+            ext["tokens"][same], ext["logits"].float().cpu().numpy()[same],
+            got["e_logits"][same])
+        # the session restored on one device and extended there, against
+        # the mesh's uninterrupted extension of the same session
+        t0 = time.perf_counter()
+        st = eng.restore_session(str(out_dir / f"ckpt{j}"))
+        t_restore = time.perf_counter() - t0
+        res = eng.generate(None, D2_EXTEND, state=st)
+        eng.release(st)
+        r_flips, r_reading, r_dlog = tie_aware(
+            where + " checkpoint restored on one device", res["tokens"],
+            got["e_tokens"], got["e_logits"],
+            res["logits"].float().cpu().numpy())
+        blocks = eng.pool_blocks
+        for r, x in enumerate(ranks_j):
+            for k in PAGED_SERVE:
+                check(x["launches"][k] > 0,
+                      f"{where} rank {r}: {k} was never launched")
+            check(x["launches"]["decode_attention"] == 0
+                  and sum(x["plain"].values()) == 0,
+                  f"{where} rank {r}: row 2 or plain versions ran: "
+                  f"{x['launches']} {x['plain']}")
+            l5 = x["local_row5"]
+            check(l5["finite"] and l5["max_abs_err"] <= l5["tol"],
+                  f"{where} rank {r}: row 5 on its local pool {l5['shape']} "
+                  f"is {l5['max_abs_err']} from its plain version (tol "
+                  f"{l5['tol']})")
+            print(f"[D2] {arch} on {x['mesh']} rank {r}: row 5 on its own "
+                  f"pool {l5['shape']}: err {l5['max_abs_err']:.2e} against "
+                  f"its plain version (tol {l5['tol']:g})")
+            d = x["mesh"]["data"]
+            check(x["pool"]["n_blocks"] == blocks // d
+                  and x["pool"]["kv_heads"] == x["local_heads"][1],
+                  f"{where} rank {r}: its pool {x['pool']} is not its share "
+                  f"of {blocks} blocks over data={d}")
+            print(f"[D2] {arch} on {x['mesh']} rank {r}: pool "
+                  f"{x['pool']['n_blocks']} blocks of "
+                  f"{x['pool']['block_bytes'] / 1e6:.3f} MB "
+                  f"({x['pool']['pool_bytes'] / 1e9:.3f} GB, "
+                  f"{x['pool']['kv_heads']} KV heads), weights "
+                  f"{x['weight_bytes'] / 1e9:.4f} GB, "
+                  f"{x['ms_per_generate']:.1f} ms per generate (B=8, {mn} "
+                  f"tokens, eager), launches "
+                  f"{ {k: v for k, v in x['launches'].items() if v} }, "
+                  f"collectives {x['collectives']['all_reduce']} all-reduce "
+                  f"+ {x['collectives']['all_gather']} all-gather + "
+                  f"{x['collectives']['agree']} agreements, "
+                  f"{x['collectives']['bytes'] / 1e6:.1f} MB, "
+                  f"{x['collectives']['staged_bytes'] / 1e6:.1f} MB staged; "
+                  f"host share {x['host_share']:.3f}; checkpoint "
+                  f"{x['ckpt_s']:.2f} s")
+        print(f"[D2] {where}: tie-aware equal to the single-device engine "
+              f"({flips} rows diverged at a tie, logits {dlog:.4f} apart, "
+              f"reading {reading:.3f}); extension ({len(same)} rows) reading "
+              f"{e_reading:.3f}; "
+              f"restored on one device in {t_restore:.2f} s, extension "
+              f"{r_flips} rows diverged, logits {r_dlog:.4f} apart, reading "
+              f"{r_reading:.3f}")
+        rep["ranks"][arch] = {
+            "kw": kw, "per_rank": ranks_j,
+            "tie_flips": flips, "tie_reading": reading, "max_dlogit": dlog,
+            "extension_reading": e_reading, "restore_s": t_restore,
+            "restored_flips": r_flips, "restored_reading": r_reading,
+            "restored_max_dlogit": r_dlog}
+    shutil.rmtree(out_dir, ignore_errors=True)
+    del refs
+    torch.cuda.empty_cache()
+    rep["phase_s"] = time.perf_counter() - t_ph
+    print(f"[D2] phase {rep['phase_s']:.1f} s (its rank jobs ran in D1's "
+          "spawn)")
+    c.report["mesh_paged"] = rep
 
 
 def phase_d1_gateway(c):
@@ -1030,6 +1280,32 @@ def phase_d1_gateway(c):
     print(f"[D1] gateway answer_batch on the (1, 1) mesh: {t_b:.3f} s, "
           "decisions, u and answers equal phase 7's")
     del mgw, mprobe, mcloud
+    # D2: phase 7p's paged gateway on the (1, 1) mesh, the same sequence
+    t_ph = time.perf_counter()
+    pgw, pprobe, pcloud, _ = c.gateway_from_weights(
+        **c.tiers, safety=c.safety, router_cfg=c.gw.router_cfg,
+        mesh=c.mesh11, engine_kw=dict(paged=True, pool_blocks=1024))
+    check(pprobe.mesh is c.mesh11 and pprobe.paged,
+          "D2 gateway: the tiers are not paged on the mesh")
+    pgw.answer_batch(c.queries)                      # warm up, as phase 7p
+    torch.cuda.synchronize()
+    pgw.reset_fault_state()
+    t0 = time.perf_counter()
+    plog = c.counted("mesh11 paged gateway answer_batch", PAGED_KERNELS,
+                     lambda: pgw.answer_batch(c.queries),
+                     forbid=("decode_attention",))
+    t_b = time.perf_counter() - t0
+    check(np.array_equal(plog.decision, c.plog.decision)
+          and np.array_equal(plog.u, c.plog.u)
+          and np.array_equal(plog.answers, c.plog.answers)
+          and pprobe.pool.live_sessions == 0,
+          "D2 gateway: decisions, u or answers differ from phase 7p's, or "
+          "the probe kept sessions")
+    c.report["mesh_paged"]["gateway"] = {
+        "answer_batch_s": t_b, "phase_s": time.perf_counter() - t_ph}
+    print(f"[D2] paged gateway answer_batch on the (1, 1) mesh: {t_b:.3f} "
+          "s, decisions, u and answers equal phase 7p's")
+    del pgw, pprobe, pcloud
     torch.distributed.destroy_process_group()
 
 
@@ -1710,6 +1986,22 @@ def main():
                    S=160, p0=300, window=128),
         paged_case("paged smollm B8 nb8 (T512) S8", 8, PK, PG, PD, nb=8,
                    p0=400),
+        # row 5 at D2's rank-local shapes (its rank jobs, ``D2_JOBS``):
+        # each rank's share of phase 4's 8 rows and of the pool's blocks
+        # over 'data', its KV heads over 'model' (the probe on (2, 1): 4
+        # rows, 3 KV heads; llama3-8b on (1, 2): 8 rows, 4 of the 8 KV
+        # heads, an int8 pool); a 200-token prompt's 256-slot bucket and
+        # 16 new tokens, 320 slots in 5 blocks of 64, the last step
+        *(paged_case(f"D2 rank {arch} ({2 // mp}, {mp}) {kw.get('cache_quant') or 'bf16'} "
+                     f"pool B{8 * mp // 2} K{dc.num_kv_heads // mp} "
+                     f"G{dc.num_heads // dc.num_kv_heads} D{dc.head_dim} "
+                     f"N{kw['pool_blocks'] * mp // 2} nb5 S{mn}", 8 * mp // 2,
+                     dc.num_kv_heads // mp, dc.num_heads // dc.num_kv_heads,
+                     dc.head_dim, nb=5, S=mn, p0=256,
+                     N=kw["pool_blocks"] * mp // 2,
+                     quant=kw.get("cache_quant"))
+          for arch, _, mp, mn, kw in D2_JOBS
+          for dc in (configs.get_config(arch),)),
         # row 4: the safety gate's own shape (the main path), then the
         # full-sequence forward at S=2048
         grid_case(f"safety encoder B{nq} S{s_raw} H4 D32 bidirectional", nq,
@@ -2292,6 +2584,8 @@ def main():
     phase_q1(ctx)
     # ---- D1. serving on a (data, model) mesh -----------------------------
     phase_d1(ctx)
+    # ---- D2. the paged pool and quantized weights on a mesh --------------
+    phase_d2(ctx)
     mesh11 = ctx.mesh11
     del ctx, paged4g
 
@@ -2727,11 +3021,12 @@ def main():
         "tier_tie_readings": {k: list(v) for k, v in tier_read.items()},
         "blocks_in_use": in_use}
     del pgw, pgprobe, pgcloud, pmembers
-    # ---- D1 (gateway). phase 7's gateway on the (1, 1) mesh --------------
+    # ---- D1, D2 (gateway). phases 7 and 7p on the (1, 1) mesh ------------
     phase_d1_gateway(SimpleNamespace(
         np=np, torch=torch, gateway_from_weights=gateway_from_weights,
         tiers=tiers, safety=(scfg, sparams), gw=gw, mesh11=mesh11,
-        queries=queries, counted=counted, log=log, report=report))
+        queries=queries, counted=counted, log=log, plog=plog_gw,
+        report=report))
     del mesh11
 
     # ---- 8. the full-sequence forward: kernel vs plain version ---------

@@ -25,10 +25,14 @@ placement and the collectives are explicit:
 * ``constrain(x, logical, mesh, rules)`` -> the rank's shard of a tensor
   every rank holds whole, by its activation rules; ``x`` itself off a mesh;
 * ``Comm``: an all-reduce sum and an all-gather along a dim, each over the
-  process groups of some mesh axes.  A collective over axes of size 1 is
-  not issued (XLA elides such collectives too), so a ``(1, 1)`` mesh
-  computes exactly what one device computes, and a CUDA graph can capture
-  it;
+  process groups of some mesh axes, and ``agree``: a host decision (a
+  small integer tensor reduced by max, min or sum) that the ranks of some
+  axes take alike.  A collective over axes of size 1 is not issued (XLA
+  elides such collectives too), so a ``(1, 1)`` mesh computes exactly what
+  one device computes, and a CUDA graph can capture it;
+* ``pool_share``: a rank's share of the paged pool's blocks and state
+  rows (``act_pool`` over the batch axes; a block's KV heads are those
+  the rank's attention holds);
 * ``Split``: what a module cut over mesh axes needs at run time (the
   collective over those axes and, for a vocabulary, the rank's range).
   ``transformer.shard_params`` attaches one to each module whose
@@ -351,8 +355,9 @@ class Comm:
         check_mesh(mesh)
         self.mesh = mesh
         self.sizes = axis_sizes(mesh)
-        self.stats = {"all_reduce": 0, "all_gather": 0, "bytes": 0,
-                      "staged_bytes": 0, "host_s": 0.0}
+        self.stats = {"all_reduce": 0, "all_gather": 0, "agree": 0,
+                      "barrier": 0, "bytes": 0, "staged_bytes": 0,
+                      "host_s": 0.0}
 
     def _live(self, axes) -> list[str]:
         return [a for a in axes_of(axes) if self.sizes[a] > 1]
@@ -411,9 +416,57 @@ class Comm:
         self.stats["host_s"] += time.perf_counter() - t0
         return x
 
+    def agree(self, x, axes, op: str = "max") -> torch.Tensor:
+        """A host decision every rank of ``axes`` takes alike: ``x`` (a
+        small integer tensor or array, on the host) reduced elementwise by
+        ``op`` ("max", "min" or "sum") over the live axes, as an int64 CPU
+        tensor; ``x`` itself where they have size 1, so a (1, 1) mesh
+        issues nothing.  The ranks must call it at the same points, as they
+        issue every collective: a rank that raises or defers alone while
+        the others enter the next collective hangs the run."""
+        y = torch.as_tensor(x, dtype=torch.int64).clone()
+        live = self._live(axes)
+        if not live:
+            return y
+        red = {"max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN,
+               "sum": dist.ReduceOp.SUM}[op]
+        for a in live:
+            g = self.mesh.get_group(a)
+            buf = (y.cuda() if dist.get_backend(g) == "nccl" else y)
+            dist.all_reduce(buf, op=red, group=g)
+            y = buf.cpu()
+            self.stats["agree"] += 1
+        return y
+
+    def barrier(self) -> None:
+        """Wait for every rank of the world the mesh spans (nothing on a
+        mesh of one rank)."""
+        if self._live(tuple(self.sizes)):
+            dist.barrier()
+            self.stats["barrier"] += 1
+
     def reset(self) -> None:
         for k in self.stats:
             self.stats[k] = 0.0 if k == "host_s" else 0
+
+
+#: the batch axes: a batch, the paged pool's blocks and its state rows go
+#: over them (``act_batch``, ``act_pool``)
+BATCH_AXES = ("pod", "data")
+
+
+def batch_axes(mesh) -> MeshAxes:
+    """The mesh's batch axes, major to minor."""
+    sizes = axis_sizes(mesh)
+    return tuple(a for a in BATCH_AXES if a in sizes)
+
+
+def pool_share(n: int, mesh) -> int:
+    """A rank's share of ``n`` pool blocks or state rows: ``act_pool``
+    puts them over the batch axes when those divide ``n`` (each rank then
+    holds ``n / d``), else every rank holds all ``n``."""
+    spec = spec_for((n,), ("act_pool",), mesh, SERVE_RULES.act_rules)
+    return n // shard_index(spec[0] if spec else None, mesh)[1]
 
 
 def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:
@@ -465,9 +518,14 @@ def row_parallel(module, a: torch.Tensor, w) -> torch.Tensor:
     as ``module.tp``) the rank's partial product comes out in f32, is
     summed over the mesh axes and rounded once to ``a``'s dtype, as one
     device's product accumulates in f32 and rounds once; bf16 partial sums
-    would round twice."""
+    would round twice.  A cut ``QTensor`` is dequantized to ``a``'s dtype
+    first (its payload and row scales are the full quantized weight's
+    slices, ``quant.quantize_param_axes``)."""
     K = a.shape[-1]
     tp = getattr(module, "tp", None)
     if tp is None:
         return a @ Q.cast(w, a.dtype).reshape(K, -1)
+    if isinstance(w, Q.QTensor):
+        # the rank's shard of the quantized weight, dequantized once
+        w = Q.cast(w, a.dtype)
     return tp.reduce(_mm_f32(a, w.reshape(K, -1))).to(a.dtype)

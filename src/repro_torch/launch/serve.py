@@ -18,6 +18,12 @@ the reference does; ``--model-parallel k`` builds one over the ranks:
   PYTHONPATH=src python -m repro_torch.launch.serve --model-parallel 1
   PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
       --device cpu --model-parallel 2
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve \
+      --device cpu --model-parallel 2 --paged --cache-quant int8
+
+``--paged``, ``--attn-decode-impl`` and ``--cache-quant`` combine with
+``--model-parallel`` as in the reference: every tier's block pool is then
+split over the mesh's 'data' ranks and holds each rank's KV heads.
 
 Under ``torchrun`` every rank runs the gateway on its shards, rank 0's
 trained weights broadcast first, and only rank 0 prints the tables.

@@ -198,6 +198,24 @@ def dequantize_params(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     return out
 
 
+def quantize_param_axes(axes: dict, model: nn.Module) -> dict:
+    """Mirror ``quantize_params`` over ``{weight name: logical axes}``
+    (``transformer.param_axes``) so the specs follow the quantized tree: a
+    ``QTensor`` weight ``n`` becomes ``n.q`` with the weight's axes and
+    ``n.scale`` with them minus the trailing dim, so a mesh cuts the
+    payload like the weight and its row scales like the weight's rows.
+    Quantize the whole model first, then cut it: scales taken over a
+    rank's columns alone would not be the full tree's."""
+    qn = set(quantized_names(model))
+    out = {}
+    for n, a in axes.items():
+        if n in qn:
+            out[f"{n}.q"], out[f"{n}.scale"] = a, a[:-1]
+        else:
+            out[n] = a
+    return out
+
+
 def quantized_names(model: nn.Module) -> list[str]:
     """Dotted names of the model's ``QTensor`` weights."""
     return [n for n, m in model.named_modules() if isinstance(m, QTensor)]

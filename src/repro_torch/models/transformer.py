@@ -639,12 +639,19 @@ def paged_scatter_decode(cfg: ModelConfig, cache: dict, delta: list,
 def param_axes(model: nn.Module) -> dict[str, tuple]:
     """{parameter name: its logical axes}: the reference's ``param_axes``
     under the port's names, read from each module class's ``AXES`` table
-    (what ``ParamDef.axes`` carries there).  The reference stacks repeated
-    layers under a leading "layers" axis, which no rule shards; the port's
-    layers are separate modules."""
+    (what ``ParamDef.axes`` carries there).  A ``quant.QTensor`` weight is
+    listed by its weight's name (``quant.quantize_param_axes`` splits it
+    into payload and scales).  The reference stacks repeated layers under
+    a leading "layers" axis, which no rule shards; the port's layers are
+    separate modules."""
     out = {}
     for mname, mod in model.named_modules():
-        for pname, _ in mod.named_parameters(recurse=False):
+        if isinstance(mod, Q.QTensor):
+            continue
+        names = [n for n, _ in mod.named_parameters(recurse=False)]
+        names += [n for n, c in mod.named_children()
+                  if isinstance(c, Q.QTensor)]
+        for pname in names:
             out[f"{mname}.{pname}" if mname else pname] = \
                 type(mod).AXES[pname]
     return out
@@ -663,6 +670,17 @@ def cache_axes(cfg: ModelConfig) -> list:
                       conv=("act_batch", None, "act_ssm_inner"))
     return [kv if mixer in ATTN else rg if mixer == "rglru" else sd
             for mixer, _ in cfg.layer_plan()]
+
+
+def _leaves(model: nn.Module) -> dict[str, torch.Tensor]:
+    """{name: tensor} of a model's weights: its parameters, and each
+    ``QTensor`` weight's payload and scales as ``<name>.q`` and
+    ``<name>.scale``."""
+    out = dict(model.named_parameters())
+    for n, m in model.named_modules():
+        if isinstance(m, Q.QTensor):
+            out[f"{n}.q"], out[f"{n}.scale"] = m.q, m.scale
+    return out
 
 
 #: the logical axes a rank's shard may cut: the tensor-parallel ones, whose
@@ -699,6 +717,12 @@ def shard_params(model: Transformer, cfg: ModelConfig, mesh, comm=None,
     from a sequence-sharded cache (``act_kv_seq``), which needs the decode
     kernels to return each row's log-sum-exp.
 
+    A quantized model (``quant.quantize_params`` of the whole model) is cut
+    the same way: a ``QTensor``'s payload like its weight and its row
+    scales like the weight minus its trailing dim
+    (``quant.quantize_param_axes``), so each rank holds the slices of the
+    full quantized tree.
+
     Each module whose contraction was cut gets a ``sharding.Split`` as
     ``.tp`` (attention: wo's heads; the MLP: w_down's d_ff), and the model
     one when its vocabulary was cut; ``comm`` (a ``sharding.Comm`` of the
@@ -711,8 +735,8 @@ def shard_params(model: Transformer, cfg: ModelConfig, mesh, comm=None,
                 "ported yet (the recurrent mixers' 'ssm_inner' and MoE's "
                 "expert parallelism); dense attention + MLP layers are")
     comm = comm or sh.Comm(mesh)
-    axes = param_axes(model)
-    named = dict(model.named_parameters())
+    axes = Q.quantize_param_axes(param_axes(model), model)
+    named = _leaves(model)
     specs = {n: sh.spec_for(p.shape, axes[n], mesh, rules.param_rules)
              for n, p in named.items()}
     for n, spec in specs.items():
@@ -724,7 +748,7 @@ def shard_params(model: Transformer, cfg: ModelConfig, mesh, comm=None,
                     "weights are replicated but for the tensor-parallel dims")
 
     def part(name: str, dim: int):
-        spec = specs[name]
+        spec = specs.get(name, specs.get(name + ".q"))
         return spec[dim] if dim < len(spec) else None
 
     def split(p, size: int) -> sh.Split:
@@ -733,13 +757,21 @@ def shard_params(model: Transformer, cfg: ModelConfig, mesh, comm=None,
 
     new = shallow_copy(model)
     mods = dict(new.named_modules())
+
+    def put(name: str, t: torch.Tensor) -> None:
+        # a parameter, or a QTensor's payload or scales (a buffer)
+        mname, _, leaf = name.rpartition(".")
+        mod = mods[mname]
+        if leaf in mod._parameters:
+            mod._parameters[leaf] = nn.Parameter(t, requires_grad=False)
+        else:
+            mod._buffers[leaf] = t
+
     with torch.no_grad():
         for name, p in named.items():
-            mname, _, leaf = name.rpartition(".")
             t = sh.shard(p, specs[name], mesh)
             if t is not p:
-                mods[mname]._parameters[leaf] = nn.Parameter(
-                    t, requires_grad=False)
+                put(name, t)
     H, K = cfg.num_heads, cfg.num_kv_heads
     H_l, K_l, F_l = H, K, cfg.d_ff
     for i, layer in enumerate(new.layers):
@@ -755,15 +787,17 @@ def shard_params(model: Transformer, cfg: ModelConfig, mesh, comm=None,
                 r, _ = sh.shard_index(hp, mesh)
                 kv = r * H_l // (H // K)
                 K_l = 1
+                # a quantized wk/wv: its payload and row scales narrowed
+                # alike (each scale row is one (d, KV head) row, whole)
                 with torch.no_grad():
                     for leaf, dim in (("wk", 1), ("wv", 1), ("bk", 0),
-                                      ("bv", 0)):
+                                      ("bv", 0), ("wk.q", 1), ("wk.scale", 1),
+                                      ("wv.q", 1), ("wv.scale", 1)):
                         w = named.get(pre + "mixer." + leaf)
                         if w is not None:
-                            att._parameters[leaf] = nn.Parameter(
-                                w.narrow(dim, kv, 1).clone(
-                                    memory_format=torch.contiguous_format),
-                                requires_grad=False)
+                            put(pre + "mixer." + leaf, w.narrow(
+                                dim, kv, 1).clone(
+                                    memory_format=torch.contiguous_format))
             else:
                 raise NotImplementedError(
                     f"{cfg.name}: {H} heads on {K} KV heads over a "

@@ -38,6 +38,22 @@ absorbed once is re-materialised per slot.  Engines built with
 * **Eviction / TTL** — handles are registered with the pool;
   ``evict_idle(ttl_s)`` releases those idle past the TTL and returns their
   blocks and rows.  Reusing an evicted handle raises.
+* **On a mesh** (the reference's ``act_pool``: the pool's block and
+  state-row dims over the batch axes) every rank owns a pool of its own:
+  its share of the blocks and rows (``sharding.pool_share``: ``n / d``
+  over d data ranks) holding its own KV heads, with a host allocator of its
+  own.  The rows a rank computes live in its pool: its B/d rows of a batch
+  the data axes split, every row of one they replicate (``serve()``'s
+  batch-1 admissions, a batch d does not divide), so a replicated row
+  takes room on every data rank.  Ranks of one data coordinate hold the
+  same rows and make the same calls, so their allocators stay equal; data
+  ranks may not.  Every decision that could differ between them is agreed
+  before anything acts on it (``reserve``, ``free_counts``,
+  ``evict_idle``: ``sharding.Comm.agree`` over the batch axes), so all
+  ranks raise, defer or evict together and their counters read alike: a
+  rank that raised alone while the others went on to a collective would
+  hang the run.  Off a mesh, and on a mesh with one data rank, nothing is
+  agreed and no collective is issued.
 
 Host bookkeeping is numpy (heap free lists, refcounts); the device work is
 block and row reset and copy, written in place (``index_put_``,
@@ -57,6 +73,7 @@ import time
 
 import numpy as np
 
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import quant as Q
 from repro_torch.models import transformer as T
 from repro_torch.serving.faults import PoolExhaustedError
@@ -105,7 +122,14 @@ class CachePool:
 
     def __init__(self, cfg, block_len: int, n_blocks: int, n_rows: int, *,
                  cache_quant: str | None = None, device=None,
-                 clock=time.monotonic):
+                 clock=time.monotonic, comm=None, axes=()):
+        # on a mesh: ``cfg`` the rank's (its KV heads), ``n_blocks`` and
+        # ``n_rows`` its share, ``comm`` the mesh's collectives and
+        # ``axes`` the batch axes the data ranks agree over
+        self.comm, self.axes = comm, tuple(axes)
+        self.shard, self.shards = 0, 1
+        if comm is not None:
+            self.shard, self.shards = sh.shard_index(self.axes, comm.mesh)
         self.cfg = cfg
         self.block_len = int(block_len)
         self.n_blocks = int(n_blocks)
@@ -133,7 +157,7 @@ class CachePool:
         self._sessions: dict[int, dict] = {}
         self._next_sid = 0
         # the reference's counters: ``row_copies`` counts the session rows
-        # forked by ``select`` / ``admit_row`` (each copies a state row)
+        # forked by ``fork`` / ``admit_row`` (each copies a state row)
         self.counters = {"blocks_alloc": 0, "blocks_freed": 0,
                          "blocks_reset": 0, "cow_copies": 0,
                          "row_copies": 0, "evictions": 0, "high_water": 0}
@@ -181,6 +205,40 @@ class CachePool:
     def can_alloc(self, n_blocks: int, n_rows: int = 0) -> bool:
         return (len(self._free) >= n_blocks
                 and len(self._free_rows) >= n_rows)
+
+    def _agree(self, x, op: str):
+        """``x`` agreed over the data ranks (``sharding.Comm.agree``), as
+        a list; ``x`` itself off a mesh."""
+        if self.comm is None:
+            return list(x)
+        return self.comm.agree(x, self.axes, op).tolist()
+
+    def reserve(self, n_blocks: int, n_rows: int = 0) -> None:
+        """Raise ``PoolExhaustedError`` on every data rank unless each has
+        the free blocks and rows it asks for (its own need: the ranks'
+        may differ).  Called before an operation allocates, so a short
+        pool changes nothing and no rank goes on alone."""
+        ok = self.can_alloc(n_blocks, n_rows)
+        short = self._agree([int(not ok)], "sum")[0]
+        if short:
+            where = ("" if self.shards == 1 else
+                     f" on {short} of {self.shards} data ranks"
+                     + ("" if ok else f" (this one, data rank {self.shard})"))
+            raise PoolExhaustedError(
+                f"cache pool exhausted{where}: need {n_blocks} blocks and "
+                f"{n_rows} state rows, {len(self._free)}/{self.n_blocks} "
+                f"blocks and {len(self._free_rows)}/{self.n_rows} rows free "
+                f"({self._famine_detail()}) — grow pool_blocks, release "
+                "sessions, or enable TTL eviction")
+
+    def free_counts(self) -> np.ndarray:
+        """(d, 2) free blocks and free rows of every data rank's pool, the
+        same array on every rank (one agreement; this pool's own counts off
+        a mesh): ``serve()`` decides each slot's admission against the
+        pool of the rank that holds the slot."""
+        x = np.zeros((self.shards, 2), np.int64)
+        x[self.shard] = (len(self._free), len(self._free_rows))
+        return np.asarray(self._agree(x, "sum"), np.int64)
 
     def alloc_blocks(self, n: int, *,
                      reset: bool | str = True) -> np.ndarray:
@@ -261,6 +319,7 @@ class CachePool:
         cold whole-generation dispatch writes the reset values past its
         span), so nothing is written here; the blocks still count in
         ``counters["blocks_reset"]``."""
+        self.reserve(batch * nb, batch)
         tables = self.alloc_blocks(batch * nb, reset=reset).reshape(batch,
                                                                     nb)
         return self.register(tables, self.alloc_rows(batch, reset=reset))
@@ -290,8 +349,14 @@ class CachePool:
         handles its queued warm requests still reference); bumps the epoch
         when anything was evicted."""
         now = self._clock() if now is None else now
-        victims = [sid for sid, m in self._sessions.items()
-                   if now - m["last_used"] > ttl_s and sid not in exclude]
+        # on a mesh the data ranks' clocks differ: a session idle on any
+        # rank is evicted on all (the ranks hold the same session ids)
+        sids = sorted(self._sessions)
+        idle = [int(now - self._sessions[sid]["last_used"] > ttl_s
+                    and sid not in exclude) for sid in sids]
+        if sids:
+            idle = self._agree(idle, "max")
+        victims = [sid for sid, f in zip(sids, idle) if f]
         for sid in victims:
             h = self._sessions.pop(sid)["handle"]
             self.free_blocks(h.tables)
@@ -319,9 +384,8 @@ class CachePool:
         missing tail blocks for fresh allocation.  The caller batches the
         device copies and resets (``_flush``)."""
         row = [int(b) for b in run]
-        wb = write_pos // self.block_len
         for j in range(len(row)):
-            if j < min(wb, len(row)) and j >= self.ring_blocks:
+            if not self._writable(j, len(row), write_pos):
                 continue                       # read-only prefix: share
             if self.ref[row[j]] > 1:
                 nbk = int(self.alloc_blocks(1, reset=False)[0])
@@ -334,6 +398,20 @@ class CachePool:
             fresh.extend(int(b) for b in new)
             row.extend(int(b) for b in new)
         return np.asarray(row[:nb], np.int32)
+
+    def _writable(self, j: int, n: int, write_pos: int) -> bool:
+        """Whether entry ``j`` of an ``n``-block table row is in the write
+        range from ``write_pos``: at or past its block, or a ring block."""
+        return not (self.ring_blocks <= j < min(write_pos // self.block_len,
+                                                 n))
+
+    def _grow_need(self, run: np.ndarray, nb: int, write_pos: int) -> int:
+        """The blocks ``_cow_and_grow`` takes for one table row: its
+        shared blocks in the write range and its missing tail."""
+        cow = sum(1 for j, b in enumerate(run)
+                  if self._writable(j, len(run), write_pos)
+                  and self.ref[b] > 1)
+        return cow + max(nb - len(run), 0)
 
     def _flush(self, cow_src: list, cow_dst: list, fresh: list) -> None:
         if cow_src:
@@ -350,6 +428,9 @@ class CachePool:
         ``(B, nb)`` tables."""
         self.check(handle)
         write_pos = np.asarray(write_pos, np.int64).reshape(-1)
+        self.reserve(sum(self._grow_need(handle.tables[b], nb,
+                                         int(write_pos[b]))
+                         for b in range(handle.batch)))
         cow_src, cow_dst, fresh = [], [], []
         rows = [self._cow_and_grow(handle.tables[b], nb, int(write_pos[b]),
                                    cow_src, cow_dst, fresh)
@@ -358,19 +439,22 @@ class CachePool:
         handle.tables = np.stack(rows, axis=0)
         return handle.tables
 
-    def select(self, handle: PagedHandle, idx) -> PagedHandle:
-        """Fork rows ``idx`` of a session into a NEW handle: block tables
-        copied by reference (refcount++; repeated indices fan one row out),
-        state rows copied in place into fresh rows (``copy_rows``).
-        O(table + state rows), never O(cache)."""
-        self.check(handle)
-        idx = np.asarray(idx, np.int64).reshape(-1)
-        tables = handle.tables[idx]
+    def fork(self, tables: np.ndarray, rows: np.ndarray) -> PagedHandle:
+        """A NEW handle over ``tables`` (B, nb), copied by reference
+        (refcount++; a repeated row fans one row out), and fresh copies of
+        state rows ``rows`` (B,) (``copy_rows``): ``state_select``'s fork,
+        O(table + state rows), never O(cache).  The caller reserves the
+        rows (``reserve``)."""
+        return self.register(tables, self.share_run(tables, rows))
+
+    def share_run(self, tables: np.ndarray, rows: np.ndarray) -> np.ndarray:
+        """``fork``'s work without the handle: a reference on every block
+        of ``tables`` and fresh copies of state rows ``rows``, returned."""
         self.share_blocks(tables)
-        rows = self.alloc_rows(len(idx))
-        T.copy_rows(self.cfg, self.arrays, handle.rows[idx], rows)
-        self.counters["row_copies"] += len(idx)
-        return self.register(tables, rows)
+        new = self.alloc_rows(len(rows))
+        T.copy_rows(self.cfg, self.arrays, rows, new)
+        self.counters["row_copies"] += len(rows)
+        return new
 
     def admit_row(self, handle: PagedHandle, nb: int, write_pos: int,
                   row_index: int = 0) -> tuple[np.ndarray, int]:

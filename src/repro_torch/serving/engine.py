@@ -61,12 +61,21 @@ divide B and replicated otherwise (``serve()``'s batch-1 admissions
 replicate); tokens, logits, the probe terms and a session's ``pos`` /
 ``cur`` / ``last`` are gathered, so every rank and the caller see the
 whole result, while a ``SessionState``'s cache holds the rank's own rows
-(``state_select`` gathers the rows it picks and re-splits them).  On the
-(1, 1) mesh no collective is issued and the engine is the single-device
-one, CUDA graphs included; on a mesh of more than one rank it runs the
-eager route (``counters["mesh_eager"]`` counts those dispatches).  Paged
-pools, quantized weights or pools, recurrent and MoE mixers and session
-checkpoints on a mesh raise ``NotImplementedError``.
+(``state_select`` gathers the rows it picks and re-splits them).  A paged
+engine on a mesh keeps a pool of its own on every rank: its share of the
+blocks and state rows over the batch axes and its own KV heads, the rows
+it computes in it (``serving/cache_manager.py``; its data ranks agree on
+every pool decision, so they raise, defer and evict together); a selected
+row that changes data rank is copied over (``_move_rows``).
+``weight_quant`` quantizes the whole model, then cuts payload and scales
+(``quant.quantize_param_axes``).  Session checkpoints gather the whole
+view and restore onto any layout.  On the (1, 1) mesh no collective is
+issued and the engine is the single-device one, CUDA graphs included; on
+a mesh of more than one rank it runs the eager route
+(``counters["mesh_eager"]`` counts those dispatches).  Still refused on a
+mesh, with ``NotImplementedError``: recurrent and MoE layers, head counts
+that need the sequence-sharded cache (``transformer.shard_params``), and
+graph capture over more than one rank.
 ``weight_quant`` (``"int8"`` / ``"fp8"``, monolithic or paged) serves from
 ``quant.quantize_params``'s copy of the model: the attention, MLP and
 expert matmul weights and an untied head stored per-row quantized and
@@ -78,7 +87,7 @@ backbone, as the reference's engine does.
 ``checkpoint_session`` / ``restore_session`` persist a session through
 ``training/checkpoint.py`` in its slot-linear monolithic view, so a chat
 survives an engine restart and moves between paged and monolithic
-engines in either direction.
+engines, one device and any mesh, in either direction.
 
 Unlike JAX's immutable arrays, the port's caches and pools are written in
 place: a monolithic ``SessionState`` is single use (extending it writes its
@@ -95,6 +104,7 @@ from typing import Any, NamedTuple, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import uncertainty as U
 from repro_torch.core.uncertainty import UncertaintyConfig
@@ -124,11 +134,6 @@ def bucket_len(s: int, granularity: int = 512, floor: int = 8) -> int:
         return 1 << (s - 1).bit_length()
     g2 = 2 * granularity
     return -(-s // g2) * g2
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} is not ported to the PyTorch engine "
-                               "yet")
 
 
 @dataclasses.dataclass
@@ -194,6 +199,16 @@ class _RankDraw(NamedTuple):
     batch: int
 
 
+class _KVHeads(NamedTuple):
+    """The KV heads a rank's attention holds: ``count`` from ``start``, and
+    where 'model' cuts them, each model shard's first head (``starts``)
+    and the axes of the cut."""
+    start: int
+    count: int
+    starts: tuple = ()
+    axes: tuple = ()
+
+
 def _cache_tree(cache: list) -> dict:
     """A per-layer cache list as the checkpoint's nested dict {layer:
     {field: tensor}}, sharing the tensors (restore fills them in place)."""
@@ -242,7 +257,11 @@ class InferenceEngine:
 
     def __post_init__(self):
         if self.mesh is not None:
-            self._refuse_on_mesh()
+            # what the mesh path does not serve yet raises (ROADMAP A8b):
+            # ``transformer.shard_params`` refuses recurrent and MoE layers
+            # and the head counts that need the sequence-sharded cache,
+            # ``_no_capture`` a captured dispatch over more than one rank
+            sh.check_mesh(self.mesh)
         if not self.cfg.causal:
             raise NotImplementedError(
                 f"{self.cfg.name}: an encoder-only config (causal=False) has "
@@ -273,20 +292,32 @@ class InferenceEngine:
                          "decode_only": 0, "grow_copy": 0,
                          "famine_deferred": 0, "shed": 0, "expired": 0,
                          "requeued": 0, "reprefill_cold": 0,
-                         "backpressure_deferred": 0, "mesh_eager": 0}
+                         "backpressure_deferred": 0, "mesh_eager": 0,
+                         "rows_moved": 0, "blocks_moved": 0}
         # ``_mcfg``: the config the model computes with, a rank's own heads
         # and d_ff on a mesh (``transformer.shard_params``); ``comm`` runs
         # the mesh's collectives and counts them
         self._mcfg, self.comm = self.cfg, None
+        Q.check_quant(self.weight_quant)
+        # the data shard this rank holds of a split batch, and how many
+        self._dshard, self._dshards = 0, 1
         if self.mesh is not None:
             self.comm = sh.Comm(self.mesh)
-            self.params = T.shard_params(self.params, self.cfg, self.mesh,
+            self._dshard, self._dshards = sh.shard_index(
+                sh.batch_axes(self.mesh), self.mesh)
+            params = self.params
+            if self.weight_quant is not None:
+                # the whole model first: each rank's payload and scales are
+                # then the slices of the full quantized tree (scales taken
+                # over a rank's own columns would not be)
+                params = Q.quantize_params(params, self.weight_quant)
+            self.params = T.shard_params(params, self.cfg, self.mesh,
                                          comm=self.comm)
             self._mcfg = self.params.cfg
         self.params = self.params.to(self.device)
-        Q.check_quant(self.weight_quant)
-        if self.weight_quant is not None:
+        if self.weight_quant is not None and self.mesh is None:
             self.params = Q.quantize_params(self.params, self.weight_quant)
+        self._kv_heads = self._kv_placement()
         self._recurrent = any(m in ("rglru", "ssd")
                               for m, _ in self.cfg.layer_plan())
         kvb = self.cfg.attn_kv_block
@@ -317,23 +348,39 @@ class InferenceEngine:
                              f"'gather', got {self.attn_decode_impl!r}")
         n_blocks = self.pool_blocks or max(64, 16 * self.max_len // L)
         n_rows = self.pool_rows or max(16, n_blocks * L // self.max_len)
-        self.pool = CachePool(self.cfg, L, n_blocks, n_rows,
+        axes = ()
+        if self.mesh is not None:
+            # the rank's pool: its share of the blocks and rows over the
+            # batch axes (act_pool), its own KV heads (``_mcfg``)
+            n_blocks = sh.pool_share(n_blocks, self.mesh)
+            n_rows = sh.pool_share(n_rows, self.mesh)
+            axes = sh.batch_axes(self.mesh)
+        self.pool = CachePool(self._mcfg, L, n_blocks, n_rows,
                               cache_quant=self.cache_quant,
-                              device=self.device)
+                              device=self.device, comm=self.comm, axes=axes)
 
-    def _refuse_on_mesh(self):
-        """What the mesh path does not serve yet raises (ROADMAP A8b)."""
-        sh.check_mesh(self.mesh)
-        missing = []
-        if self.paged:
-            missing.append("the paged block pool over 'data' (act_pool)")
-        if self.cache_quant is not None or self.weight_quant is not None:
-            missing.append("quantized weights and pools "
-                           "(quantize_param_axes)")
-        if missing:
+    def _no_capture(self) -> None:
+        """A mesh of more than one rank runs the eager route: a graph
+        handed to it raises (gloo cannot be captured, and a multi-card NCCL
+        capture is unchecked)."""
+        if self._graphs is not None and self._multi_rank:
             raise NotImplementedError(
-                f"{' and '.join(missing)} on a mesh: not ported to the "
-                "PyTorch engine yet")
+                "graph capture over more than one rank is not ported: a mesh "
+                "of more than one rank runs the eager route")
+
+    def _kv_placement(self) -> "_KVHeads":
+        """The KV heads this rank's attention holds: case (a) of
+        ``shard_params`` a slice, case (b) the one head its query heads
+        read; case (c), a (1, 1) mesh and one device all of them."""
+        K, K_l = self.cfg.num_kv_heads, self._mcfg.num_kv_heads
+        if K_l == K:
+            return _KVHeads(0, K)
+        tp = next(layer.mixer.tp for layer in self.params.layers
+                  if hasattr(layer.mixer, "tp"))
+        H = self.cfg.num_heads
+        m = math.prod(self.comm.sizes[a] for a in tp.axes)
+        starts = tuple(r * tp.size * K // H for r in range(m))
+        return _KVHeads(tp.start * K // H, K_l, starts, tp.axes)
 
     def weight_bytes(self) -> int:
         """Bytes the served model's weights hold on the device: parameters
@@ -430,6 +477,34 @@ class InferenceEngine:
         if self.mesh is None:
             return slice(None)
         return sh.local_slices((B,), (self._batch_part(B),), self.mesh)[0]
+
+    def _nrows(self, B: int) -> int:
+        """How many rows of a batch of B this rank holds."""
+        return len(range(B)[self._rows(B)])
+
+    def _holders(self, B: int) -> list[range]:
+        """The rows of a batch of B that each data shard holds, in shard
+        order (shards over every batch axis, major to minor, as
+        ``_dshard`` counts them): each shard's slice by the batch's spec
+        (``_batch_part``), which may cut B over fewer batch axes than the
+        mesh has (a ('pod', 'data') mesh falls back to 'data' where
+        pod * data does not divide B) or none (every row on every
+        shard)."""
+        if self.mesh is None:
+            return [range(B)]
+        sizes, axes = sh.axis_sizes(self.mesh), sh.batch_axes(self.mesh)
+        used = sh.axes_of(self._batch_part(B))
+        b = B // math.prod(sizes[a] for a in used)
+        out = []
+        for o in range(self._dshards):
+            coord, rest = {}, o
+            for a in reversed(axes):
+                rest, coord[a] = divmod(rest, sizes[a])
+            idx = 0
+            for a in used:
+                idx = idx * sizes[a] + coord[a]
+            out.append(range(idx * b, (idx + 1) * b))
+        return out
 
     def _mine(self, x):
         """This rank's rows of ``x``, a batch along dim 0 that every rank
@@ -582,6 +657,7 @@ class InferenceEngine:
         test sets it)."""
         body = _BODIES[route]
         gen = None if greedy else gen
+        self._no_capture()
         if self._graphs is None:
             self.counters["mesh_eager"] += self._multi_rank
             return body(self, cur, last, cache, pos, steps, greedy, gen,
@@ -647,7 +723,7 @@ class InferenceEngine:
         disp = (state.max_len if need <= state.max_len
                 else self._round_len(need))
         tables = self.pool.extend(handle, disp // self.block_len,
-                                  state.pos.cpu().numpy())
+                                  self._mine(state.pos).cpu().numpy())
         return self._paged_dev_cache(tables, handle.rows), disp
 
     def _prefill_into_paged(self, tokens, s_orig: torch.Tensor,
@@ -807,6 +883,7 @@ class InferenceEngine:
                 staged.get("start"), c, max_len, max_new, greedy, g)
             return out, (made if keep_cache else None)
 
+        self._no_capture()
         if self._graphs is None:
             self.counters["mesh_eager"] += self._multi_rank
             staged = {n: t.to(self.device) for n, t in inputs.items()}
@@ -859,18 +936,25 @@ class InferenceEngine:
         state rows round-trip bitwise; a local-attention ring that has
         wrapped is clamped to its window view.  ``pos``, ``cur``, ``last``,
         ``max_len``, ``offset``, ``exact``, the engine's ``cache_quant`` and
-        the sampling generator's state go with it.  Not on a mesh yet
-        (``NotImplementedError``)."""
-        self._refuse_ckpt_on_mesh()
+        the sampling generator's state go with it.
+
+        On a mesh the file is the same: every rank gathers its rows over the
+        batch axes and its KV heads over 'model' (case (b)'s repeated heads
+        taken once), global rank 0 writes it, and every rank waits at a
+        barrier after the publish; ``restore_session`` cuts the view onto
+        any engine's layout (``launch.mesh.elastic_mesh``'s re-meshing)."""
         self._state_kind_check(state)
         if self.paged:
             h = state.cache
             cov_len = int(h.tables.shape[1]) * self.block_len
             cache = T.paged_gather(
-                self.cfg, self._paged_dev_cache(h.tables, h.rows))
+                self._mcfg, self._paged_dev_cache(h.tables, h.rows))
         else:
             cov_len = int(state.max_len)
             cache = state.cache
+        if self.mesh is not None:
+            cache = [self._kv_whole(self._whole(c, state.batch))
+                     for c in cache]
         tree = {"cache": _cache_tree(cache), "pos": state.pos,
                 "cur": state.cur, "last": state.last}
         if state.gen is not None:
@@ -883,7 +967,37 @@ class InferenceEngine:
                  # numbers are budgeted, not bitwise: restore refuses
                  # another representation (QuantMismatchError)
                  "cache_quant": self.cache_quant}
-        return ck.save(ckpt_dir, step, tree, extra=extra, keep=keep)
+        if self.mesh is None:
+            return ck.save(ckpt_dir, step, tree, extra=extra, keep=keep)
+        if dist.get_rank() == 0:
+            ck.save(ckpt_dir, step, tree, extra=extra, keep=keep)
+        self.comm.barrier()
+        return ck.step_path(ckpt_dir, step)
+
+    def _kv_whole(self, c):
+        """A KV cache entry of the rank's KV heads as one of all the
+        model's: gathered over the axes its heads are cut over, each head
+        once.  Other entries, and an uncut attention, as they are."""
+        kv = self._kv_heads
+        if not kv.starts or not isinstance(c, T.attention.KVCache):
+            return c
+        kl = kv.count
+        pick = torch.tensor([next(r * kl + h - a for r, a in
+                                  enumerate(kv.starts) if a <= h < a + kl)
+                             for h in range(self.cfg.num_kv_heads)],
+                            device=c.k.device)
+        k, v = (self.comm.all_gather(t, kv.axes, 2).index_select(2, pick)
+                for t in (c.k, c.v))
+        return c._replace(k=k, v=v)
+
+    def _kv_mine(self, c):
+        """This rank's rows and KV heads of a whole cache entry."""
+        k0, kl = self._kv_heads.start, self._kv_heads.count
+        B = c[0].shape[0]
+        c = type(c)(*(t[self._rows(B)] for t in c))
+        if isinstance(c, T.attention.KVCache):
+            c = c._replace(k=c.k[:, :, k0:k0 + kl], v=c.v[:, :, k0:k0 + kl])
+        return type(c)(*(t.contiguous() for t in c))
 
     @torch.inference_mode()
     def restore_session(self, ckpt_dir: str,
@@ -896,8 +1010,9 @@ class InferenceEngine:
         continues bitwise where the round trip is exact
         (``checkpoint_session``).  Raises ``FileNotFoundError`` without a
         checkpoint, ``ValueError`` for one that is not a session's and
-        ``QuantMismatchError`` for another cache representation."""
-        self._refuse_ckpt_on_mesh()
+        ``QuantMismatchError`` for another cache representation.  On a
+        mesh every rank reads the file and keeps its rows and KV heads, on
+        whatever layout the session was saved from."""
         if step is None:
             step = ck.latest_step(ckpt_dir)
             if step is None:
@@ -921,7 +1036,7 @@ class InferenceEngine:
         if self.paged and cov_len % self.block_len:
             raise ValueError(f"a {cov_len}-slot session does not fill whole "
                              f"blocks of {self.block_len}")
-        cache = T.init_cache(self._mcfg, B, cov_len, device=self.device)
+        cache = T.init_cache(self.cfg, B, cov_len, device=self.device)
         like = {"cache": _cache_tree(cache),
                 "pos": self._full(B, 0), "cur": self._full(B, 0),
                 "last": torch.zeros((B, self.cfg.vocab_size),
@@ -933,11 +1048,14 @@ class InferenceEngine:
         tree, _ = ck.restore(ckpt_dir, step, like)
         if gen is not None:
             gen.set_state(tree["gen"])
+        if self.mesh is not None:
+            cache = [self._kv_mine(c) for c in cache]
         if self.paged:
-            handle = self.pool.alloc(B, cov_len // self.block_len)
+            n = self._nrows(B)
+            handle = self.pool.alloc(n, cov_len // self.block_len)
             T.paged_scatter_back(
-                self.cfg, self._paged_dev_cache(handle.tables, handle.rows),
-                cache, self._full(B, 0), self._full(B, cov_len))
+                self._mcfg, self._paged_dev_cache(handle.tables, handle.rows),
+                cache, self._full(n, 0), self._full(n, cov_len))
             cache, max_len = handle, int(extra["max_len"])
         else:
             # a monolithic cache is as long as its max_len: a paged-saved
@@ -948,16 +1066,11 @@ class InferenceEngine:
             # bits)
             max_len = int(extra["max_len"])
             if max_len > cov_len:
-                cache = T.grow_cache(self._mcfg, cache, B, max_len,
-                                     device=self.device)
+                cache = T.grow_cache(self._mcfg, cache, self._nrows(B),
+                                     max_len, device=self.device)
         return SessionState(cache, tree["pos"], tree["cur"], tree["last"],
                             max_len, int(extra["offset"]), gen,
                             bool(extra["exact"]))
-
-    def _refuse_ckpt_on_mesh(self):
-        if self.mesh is not None:
-            raise _not_ported("a session checkpoint on a mesh (restoring "
-                              "onto another mesh re-shards the cache)")
 
     def _state_kind_check(self, state: SessionState):
         """A paged engine takes only PagedHandle states and a monolithic
@@ -1026,11 +1139,13 @@ class InferenceEngine:
             max_len = self._cache_len(pb.shape[1], max_new)
             self.counters["prefill"] += 1
             if self.paged:
-                # the dispatch writes every block of the new session
-                cache = self.pool.alloc(B, max_len // self.block_len,
+                # the dispatch writes every block of the new session; on a
+                # mesh the rank's rows, in its own pool
+                cache = self.pool.alloc(self._nrows(B),
+                                        max_len // self.block_len,
                                         reset="dispatch")
                 out, _ = self._generate_fused(
-                    pb, s_orig, None,
+                    self._mine(pb), s_orig, None,
                     self._paged_dev_cache(cache.tables, cache.rows),
                     max_len, max_new, greedy, draw)
             else:
@@ -1129,7 +1244,8 @@ class InferenceEngine:
             self.counters["prefill"] += 1
             tokens, s_len = self._span(self._mine(pb), s_orig)
             if self.paged:
-                cache = self.pool.alloc(B, max_len // self.block_len)
+                cache = self.pool.alloc(self._nrows(B),
+                                        max_len // self.block_len)
                 cur, last, _ = self._prefill_into_paged(
                     tokens, s_len,
                     self._paged_dev_cache(cache.tables, cache.rows))
@@ -1151,7 +1267,7 @@ class InferenceEngine:
                 cache = state.cache
                 dev, max_len = self._paged_grown(state, need)
                 cur, last, _ = self._prefill_continue_paged(
-                    tokens, s_len, state.pos, dev)
+                    tokens, s_len, self._mine(state.pos), dev)
             else:
                 cache, max_len = self._grown_cache(state, need)
                 cur, last, cache = self._prefill_continue(
@@ -1170,14 +1286,22 @@ class InferenceEngine:
         recurrent states alike (the caches are written in place, so
         extending the selection must leave the source untouched).  Paged: a
         refcounted table copy and fresh copies of the state rows
-        (``CachePool.select``); the selection's first write COW-copies any
+        (``CachePool.fork``); the selection's first write COW-copies any
         shared block in its range, so the source's blocks and rows stay as
-        they were."""
-        idx_np = np.asarray(idx, np.int64)
+        they were.
+
+        On a mesh a selected row that stays on its data rank keeps its
+        refcounted table (no copy); one that moves to another data rank
+        (the selection is split otherwise than the source, or replicated
+        where the source was split) has its covered blocks and state row
+        gathered over the batch axes and written into fresh blocks and a
+        fresh row on its new rank (``_move_rows``, counted in
+        ``counters["rows_moved"]`` / ``["blocks_moved"]``)."""
+        idx_np = np.asarray(idx, np.int64).reshape(-1)
         idx = torch.as_tensor(idx_np, device=self.device)
         if self.paged:
             self._state_kind_check(state)
-            cache = self.pool.select(state.cache, idx_np)
+            cache = self._paged_select(state.cache, state.batch, idx_np)
         else:
             # on a mesh the rows it picks may sit on other ranks: gather the
             # whole batch, pick, and keep this rank's rows of the selection
@@ -1189,6 +1313,94 @@ class InferenceEngine:
                             state.cur.index_select(0, idx),
                             state.last.index_select(0, idx), state.max_len,
                             state.offset, _fork(state.gen), state.exact)
+
+    def _paged_select(self, h: PagedHandle, B: int,
+                      idx: np.ndarray) -> PagedHandle:
+        """``state_select`` of a paged handle over a batch of B: the rows
+        this rank holds of the selection.  A row it held already is forked
+        off its own (shared blocks, a copied state row); a row moved in
+        from another data rank (``_move_rows``) is its own fresh run (a
+        repeat of it is forked off that run)."""
+        n, me = len(idx), self._dshard
+        src, dst = self._holders(B), self._holders(n)
+        owner = {}                          # moved source row -> its shard
+        for r in range(self._dshards):
+            for s in {int(idx[g]) for g in dst[r]} - set(src[r]):
+                owner[s] = next(o for o in range(self._dshards)
+                                if s in src[o])
+        nbc = h.tables.shape[1]
+        moves = [(s, owner[s], nbc) for s in sorted(owner)]
+        need = {int(idx[g]) for g in dst[me]} - set(src[me])
+        self.pool.reserve(nbc * len(need), len(dst[me]))
+        lo = src[me].start
+        held = {s: (h.tables[s - lo], int(h.rows[s - lo]))
+                for s in src[me] if s in owner}
+        got = self._move_rows(moves, held, need) if moves else {}
+        # a moved-in run is the selection's row as it is (its first time);
+        # every other row is forked off its run (shared blocks, a copied
+        # state row), as one device forks
+        runs, fork = [], []
+        for g in dst[me]:
+            s = int(idx[g])
+            if s in got and not any(r is got[s] for r in runs):
+                runs.append(got[s])
+            else:
+                fork.append(len(runs))
+                runs.append(got[s] if s in got else
+                            (h.tables[s - lo], h.rows[s - lo]))
+        tabs = np.stack([b for b, _ in runs]).astype(np.int32)
+        rows = np.asarray([r for _, r in runs], np.int32)
+        if fork:
+            rows[fork] = self.pool.share_run(tabs[fork], rows[fork])
+        return self.pool.register(tabs, rows)
+
+    def _move_rows(self, moves: list, held: dict, need: set) -> dict:
+        """Copy session rows between data ranks.  ``moves``: ``(key, owner
+        data shard, covered blocks)`` of every moved row, the same list on
+        every rank; ``held``: ``{key: (blocks, state row)}`` of the moved
+        rows this rank owns; ``need``: the keys this rank receives (the
+        caller reserved their blocks and rows).  Every rank gathers the
+        moved rows' covered blocks (raw: a quantized block keeps its
+        payload and scales) and state rows over the batch axes, one
+        all-gather per pool tensor, and writes those it needs into fresh
+        blocks and a fresh row.  Returns ``{key: (blocks, row)}``."""
+        pool, d = self.pool, self._dshards
+        by = [[m for m in moves if m[1] == o] for o in range(d)]
+        c = max(len(x) for x in by)
+        nbm = max(n for _, _, n in moves)
+        blk = np.full((c, nbm), pool.n_blocks, np.int64)    # the sink
+        row = np.full((c,), pool.n_rows, np.int64)
+        for j, (k, _, n) in enumerate(by[self._dshard]):
+            blk[j, :n] = held[k][0][:n]
+            row[j] = held[k][1]
+        bi = torch.as_tensor(blk.reshape(-1), device=self.device)
+        ri = torch.as_tensor(row, device=self.device)
+        got = {k: (pool.alloc_blocks(n, reset=False),
+                   int(pool.alloc_rows(1, reset="dispatch")[0]))
+               for k, _, n in moves if k in need}
+        axes = sh.batch_axes(self.mesh)
+        for layer in pool.arrays:
+            kv = isinstance(layer, T.attention.KVPool)
+            for t in layer:
+                if t is None:
+                    continue
+                r = T.attention.raw(t)
+                part = (r.index_select(0, bi).view(c, nbm, *r.shape[1:])
+                        if kv else r.index_select(0, ri))
+                every = self.comm.all_gather(part, axes, 0)
+                for k, o, n in moves:
+                    if k not in need:
+                        continue
+                    j = o * c + [m[0] for m in by[o]].index(k)
+                    b, rw = got[k]
+                    if kv:
+                        r[torch.as_tensor(b, device=self.device).long()] = \
+                            every[j, :n]
+                    else:
+                        r[rw] = every[j]
+        self.counters["rows_moved"] += len(moves)
+        self.counters["blocks_moved"] += sum(n for _, _, n in moves)
+        return got
 
     @torch.inference_mode()
     def generate_stepwise(self, prompts: np.ndarray, max_new: int, *,
@@ -1313,20 +1525,21 @@ class InferenceEngine:
         last = torch.zeros((n_slots, self.cfg.vocab_size),
                            dtype=torch.float32, device=dev)
         pos = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
+        # on a mesh whose batch axes divide n_slots, a data rank decodes
+        # its own slots (``mine``, held in its cache or pool) and admits
+        # into them alone; otherwise every rank holds every slot
+        mine = range(n_slots)[self._rows(n_slots)]
+        holders = self._holders(n_slots)
         if paged:
             nb = max_len // self.block_len
             # sentinel tables and rows: an empty slot's reads are skipped
             # or clamped and its writes land in the sinks
-            slot_tables = np.full((n_slots, nb), self.pool.n_blocks,
+            slot_tables = np.full((len(mine), nb), self.pool.n_blocks,
                                   np.int32)
-            slot_rows = np.full((n_slots,), self.pool.n_rows, np.int32)
+            slot_rows = np.full((len(mine),), self.pool.n_rows, np.int32)
             slot_run: list = [None] * n_slots   # the (blocks, row) it owns
             cache = None
         else:
-            # on a mesh whose batch axes divide n_slots, a rank decodes
-            # its own slots (``mine``); admissions prefill replicated
-            # (batch 1) and the owner splices them in
-            mine = range(n_slots)[self._rows(n_slots)]
             cache = T.init_cache(self._mcfg, len(mine), max_len, device=dev)
         gen = self._generator(greedy, seed)
         acc: dict[int, list] = {}           # rid -> [sum_h, sum_v, n]
@@ -1347,26 +1560,40 @@ class InferenceEngine:
                     out["state"] = states.pop(req.rid)
                 results.append(out)
 
-        promised = [0]          # slots admitted this round, not yet funded
+        # per data rank: its pool's free blocks and rows (agreed once per
+        # admission round) and the slots admit() promised it this round
+        free = [None]
+        promised = [None]
+
+        def fund():
+            free[0] = self.pool.free_counts()
+            promised[0] = np.zeros((self._dshards,), np.int64)
 
         def fits(r: Request) -> bool:
             # a cold request needs a full run and a state row, a warm one at
-            # most that; count the slots admit() already promised this round
-            ok = self.pool.can_alloc((promised[0] + 1) * nb, promised[0] + 1)
-            promised[0] += ok
+            # most that, from the pool of every rank that holds the slot
+            # admit() is filling (its lowest free one); every rank decides
+            # alike from the agreed counts
+            i = batcher.slots.index(None)
+            own = [o for o in range(self._dshards) if i in holders[o]]
+            p = promised[0]
+            ok = all(free[0][o, 0] >= (p[o] + 1) * nb
+                     and free[0][o, 1] >= p[o] + 1 for o in own)
+            if ok:
+                p[own] += 1
             return ok
 
         def free_slot(i: int):
             # free the blocks and the row a slot still owns and repoint it
             # at the sentinels: its garbage decode writes the sinks from now
-            if paged:
+            if paged and i in mine:
                 if slot_run[i] is not None:
                     blocks, row = slot_run[i]
                     self.pool.free_blocks(blocks)
                     self.pool.free_rows(np.array([row]))
                     slot_run[i] = None
-                slot_tables[i, :] = self.pool.n_blocks
-                slot_rows[i] = self.pool.n_rows
+                slot_tables[i - mine.start, :] = self.pool.n_blocks
+                slot_rows[i - mine.start] = self.pool.n_rows
             pos0.pop(i, None)
 
         now_ms = 0.0            # the deadline clock (step_time_ms)
@@ -1381,7 +1608,8 @@ class InferenceEngine:
                 if not batcher.active():
                     continue
             else:
-                promised[0] = 0
+                if paged:
+                    fund()
                 admitted = batcher.admit(fits=fits if paged else None)
             if paged and not admitted and not batcher.active() \
                     and batcher.queue:
@@ -1392,7 +1620,7 @@ class InferenceEngine:
                             if r.state is not None
                             and isinstance(r.state.cache, PagedHandle)}
                     self.pool.evict_idle(session_ttl_s, exclude=keep)
-                promised[0] = 0
+                fund()
                 admitted = batcher.admit(fits=fits)
                 if not admitted:
                     if overload == "shed" and batcher.shed_one() is not None:
@@ -1433,49 +1661,55 @@ class InferenceEngine:
                             self.counters["shed"] += 1
                             continue
                         self.counters["reprefill_cold"] += 1
-                if paged:
-                    run, row = (self.pool.admit_row(st.cache, nb,
-                                                    int(st.pos[0]))
-                                if st is not None
-                                else self.pool.alloc_run(nb))
-                    slot_tables[i, :] = run
-                    slot_rows[i] = row
-                    slot_run[i] = (run, row)
-                    c1g = self._paged_dev_cache(slot_tables[i:i + 1],
-                                                slot_rows[i:i + 1])
-                elif st is not None:
-                    c1g, _ = self._grown_cache(st, max_len)
                 if st is not None and req.prompt:
                     # warm admission: continuation prefill of the new span
                     pb, s_orig = self._bucket_right(
                         np.asarray(req.prompt, np.int32)[None])
                     self.counters["prefill_continue"] += 1
-                    fn = (self._prefill_continue_paged if paged
-                          else self._prefill_continue)
-                    c1, l1, k1 = fn(*self._span(pb, s_orig), st.pos, c1g)
                     p0 = st.offset + s_orig
                 elif st is not None:                 # pure decode resume
                     self.counters["decode_only"] += 1
-                    c1, l1, k1 = st.cur, st.last, c1g
                     p0 = st.offset
                 else:
                     pb, s_orig = self._bucket(
                         np.asarray(req.prompt, np.int32)[None])
                     self.counters["prefill"] += 1
+                    p0 = s_orig
+                pos0[i] = p0
+                if paged and i not in mine:
+                    continue            # another data rank holds the slot
+                li = i - mine.start
+                if paged:
+                    run, row = (self.pool.admit_row(st.cache, nb,
+                                                    int(st.pos[0]))
+                                if st is not None
+                                else self.pool.alloc_run(nb))
+                    slot_tables[li, :] = run
+                    slot_rows[li] = row
+                    slot_run[i] = (run, row)
+                    c1g = self._paged_dev_cache(slot_tables[li:li + 1],
+                                                slot_rows[li:li + 1])
+                elif st is not None:
+                    c1g, _ = self._grown_cache(st, max_len)
+                if st is not None and req.prompt:
+                    fn = (self._prefill_continue_paged if paged
+                          else self._prefill_continue)
+                    c1, l1, k1 = fn(*self._span(pb, s_orig), st.pos, c1g)
+                elif st is not None:
+                    c1, l1, k1 = st.cur, st.last, c1g
+                else:
                     span = self._span(pb, s_orig)
                     if paged:
                         c1, l1, k1 = self._prefill_into_paged(*span, c1g)
                     else:
                         c1, l1, k1 = self._prefill_absorb(*span, max_len)
-                    p0 = s_orig
                 if not paged and i in mine:          # splice into slot i
                     for dst, src in zip(cache, k1):
                         for a, b in zip(dst, src):
-                            a[i - mine.start].copy_(b[0])
+                            a[li].copy_(b[0])
                 cur[i] = c1[0]
                 last[i] = l1[0]
                 pos[i] = p0
-                pos0[i] = p0
 
             # a return_state request's last step lands on a chunk boundary,
             # so its slot state is captured exactly
@@ -1521,11 +1755,9 @@ class InferenceEngine:
                     handle = None
                     if not paged:
                         handle = self._slot_cache(cache, i, n_slots)
-                    elif slot_run[i] is not None:
-                        blocks, row = slot_run[i]
-                        handle = self.pool.adopt(
-                            blocks, row, -(-end // self.block_len))
-                        slot_run[i] = None
+                    else:
+                        handle = self._slot_handle(slot_run, i, mine,
+                                                   -(-end // self.block_len))
                     states[req.rid] = SessionState(
                         handle, self._full(1, end), cur[i:i + 1].clone(),
                         last[i:i + 1].clone(), max_len, end, exact=exact)
@@ -1558,6 +1790,33 @@ class InferenceEngine:
             drain()
         drain()
         return results
+
+    def _slot_handle(self, slot_run: list, i: int, mine: range,
+                     covered: int):
+        """A retired paged serve slot's session handle, trimmed to its
+        ``covered`` blocks: the slot's own run adopted where this rank
+        holds the slot; on the other data ranks of a split (the handle is
+        batch 1, so every rank holds it) a copy of the owner's covered
+        blocks and row (``_move_rows``)."""
+        if len(mine) == len(slot_run):
+            if slot_run[i] is None:
+                return None
+            blocks, row = slot_run[i]
+            slot_run[i] = None
+            return self.pool.adopt(blocks, row, covered)
+        owner = next(o for o, rows in enumerate(self._holders(len(slot_run)))
+                     if i in rows)
+        mine_ = i in mine
+        self.pool.reserve(0 if mine_ else covered, 0 if mine_ else 1)
+        held = {i: slot_run[i]} if mine_ else {}
+        got = self._move_rows([(i, owner, covered)], held,
+                              set() if mine_ else {i})
+        if mine_:
+            blocks, row = slot_run[i]
+            slot_run[i] = None
+            return self.pool.adopt(blocks, row, covered)
+        blocks, row = got[i]
+        return self.pool.register(blocks[None], np.array([row], np.int32))
 
     # ------------------------------------------------------------------
     def token_count(self, prompts: np.ndarray, max_new: int) -> np.ndarray:

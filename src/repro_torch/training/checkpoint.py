@@ -70,12 +70,17 @@ def _to_numpy(leaf) -> tuple[np.ndarray, str]:
     return a, str(a.dtype)
 
 
+def step_path(ckpt_dir: str, step: int) -> str:
+    """Where checkpoint ``step`` is published."""
+    return os.path.join(ckpt_dir, f"step_{step}")
+
+
 def save(ckpt_dir: str, step: int, tree: Any, extra: dict | None = None,
          keep: int = 3) -> str:
     """Write one checkpoint atomically; prune old ones.  Returns the final
     path."""
     tmp = os.path.join(ckpt_dir, f"tmp_{step}")
-    final = os.path.join(ckpt_dir, f"step_{step}")
+    final = step_path(ckpt_dir, step)
     os.makedirs(tmp, exist_ok=True)
     manifest = {"step": step, "extra": extra or {},
                 "treedef": str({k: type(v).__name__ for k, v in

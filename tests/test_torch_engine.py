@@ -183,9 +183,10 @@ class TestPortContracts:
             np.testing.assert_allclose(fin[i]["u"], tres["u"][i], atol=1e-4)
 
     def test_unported_paths_raise(self, engines):
-        """What the port does not serve yet raises: a paged pool on a mesh
-        (dense engines on a mesh are ported: test_torch_mesh_engine.py; warm
-        sessions, paged pools, fault injection and the deadline clock:
+        """What the port does not serve yet raises: a recurrent mixer on a
+        mesh (dense engines on a mesh, paged and quantized too, are ported:
+        test_torch_mesh_engine.py, test_torch_mesh_paged.py; warm sessions,
+        paged pools, fault injection and the deadline clock:
         tests/test_torch_continuation.py, test_torch_paged.py,
         test_torch_faults.py), and a mesh that is not a ``DeviceMesh``
         raises ``TypeError``.  An empty fault plan and a clock no request
@@ -197,9 +198,14 @@ class TestPortContracts:
         np.testing.assert_array_equal(fin[0]["tokens"], tres["tokens"][0])
         assert not fin[0].get("shed")
         from repro_torch.launch.mesh import serving_mesh
+        mesh = serving_mesh(device="cpu")
+        paged = TEngine("x", te.cfg, te.params, device="cpu", paged=True,
+                        mesh=mesh)
+        assert paged.generate(PROMPTS, 2)["tokens"].shape == (len(PROMPTS), 2)
+        rg = TC.get_smoke("recurrentgemma-2b")
         with pytest.raises(NotImplementedError, match="mesh"):
-            TEngine("x", te.cfg, te.params, device="cpu", paged=True,
-                    mesh=serving_mesh(device="cpu"))
+            TEngine("x", rg, TT.Transformer(rg), device="cpu", paged=True,
+                    mesh=mesh)
         with pytest.raises(TypeError, match="DeviceMesh"):
             TEngine("x", te.cfg, te.params, device="cpu", mesh=object())
 

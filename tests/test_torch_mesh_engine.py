@@ -15,8 +15,14 @@
   data=4 (the batch replicated) and 4 slots, each rank's shapes the full
   ones divided as the specs say; then the gateway on a (data=1, model=2)
   mesh: the same routing decisions and tokens as the single-device one.
-* What the mesh path does not serve yet raises ``NotImplementedError``
-  naming it; a mesh that is not a ``DeviceMesh`` raises ``TypeError``.
+* Paged pools, quantized weights and pools and session checkpoints build
+  and run on the (1, 1) mesh here (``tests/test_torch_mesh_paged.py``
+  holds them to one device and to JAX); what the mesh path does not serve
+  yet raises ``NotImplementedError`` naming it (recurrent and MoE layers,
+  the sequence-sharded cache, graph capture over more than one rank); a
+  mesh that is not a ``DeviceMesh`` raises ``TypeError``.
+* The serve CLI with ``--model-parallel 2 --paged --cache-quant int8`` on
+  two gloo ranks routes the study workload as one device does.
 """
 
 import dataclasses
@@ -107,12 +113,12 @@ def test_degenerate_mesh_matches_jax_tie_aware(tier):
                                     _logits_np(je.generate(PROMPTS, 8)))
 
 
-def _ranks(job: str):
+def _ranks(job: str, timeout: int = 300):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, str(ROOT / "tests" /
                                                "torch_mesh_ranks.py"), job],
                           env=env, capture_output=True, text=True,
-                          timeout=300)
+                          timeout=timeout)
     assert proc.returncode == 0, (proc.stdout[-2000:], proc.stderr[-4000:])
     assert "RESULT ok" in proc.stdout, proc.stdout
     return proc.stdout
@@ -131,16 +137,22 @@ def test_gateway_on_a_model_parallel_mesh():
     assert "gateway decisions" in out, out
 
 
-@pytest.mark.parametrize("kw,what", [
-    (dict(paged=True), "paged block pool"),
-    (dict(paged=True, cache_quant="int8"), "quantized"),
-    (dict(weight_quant="int8"), "quantized")],
+@pytest.mark.parametrize("kw", [
+    dict(paged=True), dict(paged=True, cache_quant="int8"),
+    dict(weight_quant="int8")],
     ids=["paged", "cache_quant", "weight_quant"])
-def test_unported_mesh_paths_raise(mesh11, kw, what):
-    tc = TC.get_smoke("llama3-8b")
-    model = TT.Transformer(tc)
-    with pytest.raises(NotImplementedError, match=what):
-        TEngine("x", tc, model, device="cpu", mesh=mesh11, **kw)
+def test_unported_mesh_paths_raise(mesh11, kw):
+    """Paged pools and quantized weights and pools are served on a mesh
+    (the engine builds and generates); what stays unported beside them
+    raises, naming it: a recurrent mixer on a mesh."""
+    tc = dataclasses.replace(TC.get_smoke("llama3-8b"), vocab_size=512)
+    eng = TEngine("x", tc, TT.Transformer(tc), device="cpu", mesh=mesh11,
+                  **kw)
+    assert eng.generate(PROMPTS, 2)["tokens"].shape == (len(PROMPTS), 2)
+    rg = TC.get_smoke("recurrentgemma-2b")
+    with pytest.raises(NotImplementedError, match="rglru"):
+        TEngine("x", rg, TT.Transformer(rg), device="cpu", mesh=mesh11,
+                **kw)
 
 
 @pytest.mark.parametrize("arch,what", [
@@ -153,12 +165,31 @@ def test_other_mixers_on_a_mesh_raise(mesh11, arch, what):
 
 
 def test_session_checkpoints_on_a_mesh_raise(mesh11, tmp_path):
+    """A session checkpoint round-trips on the mesh (bitwise on one
+    layout); restoring it where the cache representation differs raises
+    ``QuantMismatchError``, as off a mesh; a mesh that is not a
+    ``DeviceMesh`` raises ``TypeError``."""
+    from repro_torch.serving.cache_manager import QuantMismatchError
     tc = dataclasses.replace(TC.get_smoke("llama3-8b"), vocab_size=512)
-    eng = TEngine("x", tc, TT.Transformer(tc), device="cpu", mesh=mesh11)
+    model = TT.init_params(tc, torch.Generator().manual_seed(2),
+                           device="cpu")
+    eng = TEngine("x", tc, model, device="cpu", mesh=mesh11)
     st = eng.absorb(PROMPTS[:1])
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        eng.checkpoint_session(st, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        eng.restore_session(str(tmp_path))
+    eng.checkpoint_session(st, str(tmp_path))
+    ref = eng.generate(None, 4, state=st)
+    got = eng.generate(None, 4, state=eng.restore_session(str(tmp_path)))
+    np.testing.assert_array_equal(got["tokens"], ref["tokens"])
+    assert torch.equal(got["logits"], ref["logits"])
+    q = TEngine("x", tc, model, device="cpu", mesh=mesh11, paged=True,
+                cache_quant="int8")
+    with pytest.raises(QuantMismatchError):
+        q.restore_session(str(tmp_path))
     with pytest.raises(TypeError, match="DeviceMesh"):
         TEngine("x", tc, TT.Transformer(tc), device="cpu", mesh=object())
+
+
+def test_serve_cli_paged_int8_on_two_ranks():
+    """``python -m repro_torch.launch.serve --device cpu --model-parallel 2
+    --paged --cache-quant int8`` (40 train steps) on two gloo ranks: the
+    routing decisions and answers of the same command on one device."""
+    assert "cli routes" in _ranks("cli", timeout=600)

@@ -3,6 +3,12 @@ port's mesh-sharded engine and gateway against its single-device ones.
 
     python tests/torch_mesh_ranks.py engines   # 4 ranks: (2,2), (1,4), (4,1)
     python tests/torch_mesh_ranks.py gateway   # 2 ranks: (1,2)
+    python tests/torch_mesh_ranks.py paged     # 4 ranks: paged and quantized,
+                                               # and a (2,2,1) pod mesh
+    python tests/torch_mesh_ranks.py lockstep  # 2 ranks: (2,1) pool decisions
+    python tests/torch_mesh_ranks.py ckpt DIR  # 4 ranks: sessions, meshes
+    python tests/torch_mesh_ranks.py paged_gateway  # 2 ranks: (1,2), int8 pool
+    python tests/torch_mesh_ranks.py cli [STEPS]  # 2 ranks: the serve CLI
 
 Spawns its ranks over a ``FileStore`` in a temporary directory (no socket
 but gloo's own on the loopback device); every rank builds the same
@@ -15,6 +21,7 @@ rank starts in a few seconds.
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import sys
 import tempfile
@@ -113,17 +120,28 @@ def check_local_shapes(eng, full, mesh):
     return sum(t.nbytes for t in local.values())
 
 
-def engines_case(mesh, arch: str, seed: int):
+def engines_case(mesh, arch: str, seed: int, kw=None,
+                 dtypes=(torch.bfloat16, torch.float32)):
+    """``arch``'s engine on ``mesh`` (built with ``kw``) against one
+    device's (the same ``kw``) through every entry point, tie-aware."""
     from repro_torch.core.uncertainty import UncertaintyConfig
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving.scheduler import Request
     ucfg = UncertaintyConfig(mode="distribution")
-    for dtype in (torch.bfloat16, torch.float32):
+    kw = kw or {}
+    for dtype in dtypes:
         cfg, m = model(arch, dtype, seed)
-        base = InferenceEngine(arch, cfg, m, ucfg, device="cpu")
-        shard = InferenceEngine(arch, cfg, m, ucfg, device="cpu", mesh=mesh)
-        check_local_shapes(shard, m, mesh)
-        tag = f"{arch} {dtype} {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+        base = InferenceEngine(arch, cfg, m, ucfg, device="cpu", **kw)
+        shard = InferenceEngine(arch, cfg, m, ucfg, device="cpu", mesh=mesh,
+                                **kw)
+        if kw.get("weight_quant"):
+            check_qtensor_slices(shard, m, kw["weight_quant"], mesh)
+        else:
+            check_local_shapes(shard, m, mesh)
+        if kw.get("paged"):
+            check_pool_shapes(shard, mesh)
+        tag = (f"{arch} {dtype} {kw} "
+               f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
         r0 = base.generate(PROMPTS, 8, return_state=True)
         r1 = shard.generate(PROMPTS, 8, return_state=True)
         tie_aware(r1, r0, tag + " generate")
@@ -146,6 +164,17 @@ def engines_case(mesh, arch: str, seed: int):
         s1 = shard.generate(None, 4, state=shard.state_select(
             e1["state"], pick))
         tie_aware(s1, s0, tag + " state_select")
+        # two rows: split over 'data' where it divides 2 (a row may change
+        # data rank), else replicated
+        s0 = base.generate(None, 3, state=base.state_select(
+            e0["state"], pick[:2]))
+        s1 = shard.generate(None, 3, state=shard.state_select(
+            e1["state"], pick[:2]))
+        tie_aware(s1, s0, tag + " state_select of 2")
+        if kw.get("paged") and shard._dshards > 1:
+            # the 3 picked rows are replicated, the source was split: the
+            # rows other data ranks held moved over
+            assert shard.counters["rows_moved"] > 0, shard.counters
         # absorb, then a warm continuation
         w0 = base.generate(SPAN, 6, state=base.absorb(PROMPTS))
         w1 = shard.generate(SPAN, 6, state=shard.absorb(PROMPTS))
@@ -168,6 +197,8 @@ def engines_case(mesh, arch: str, seed: int):
         if dtype == torch.float32:
             sampled_case(base, shard, tag, seed=3 + seed)
         assert shard.counters["mesh_eager"] > 0, shard.counters
+        if kw.get("paged"):
+            fan_case(base, shard, tag)
 
 
 def sampled_case(base, shard, tag: str, seed: int):
@@ -204,7 +235,335 @@ def sampled_case(base, shard, tag: str, seed: int):
                                       err_msg=tag + " sampled serve")
 
 
-def run_engines(rank: int, world: int, store: str):
+def check_qtensor_slices(eng, full, quant: str, mesh):
+    """Each of the rank's ``QTensor`` weights is bitwise the slice of the
+    whole model's ``quantize_params`` tree its spec gives (case (b):
+    wk/wv's one KV head), payload and scales; and the payload shapes are
+    the full ones divided so."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import quant as Q
+    from repro_torch.models import transformer as T
+    fq = Q.quantize_params(full, quant)
+    axes = Q.quantize_param_axes(T.param_axes(fq), fq)
+    local = dict(eng.params.named_modules())
+    kv0, kl = eng._kv_heads.start, eng._kv_heads.count
+    names = Q.quantized_names(fq)
+    assert names and names == Q.quantized_names(eng.params), names
+    for name, q in ((n, m) for n, m in fq.named_modules()
+                    if isinstance(m, Q.QTensor)):
+        for leaf in ("q", "scale"):
+            t = getattr(q, leaf)
+            spec = sh.spec_for(t.shape, axes[f"{name}.{leaf}"], mesh,
+                               sh.SERVE_RULES.param_rules)
+            want = t[sh.local_slices(t.shape, spec, mesh)]
+            if (name.endswith(("wk", "wv")) and kl < full.cfg.num_kv_heads
+                    and want.shape[1] == full.cfg.num_kv_heads):
+                want = want[:, kv0:kv0 + kl]                     # case (b)
+            got = getattr(local[name], leaf)
+            assert got.dtype == want.dtype, (name, leaf)
+            assert torch.equal(got.view(torch.uint8) if got.dtype ==
+                               torch.float8_e4m3fn else got,
+                               want.view(torch.uint8) if want.dtype ==
+                               torch.float8_e4m3fn else want), (name, leaf)
+
+
+def check_pool_shapes(eng, mesh):
+    """Each leaf of the rank's pool (its served blocks) is the full pool's
+    with the blocks cut to the rank's share (``sharding.pool_share``:
+    ``n / d`` over the batch axes) and the KV heads those the rank's
+    attention holds (``_mcfg``; case (b): one); and the shares are the
+    full counts over the batch axes' size."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import transformer as T
+    cfg, pool = eng.cfg, eng.pool
+    n_blocks = eng.pool_blocks
+    d = math.prod(sh.axis_sizes(mesh)[a] for a in sh.batch_axes(mesh))
+    assert pool.n_blocks == sh.pool_share(n_blocks, mesh) == n_blocks // d, \
+        (pool.n_blocks, n_blocks, d)
+    assert pool.n_rows == sh.pool_share(eng.pool_rows, mesh) \
+        == eng.pool_rows // d, (pool.n_rows, eng.pool_rows)
+    full = T.init_block_pool(cfg, n_blocks, eng.block_len, 1,
+                             cache_quant=eng.cache_quant, device="meta")
+    for fl, ll in zip(full, pool.arrays):
+        for f, t in zip(fl.served(), ll.served()):
+            if f is None:
+                assert t is None
+                continue
+            want = [n_blocks // d, *f.shape[1:]]
+            if len(want) > 2:
+                want[2] = eng._mcfg.num_kv_heads
+            assert list(t.shape) == want, (list(t.shape), want)
+            assert t.dtype == f.dtype, (t.dtype, f.dtype)
+
+
+def fan_case(base, shard, tag: str):
+    """A batch-1 session fanned out to 4 rows on a paged engine, each
+    continued (the rows of a split fan-out move to the other data ranks);
+    then both released: every block and row they took returns."""
+    before = (shard.pool.blocks_in_use, shard.pool.rows_in_use)
+    r0 = base.generate(PROMPTS[1:2], 4, return_state=True)
+    r1 = shard.generate(PROMPTS[1:2], 4, return_state=True)
+    tie_aware(r1, r0, tag + " fanout source")
+    if not np.array_equal(r1["tokens"], r0["tokens"]):
+        return
+    f0 = base.generate(None, 4, state=base.fanout(r0["state"], 4))
+    f1 = shard.generate(None, 4, state=shard.fanout(r1["state"], 4),
+                        return_state=True)
+    tie_aware(f1, f0, tag + " fanout")
+    shard.release(f1["state"])
+    shard.release(r1["state"])
+    after = (shard.pool.blocks_in_use, shard.pool.rows_in_use)
+    assert after == before, (tag, before, after)
+
+
+#: the paged and quantized layouts of the ``paged`` job, one per (mesh,
+#: arch) in turn: each mesh serves four of them, each layout two meshes
+PAGED = dict(paged=True, block_len=8, pool_blocks=512, pool_rows=64)
+LAYOUTS = (dict(PAGED),
+           dict(PAGED, attn_decode_impl="gather"),
+           dict(PAGED, cache_quant="int8"),
+           dict(PAGED, cache_quant="fp8", weight_quant="int8"),
+           dict(weight_quant="fp8"),
+           dict(PAGED, weight_quant="fp8", attn_decode_impl="gather"))
+
+
+def run_paged(rank: int, world: int, arg=None):
+    """Each (data, model) mesh over the layouts in turn (bf16; f32 as well
+    for two paged layouts on (2, 2) and one on (4, 1): ``sampled_case``
+    on a split paged batch), then a (pod, data, model) mesh, where a batch
+    of 4 splits over pod * data and one of 2 (serve's 2 slots, a 2-row
+    selection) over 'data' alone, each row on its two pod replicas."""
+    from repro_torch.launch.mesh import elastic_mesh, serving_mesh
+    for j, mp_ in enumerate((2, 4, 1)):
+        mesh = serving_mesh(model_parallel=mp_)
+        for i, arch in enumerate(ARCHS):
+            kw = LAYOUTS[(i + 2 * j) % len(LAYOUTS)]
+            f32 = mp_ != 4 and kw.get("paged") and i % 2 == 0
+            engines_case(mesh, arch, seed=i, kw=kw,
+                         dtypes=(torch.bfloat16,) + ((torch.float32,)
+                                                     if f32 else ()))
+        if rank == 0:
+            print(f"paged mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+                  " ok", flush=True)
+    mesh = elastic_mesh(model_parallel=1, pods=2)
+    assert tuple(mesh.shape) == (2, 2, 1), mesh
+    engines_case(mesh, "llama3-8b", seed=5, kw=LAYOUTS[2],
+                 dtypes=(torch.bfloat16,))
+    if rank == 0:
+        print(f"paged mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} ok",
+              flush=True)
+
+
+def _raises(fn, exc) -> bool:
+    try:
+        fn()
+    except exc:
+        return True
+    return False
+
+
+def _same_everywhere(x) -> list:
+    """Every rank's ``x`` (a list of ints), gathered."""
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, list(x))
+    return out
+
+
+def run_lockstep(rank: int, world: int, arg=None):
+    """Two data ranks, (2, 1): pool decisions that differ between the
+    ranks' pools are taken together.  Each step runs under the job's
+    subprocess timeout: a rank that raised alone would hang the other."""
+    from repro_torch.core.uncertainty import UncertaintyConfig
+    from repro_torch.launch.mesh import serving_mesh
+    from repro_torch.serving.cache_manager import EvictedSessionError
+    from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving.faults import PoolExhaustedError
+    from repro_torch.serving.scheduler import Request
+    mesh = serving_mesh(model_parallel=1)
+    assert tuple(mesh.shape) == (2, 1), mesh
+    cfg, m = model("llama3-8b", torch.float32, 3)
+    ucfg = UncertaintyConfig(mode="distribution")
+    kw = dict(paged=True, block_len=8, pool_blocks=64, pool_rows=16)
+    eng = InferenceEngine("l", cfg, m, ucfg, device="cpu", mesh=mesh, **kw)
+    base = InferenceEngine("b", cfg, m, ucfg, device="cpu", **kw)
+    nb = 128 // 8                       # blocks per row and per serve slot
+    assert eng.pool.n_blocks == 32
+    # (1) rows of unequal provenance: a split session (one row per rank)
+    # forked so that both rows of the fork read row 0 — rank 1's copy moves
+    # over and takes fresh blocks there, rank 0's shares its table
+    r = eng.generate(PROMPTS[:2], 4, return_state=True)
+    fork = eng.state_select(r["state"], [0, 0])
+    assert eng.counters["rows_moved"] == 1, eng.counters
+    used = _same_everywhere([eng.pool.blocks_in_use])
+    assert used[1][0] > used[0][0], used               # rank 1 holds more
+    x = eng.generate(None, 3, state=fork)
+    b0 = base.generate(PROMPTS[:2], 4, return_state=True)
+    tie_aware(x, base.generate(None, 3, state=base.state_select(
+        b0["state"], [0, 0])), "lockstep fork")
+    # a fresh B=2 generate needs nb blocks on each rank: squeezed so that
+    # rank 0 has exactly nb and rank 1 one fewer, both raise and neither
+    # allocates
+    used = _same_everywhere([eng.pool.blocks_in_use])
+    pad = eng.pool.alloc_blocks(32 - used[0][0] - nb)
+    held = eng.pool.blocks_in_use
+    assert _raises(lambda: eng.generate(PROMPTS[:2], 4), PoolExhaustedError)
+    assert eng.pool.blocks_in_use == held
+    eng.pool.free_blocks(pad)
+    eng.release(r["state"])
+    eng.release(fork)
+    assert eng.pool.blocks_in_use == 0, eng.pool.blocks_in_use
+    # (2) serve(): rank 0 can fund one slot's run, rank 1 two; over 4
+    # slots (two per rank) the batcher fills slot 0 and stops at slot 1
+    # (rank 0's), so the queue waits on both ranks, and every request
+    # finishes with one device's tokens
+    hold = eng.pool.alloc_blocks(32 - nb - 4 if rank == 0 else 0)
+    new = [3 + 2 * i for i in range(4)]
+    fin = {f["rid"]: f["tokens"] for f in eng.serve(
+        [Request(rid=i, prompt=PROMPTS[i].tolist(), max_new=new[i])
+         for i in range(4)], n_slots=4, decode_chunk=2)}
+    for i in range(4):
+        tie_aware({"tokens": [fin[i]]},
+                  base.generate(PROMPTS[i:i + 1], new[i]), f"serve {i}")
+    assert eng.counters["backpressure_deferred"] > 0, eng.counters
+    c = _same_everywhere([eng.counters[k] for k in sorted(eng.counters)])
+    assert c[0] == c[1], c
+    # rank 0 cannot fund any slot now: nothing is admitted, nothing
+    # decodes, and both ranks raise (or shed every request, together)
+    more = eng.pool.alloc_blocks(5 if rank == 0 else 0)
+    assert _raises(lambda: eng.serve(
+        [Request(rid=0, prompt=PROMPTS[0].tolist(), max_new=2)],
+        n_slots=2), PoolExhaustedError)
+    shed = eng.serve([Request(rid=i, prompt=PROMPTS[i].tolist(), max_new=2)
+                      for i in range(2)], n_slots=2, overload="shed")
+    assert [f.get("shed") for f in shed] == [True, True], shed
+    eng.pool.free_blocks(np.concatenate([hold, more]))
+    assert eng.pool.blocks_in_use == 0, eng.pool.blocks_in_use
+    # (3) TTL eviction under clocks that disagree: rank 0's runs ahead, so
+    # only it finds the session idle; both evict it
+    st = eng.absorb(PROMPTS[:1])
+    clock = [0.0]
+    eng.pool._clock = lambda: clock[0]
+    eng.pool.check(st.cache)                           # touch at t = 0
+    clock[0] = 10.0 if rank == 0 else 0.5
+    assert eng.evict_idle_sessions(1.0) == 1
+    assert _raises(lambda: eng.generate(None, 2, state=st),
+                   EvictedSessionError)
+    assert eng.pool.blocks_in_use == 0 and eng.pool.rows_in_use == 0
+    if rank == 0:
+        print("lockstep ok", flush=True)
+
+
+def run_cli(rank: int, world: int, arg=None):
+    """``python -m repro_torch.launch.serve --device cpu --model-parallel 2
+    --paged --cache-quant int8`` on the two ranks (``main`` joins their
+    group), then, on rank 0, the same command on one device: the same
+    routing decisions (both train the same weights: one thread a rank)."""
+    from repro_torch.launch import serve
+    args = ["--device", "cpu", "--train-steps", str(arg or 40), "--paged",
+            "--cache-quant", "int8"]
+    log, _, _ = serve.main(args + ["--model-parallel", "2"])
+    if rank == 0:
+        one, _, _ = serve.main(args)
+        np.testing.assert_array_equal(log.decision, one.decision)
+        np.testing.assert_array_equal(log.answers, one.answers)
+        print(f"cli routes {np.bincount(log.decision).tolist()} ok",
+              flush=True)
+
+
+CKPT_ARCH, CKPT_SEED = "llama3-8b", 7
+CKPT_POOL = dict(paged=True, block_len=8, pool_blocks=256, pool_rows=32)
+
+
+def ckpt_reference(arch: str = None):
+    """(model config, weights, the single-device paged engine's first
+    generate with its session, and that session's uninterrupted 5-token
+    continuation): what every restored session is held to."""
+    from repro_torch.core.uncertainty import UncertaintyConfig
+    from repro_torch.serving.engine import InferenceEngine
+    cfg, m = model(arch or CKPT_ARCH, torch.float32, CKPT_SEED)
+    one = InferenceEngine("one", cfg, m, UncertaintyConfig(
+        mode="distribution"), device="cpu", **CKPT_POOL)
+    r = one.generate(PROMPTS, 6, return_state=True)
+    return cfg, m, r, one.generate(None, 5, state=r["state"])
+
+
+def run_ckpt(rank: int, world: int, arg: str):
+    """Sessions across layouts (``llama3-8b`` H4/K1: case (b) on (2, 2),
+    its one KV head repeated over 'model' and saved once): saved on (2, 2)
+    paged, restored on (2, 2) paged (bitwise the uninterrupted (2, 2) run),
+    on (4, 1) monolithic and on one device, monolithic and paged; saved on
+    one device (rank 0 writes) and on (4, 1) monolithic, restored on
+    (2, 2) paged; then ``swarm-edge-1b`` (H4/K2) saved on (1, 4), where
+    ranks 0-1 hold KV head 0 and ranks 2-3 head 1 (case (b)), restored on
+    (2, 2) (case (a)) and on one device.  Each restored continuation is
+    held to the uninterrupted one of the same session.  ``arg``: the
+    directory; ``<arg>/mesh22`` and the (2, 2) run's continuation
+    ``<arg>/c22.npz`` stay for the caller's in-process restores."""
+    from repro_torch.core.uncertainty import UncertaintyConfig
+    from repro_torch.launch.mesh import serving_mesh
+    from repro_torch.serving.engine import InferenceEngine
+    cfg, m, r0, c0 = ckpt_reference()
+    ucfg = UncertaintyConfig(mode="distribution")
+
+    def eng(mesh=None, **kw):
+        return InferenceEngine("e", cfg, m, ucfg, device="cpu", mesh=mesh,
+                               **kw)
+    m22, m41 = serving_mesh(model_parallel=2), serving_mesh(model_parallel=1)
+    d22, d_one, d41 = (os.path.join(arg, n) for n in ("mesh22", "one",
+                                                      "mesh41"))
+    e22 = eng(m22, **CKPT_POOL)
+    r = e22.generate(PROMPTS, 6, return_state=True)
+    tie_aware(r, r0, "ckpt (2,2) generate")
+    path = e22.checkpoint_session(r["state"], d22)
+    assert os.path.isdir(path), path
+    c22 = e22.generate(None, 5, state=r["state"])
+    tie_aware(c22, c0, "ckpt (2,2) uninterrupted")
+    if rank == 0:
+        np.savez(os.path.join(arg, "c22.npz"), tokens=c22["tokens"],
+                 logits=c22["logits"].numpy())
+    f22 = eng(m22, **CKPT_POOL)
+    x = f22.generate(None, 5, state=f22.restore_session(d22))
+    np.testing.assert_array_equal(x["tokens"], c22["tokens"])
+    assert torch.equal(x["logits"], c22["logits"]), "(2,2) -> (2,2)"
+    # held to the uninterrupted continuation of the same session
+    for what, e in (("(4,1) monolithic", eng(m41)),
+                    ("one device monolithic", eng()),
+                    ("one device paged", eng(**CKPT_POOL))):
+        x = e.generate(None, 5, state=e.restore_session(d22))
+        tie_aware(x, c22, f"ckpt (2,2) paged -> {what}")
+    if rank == 0:
+        one = eng(**CKPT_POOL)
+        one.checkpoint_session(one.generate(PROMPTS, 6, return_state=True)
+                               ["state"], d_one)
+    dist.barrier()
+    e41 = eng(m41)
+    s41 = e41.generate(PROMPTS, 6, return_state=True)["state"]
+    e41.checkpoint_session(s41, d41)
+    c41 = e41.generate(None, 5, state=s41)
+    for what, d, c in (("one device", d_one, c0),
+                       ("(4,1) monolithic", d41, c41)):
+        e = eng(m22, **CKPT_POOL)
+        x = e.generate(None, 5, state=e.restore_session(d))
+        tie_aware(x, c, f"ckpt {what} -> (2,2) paged")
+    cfg, m, r0, c0 = ckpt_reference("swarm-edge-1b")
+    e14 = eng(serving_mesh(model_parallel=4), **CKPT_POOL)
+    assert (e14._kv_heads.start, e14._kv_heads.count) == (rank // 2, 1), \
+        e14._kv_heads
+    r = e14.generate(PROMPTS, 6, return_state=True)
+    tie_aware(r, r0, "ckpt (1,4) generate")
+    d14 = os.path.join(arg, "mesh14")
+    e14.checkpoint_session(r["state"], d14)
+    c14 = e14.generate(None, 5, state=r["state"])
+    tie_aware(c14, c0, "ckpt (1,4) uninterrupted")
+    for what, e in (("(2,2) paged", eng(m22, **CKPT_POOL)),
+                    ("one device", eng())):
+        x = e.generate(None, 5, state=e.restore_session(d14))
+        tie_aware(x, c14, f"ckpt (1,4) paged -> {what}")
+    if rank == 0:
+        print("ckpt ok", flush=True)
+
+
+def run_engines(rank: int, world: int, arg=None):
     from repro_torch.launch.mesh import data_shards, serving_mesh
     for mp_ in (2, 4, 1):
         mesh = serving_mesh(model_parallel=mp_)
@@ -223,15 +582,24 @@ def refusals(mesh):
     """On the (2, 2) mesh: heads that neither split with their KV heads nor
     share one per rank (H6/K3 over model=2) need the sequence-sharded
     cache; the FSDP rules (DEFAULT_RULES cut d_model over 'data') are not
-    ported.  Both raise NotImplementedError naming what is missing."""
+    ported; a graph handed to an engine of more than one rank is not
+    captured.  Each raises NotImplementedError naming what is missing."""
     from repro_torch import configs as C
     from repro_torch.distributed import sharding as sh
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import InferenceEngine
+    from repro_torch.serving import graphs
     odd = dataclasses.replace(C.get_smoke("swarm-edge-1b"), num_heads=6,
                               num_kv_heads=3)
     llama = C.get_smoke("llama3-8b")
+
+    def captured():
+        eng = InferenceEngine("x", llama, T.Transformer(llama), device="cpu",
+                              mesh=mesh, paged=True)
+        eng._graphs = graphs.DecodeGraphs(graphs.Rerun())
+        eng.generate(PROMPTS, 2)
     for build, what in (
+            (captured, "graph capture over more than one rank"),
             (lambda: InferenceEngine("x", odd, T.Transformer(odd),
                                      device="cpu", mesh=mesh),
              "sequence-sharded"),
@@ -245,10 +613,12 @@ def refusals(mesh):
             raise AssertionError(f"no refusal: {what}")
 
 
-def run_gateway(rank: int, world: int, store: str):
+def run_gateway(rank: int, world: int, arg=None, engine_kw=None,
+                label: str = "gateway"):
     """The four f32 tiers and the classifier through ``gateway_from_weights``
     with fixed thresholds (no calibration), single device and on the (1, 2)
-    mesh: the same decisions, answers and emitted tokens."""
+    mesh, every tier built with ``engine_kw``: the same decisions, answers
+    and emitted tokens."""
     from repro_torch.core import safety as S
     from repro_torch.core.router import RouterConfig
     from repro_torch.data.workload import FactWorld
@@ -271,7 +641,7 @@ def run_gateway(rank: int, world: int, store: str):
     for m in (None, mesh):
         gw, probe, _, _ = gateway_from_weights(
             **tiers, safety=(scfg, sp), device="cpu", world=world_,
-            calibrate=False, mesh=m,
+            calibrate=False, mesh=m, engine_kw=engine_kw,
             router_cfg=RouterConfig(tau_low=0.0, tau_high=1.0, sigma=0.5))
         if m is None:
             # thresholds in the widest gaps of the probe's u and the s
@@ -295,30 +665,45 @@ def run_gateway(rank: int, world: int, store: str):
     np.testing.assert_allclose(b.u, a.u, atol=1e-4, rtol=0)
     assert len(set(a.decision.tolist())) >= 2, a.decision
     if rank == 0:
-        print(f"gateway decisions {np.bincount(a.decision).tolist()} ok",
+        print(f"{label} decisions {np.bincount(a.decision).tolist()} ok",
               flush=True)
 
 
-def _rank(rank: int, job: str, world: int, store: str):
+def run_paged_gateway(rank: int, world: int, arg=None):
+    """``run_gateway`` with every tier on an int8 block pool, as
+    ``launch.serve --paged --cache-quant int8`` builds them."""
+    run_gateway(rank, world, engine_kw=dict(paged=True, pool_blocks=256,
+                                            cache_quant="int8"),
+                label="paged gateway")
+
+
+#: job -> (ranks, function); a function takes (rank, world, argument)
+JOBS = {"engines": (4, "run_engines"), "gateway": (2, "run_gateway"),
+        "paged": (4, "run_paged"), "lockstep": (2, "run_lockstep"),
+        "ckpt": (4, "run_ckpt"), "paged_gateway": (2, "run_paged_gateway"),
+        "cli": (2, "run_cli")}
+
+
+def _rank(rank: int, job: str, world: int, store: str, arg):
     torch.set_num_threads(1)
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
     try:
-        (run_engines if job == "engines" else run_gateway)(rank, world,
-                                                           store)
+        globals()[JOBS[job][1]](rank, world, arg)
         dist.barrier()
     finally:
         dist.destroy_process_group()
 
 
-def main(job: str):
-    world = {"engines": 4, "gateway": 2}[job]
+def main(job: str, arg=None):
+    world = JOBS[job][0]
     with tempfile.TemporaryDirectory() as tmp:
-        mp.start_processes(_rank, args=(job, world, os.path.join(tmp, "s")),
+        mp.start_processes(_rank, args=(job, world, os.path.join(tmp, "s"),
+                                        arg),
                            nprocs=world, start_method="spawn")
     print("RESULT ok", flush=True)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(*sys.argv[1:])
