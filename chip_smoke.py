@@ -113,6 +113,22 @@ D2. the paged pool, quantized weights and pools, and session checkpoints
    device, its extension tie-aware equal to the uninterrupted one; after
    7p, phase 7p's paged gateway on the (1, 1) mesh: the same decisions, u
    and answers;
+D3. the recurrent mixers and MoE expert parallelism on a mesh: beside
+   R1-M2, on a (1, 1) NCCL mesh of its own, each phase's served bf16
+   engine (``recurrentgemma-2b`` R1's 5 layers, monolithic and paged;
+   ``mamba2-780m`` R2's 4; ``deepseek-moe-16b`` M1's 3, the dense layer
+   and 2 MoE; ``llama4-scout-17b-a16e`` M2's 2) against the same weights
+   on the mesh, each ``generate`` bitwise with one graph launch
+   (``d3_mesh11``); after D2, the two gloo ranks' D3 jobs (``D3_JOBS``,
+   spawned with D1's): f32 copies on (data=1, model=2) of
+   ``recurrentgemma-2b`` (W 1280 per rank, attention placement (b)),
+   ``mamba2-780m`` (24 of 48 SSD heads per rank) and ``deepseek-moe-16b``
+   paged (32 of 64 experts per rank), B=8, 16 tokens, tie-aware equal to
+   one device, row 2 on a rank's own cache and row 5 on its own pool held
+   to their plain versions, the deepseek session checkpointed on the
+   mesh and restored on one device; per rank ms per ``generate``, weight
+   and state bytes, the collectives' count, bytes and device share
+   (``phase_d3``);
 4f. ``serve()`` under a ``FaultPlan`` at the probe's full width on a paged
    probe: two famine rounds, a forced eviction of a warm handle (cold
    re-prefill from ``cold_prompt``), two slot failures (requeue) and a
@@ -194,14 +210,14 @@ M0. the MoE family's shapes (``deepseek-moe-16b``: MHA, 16 heads of
    per-layer ms of the prefill dispatch (TFLOP/s over the dispatch's E*C
    rows and over the B*k real rows) and of decode, dispatch and gather,
    beside the bytes of the experts each reads;
-M1. ``deepseek-moe-16b`` at published widths, cut to 5 of its 28 layers
-   to keep the script inside its time (random weights from a
-   ``torch.Generator`` seed), phase 4's
+M1. ``deepseek-moe-16b`` at published widths, cut to 3 of its 28 layers
+   (the dense one and 2 MoE layers) to keep the script inside its time
+   (random weights from a ``torch.Generator`` seed), phase 4's
    8 prompts (bucket 256, ``max_new=32``), through R1's paths (monolithic
    and on a 128-block pool: bf16 served and timed, the graph route bitwise
    the eager loop, rows 1-3 or 1, 3, 5 launched and no plain version);
-   the contracts on an f32 copy of the dense layer and the 4 MoE layers
-   (~11 GB; all 28 in f32 are ~66 GB): ``generate_stepwise``,
+   the contracts on an f32 copy of the dense layer and the 2 MoE layers
+   (~6.5 GB; all 28 in f32 are ~66 GB): ``generate_stepwise``,
    ``serve()``, paged, fan-out and serve-on-a-handle tie-aware, bucket
    padding (256 more inert columns) neutral, and a router that takes the
    k lowest experts must read outside the budget; bf16 readings beside
@@ -722,6 +738,20 @@ D2_POOL = dict(paged=True, pool_blocks=256)
 D2_JOBS = (("smollm-135m", None, 1, 16, D2_POOL),
            ("llama3-8b", 4, 2, 16, dict(D2_POOL, cache_quant="int8")))
 D2_EXTEND = 8
+# D3's, spawned with them: the recurrent and MoE decoders on (1, 2) as f32
+# copies (bf16 noise alone reads past the tie budget on these models, as
+# R1-M2 found), each with a model option dict: "f32", the seed offset of
+# its R1/R2/M1 phase, R1's scale of every matrix but the embedding and the
+# convs, "row2" to hold row 2 on the rank's own cache; recurrentgemma-2b
+# R1's 5 layers (W 1280 per rank, attention placement (b)), mamba2-780m
+# R2's 4 (24 of 48 SSD heads per rank), deepseek-moe-16b 3 layers paged
+# (32 of 64 experts per rank), its session checkpointed and extended
+D3_JOBS = (("recurrentgemma-2b", 5, 2, 16, {},
+            {"f32": True, "seed": 50, "scale": 6.0, "row2": True}),
+           ("mamba2-780m", 4, 2, 16, {},
+            {"f32": True, "seed": 60, "scale": 6.0}),
+           ("deepseek-moe-16b", 3, 2, 16, D2_POOL,
+            {"f32": True, "seed": 80}))
 D1_COLLECTIVES = ("mesh.all_reduce", "mesh.all_gather")
 D1_SAMPLE_SEED = 5          # D1's sampled generate
 
@@ -738,6 +768,26 @@ def collective_share(prof) -> tuple[float, float]:
     return coll, sum(e.self_device_time_total for e in cpu) / 1e3
 
 
+def job_model(cfg, opt: dict, dev):
+    """(config, model) of a rank job, as the main process builds its
+    reference: seed ``SEED + opt["seed"]`` on the card, drawn in f32 with
+    ``opt["f32"]``, every matrix but the embedding and the convs scaled by
+    ``opt["scale"]`` (R1's rule)."""
+    import torch
+    from repro_torch.models.transformer import init_params
+    if opt.get("f32"):
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    model = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + opt.get("seed", 0)), device=dev)
+    if opt.get("scale"):
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if p.dim() >= 2 and "embed" not in name \
+                        and "conv" not in name:
+                    p.mul_(opt["scale"])
+    return cfg, model
+
+
 def d1_rank(rank: int, world: int, store: str, out_dir: str, prompts,
             jobs, device: str = "cuda"):
     """One of D1's ranks on the card, joined over gloo through a
@@ -750,7 +800,10 @@ def d1_rank(rank: int, world: int, store: str, out_dir: str, prompts,
     and a sampled one (seed ``D1_SAMPLE_SEED``).  A paged job (D2) keeps
     the timed run's session instead of the last two: it checkpoints it to
     ``out_dir/ckpt<i>`` (rank 0 writes) and extends it ``D2_EXTEND``
-    tokens, and reports its pool.  Writes the numbers of job i to
+    tokens, and reports its pool.  A job with model options (D3,
+    ``job_model``) keeps its session too, reports its state bytes, holds
+    row 2 on the rank's own cache (``local_row2``) where asked, and is
+    profiled but not sampled.  Writes the numbers of job i to
     ``out_dir/rank{rank}.json`` under "i", and rank 0 the tokens and
     logits of its greedy, sampled and extension runs to
     ``out_dir/job<i>.npz``."""
@@ -768,20 +821,19 @@ def d1_rank(rank: int, world: int, store: str, out_dir: str, prompts,
         from repro_torch.kernels.flash_attention import ops as fops
         from repro_torch.kernels.swarm_uncertainty import ops as uops
         from repro_torch.launch.mesh import serving_mesh
-        from repro_torch.models.transformer import init_params
         from repro_torch.serving.engine import InferenceEngine
         counts = dict(zip(KERNELS, (fops.counts, dops.counts, uops.counts,
                                     fops.grid_counts, dops.paged_counts)))
         dev = torch.device(device)
         ucfg = UncertaintyConfig(alpha=1.0, mode="distribution")
         out = {}
-        for i, (arch, layers, mp, max_new, kw) in enumerate(jobs):
+        for i, (arch, layers, mp, max_new, kw, *opt) in enumerate(jobs):
+            opt = opt[0] if opt else {}
             cfg = configs.get_config(arch)
             if layers is not None:
                 cfg = dataclasses.replace(cfg, num_layers=layers)
             mesh = serving_mesh(model_parallel=mp)
-            model = init_params(cfg, torch.Generator(device=dev).manual_seed(
-                SEED), device=dev)
+            cfg, model = job_model(cfg, opt, dev)
             eng = InferenceEngine(f"{arch}-d1", cfg, model, ucfg,
                                   device=dev, mesh=mesh, **kw)
             paged = bool(kw.get("paged"))
@@ -798,21 +850,33 @@ def d1_rank(rank: int, world: int, store: str, out_dir: str, prompts,
                 c.reset()
             eng.comm.reset()
             t = time.perf_counter()
-            res = eng.generate(prompts, max_new, return_state=paged)
+            res = eng.generate(prompts, max_new,
+                               return_state=paged or bool(opt))
             sync()
             ms = (time.perf_counter() - t) * 1e3
             stats = dict(eng.comm.stats)
             launches = {n: c.launches for n, c in counts.items()}
             plain = {n: c.plain for n, c in counts.items()}
             extra, arrays = {}, {}
+            coll_ms = dev_ms = 0.0
+            if opt:
+                st = res["state"]
+                extra["state_bytes"] = (
+                    eng.pool.pool_bytes if paged else sum(
+                        t.nbytes for c in st.cache for t in c))
+                if opt.get("row2"):
+                    extra["local_row2"] = local_row2(eng, st, dops, dref,
+                                                     dev, SEED + i)
+                if not paged:
+                    del st, res["state"]
             if paged:
                 pool = eng.pool
-                extra = {"pool": {
+                extra["pool"] = {
                     "n_blocks": pool.n_blocks, "n_rows": pool.n_rows,
                     "block_bytes": pool.block_bytes,
                     "pool_bytes": pool.pool_bytes,
                     "blocks_in_use": pool.blocks_in_use,
-                    "kv_heads": eng._mcfg.num_kv_heads}}
+                    "kv_heads": eng._mcfg.num_kv_heads}
                 st = res.pop("state")
                 extra["local_row5"] = local_row5(eng, st, dops, dref, dev,
                                                  SEED + i)
@@ -824,9 +888,8 @@ def d1_rank(rank: int, world: int, store: str, out_dir: str, prompts,
                 eng.release(st)
                 arrays = dict(e_tokens=ext["tokens"],
                               e_logits=ext["logits"].float().cpu().numpy())
-                coll_ms = dev_ms = 0.0
                 del ext
-            else:
+            if opt or not paged:
                 acts = [torch.profiler.ProfilerActivity.CPU]
                 if dev.type == "cuda":
                     acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -835,6 +898,7 @@ def d1_rank(rank: int, world: int, store: str, out_dir: str, prompts,
                     eng.generate(prompts, 2)
                     sync()
                 coll_ms, dev_ms = collective_share(prof)
+            if not (opt or paged):
                 smp = eng.generate(prompts, max_new, greedy=False,
                                    seed=D1_SAMPLE_SEED)
                 arrays = dict(s_tokens=smp["tokens"],
@@ -864,6 +928,33 @@ def d1_rank(rank: int, world: int, store: str, out_dir: str, prompts,
         dist.barrier()
     finally:
         dist.destroy_process_group()
+
+
+def local_row2(eng, st, dops, dref, dev, seed: int) -> dict:
+    """Row 2 on a mesh rank's own monolithic cache, against its plain
+    version: the session ``st``'s first attention layer (the rank's rows
+    and KV heads; a local layer's ring and window), each row's last
+    written position, a seeded query over the rank's heads.  Called after
+    the counted run (its launch is not counted there)."""
+    import torch
+    mc = eng._mcfg
+    j, mixer = next((j, m) for j, (m, _) in enumerate(mc.layer_plan())
+                    if m in ("attn", "attn_local"))
+    c = st.cache[j]
+    index = (st.pos[eng._rows(len(st.pos))] - 1).to(torch.int32)
+    K, G = mc.num_kv_heads, mc.num_heads // mc.num_kv_heads
+    q = torch.randn((c.k.shape[0], K, G, mc.head_dim), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(seed)
+                    ).to(mc.dtype)
+    kw = dict(window=mc.window if mixer == "attn_local" else None)
+    args = (q, c.k, c.v, c.pos, index)
+    out = dops.decode_attention(*args, **kw)
+    ref = dref.decode_attention_ref(*args, **kw)
+    return {"max_abs_err": float((out.float() - ref.float()).abs().max()),
+            "finite": bool(torch.isfinite(out).all()), "tol": 2e-2,
+            "shape": {"B": c.k.shape[0], "K": K, "G": G, "D": mc.head_dim,
+                      "T": c.k.shape[1], "window": kw["window"],
+                      "dtype": str(c.k.dtype)}}
 
 
 def local_row5(eng, st, dops, dref, dev, seed: int) -> dict:
@@ -1047,9 +1138,11 @@ def phase_d1(c):
             ("paged_decode_attention",))
         del me
 
-    # two ranks on the one card, spawned after the build, for D1's jobs and
-    # D2's (one spawn: each costs the ranks' start and CUDA contexts)
-    ranks, t_ranks, out_dir = spawn_ranks(c, D1_JOBS + D2_JOBS, "d1")
+    # two ranks on the one card, spawned after the build, for D1's, D2's
+    # and D3's jobs (one spawn: each costs the ranks' start and CUDA
+    # contexts)
+    ranks, t_ranks, out_dir = spawn_ranks(c, D1_JOBS + D2_JOBS + D3_JOBS,
+                                          "d1")
     c.d2_ranks = ranks, out_dir
     refs = {"llama3-8b": (c.cloud, 16), "smollm-135m": (c.probe, c.max_new)}
     for j, (arch, layers, mp, mn, _) in enumerate(D1_JOBS):
@@ -1107,7 +1200,7 @@ def phase_d1(c):
                               "sampled_max_dlogit": s_dlog}
     rep["ranks_s"] = t_ranks
     rep["phase_s"] = time.perf_counter() - t_ph
-    print(f"[D1] two ranks (D1's and D2's jobs) {t_ranks:.1f} s; phase "
+    print(f"[D1] two ranks (D1's, D2's and D3's jobs) {t_ranks:.1f} s; phase "
           f"{rep['phase_s']:.1f} s")
     c.report["mesh"] = rep
 
@@ -1242,13 +1335,132 @@ def phase_d2(c):
             "extension_reading": e_reading, "restore_s": t_restore,
             "restored_flips": r_flips, "restored_reading": r_reading,
             "restored_max_dlogit": r_dlog}
-    shutil.rmtree(out_dir, ignore_errors=True)
     del refs
     torch.cuda.empty_cache()
     rep["phase_s"] = time.perf_counter() - t_ph
     print(f"[D2] phase {rep['phase_s']:.1f} s (its rank jobs ran in D1's "
           "spawn)")
     c.report["mesh_paged"] = rep
+
+
+def phase_d3(c):
+    """D3 (ranks). The recurrent mixers and MoE expert parallelism on two
+    gloo ranks of the card (``d1_rank``, ``D3_JOBS``, spawned with D1's
+    jobs in ``phase_d1``), each on (data=1, model=2) as an f32 copy:
+    ``recurrentgemma-2b`` (5 layers: W 1280 per rank, its local attention
+    in placement (b), 5 of 10 query heads on the one KV head),
+    ``mamba2-780m`` (4 layers: 24 of 48 SSD heads per rank) and
+    ``deepseek-moe-16b`` paged (3 layers: 32 of 64 experts per rank);
+    B=8, phase 4's prompts, 16 tokens, tie-aware equal to the single-device
+    engine on the same f32 weights, the path's kernels launched on each
+    rank and no plain version, row 2 held on a rank's own cache and row 5
+    on its own pool against their plain versions; the deepseek session
+    checkpointed on the mesh and restored on one device, its extension
+    tie-aware the mesh's uninterrupted one.  Per rank: ms per ``generate``,
+    weight and state bytes, the collectives' count, bytes and device
+    share.  The (1, 1) mesh's half of D3 runs beside R1-M2
+    (``d3_mesh11`` in ``main``)."""
+    np, torch = c.np, c.torch
+    t_ph = time.perf_counter()
+    ranks, out_dir = c.d2_ranks
+    rep = {"ranks": {}}
+    needs = {"recurrentgemma-2b": SERVE_KERNELS,
+             "mamba2-780m": ("swarm_uncertainty",),
+             "deepseek-moe-16b": PAGED_SERVE}
+    for j, (arch, layers, mp, mn, kw, opt) in enumerate(
+            D3_JOBS, len(D1_JOBS) + len(D2_JOBS)):
+        got = np.load(out_dir / f"job{j}.npz")
+        ranks_j = [rr[str(j)] for rr in ranks]
+        cfg = c.configs.get_config(arch)
+        if layers is not None:
+            cfg = dataclasses.replace(cfg, num_layers=layers)
+        cfg, model = job_model(cfg, opt, c.dev)
+        eng = c.InferenceEngine(f"{arch}-d3", cfg, model, c.ucfg, **kw)
+        paged = bool(kw.get("paged"))
+        ref = eng.generate(c.prompts, mn, return_state=paged)
+        where = f"D3 {arch} f32 {kw or ''} on {ranks_j[0]['mesh']}"
+        flips, reading, dlog = tie_aware(
+            where, got["tokens"], ref["tokens"],
+            ref["logits"].float().cpu().numpy(), got["logits"])
+        check(np.isfinite(got["logits"]).all()
+              and got["tokens"].shape == (len(c.prompts), mn),
+              f"{where}: tokens or logits malformed")
+        jr = {"kw": kw, "opt": opt, "per_rank": ranks_j,
+              "tie_flips": flips, "tie_reading": reading,
+              "max_dlogit": dlog}
+        if paged:
+            ext = eng.generate(None, D2_EXTEND, state=ref["state"])
+            eng.release(ref["state"])
+            t0 = time.perf_counter()
+            st = eng.restore_session(str(out_dir / f"ckpt{j}"))
+            jr["restore_s"] = time.perf_counter() - t0
+            res = eng.generate(None, D2_EXTEND, state=st)
+            eng.release(st)
+            jr["restored"] = list(tie_aware(
+                where + " checkpoint restored on one device", res["tokens"],
+                got["e_tokens"], got["e_logits"],
+                res["logits"].float().cpu().numpy()))
+            same = [b for b in range(len(ref["tokens"]))
+                    if np.array_equal(got["tokens"][b], ref["tokens"][b])]
+            check(len(same) > 0, f"{where}: every row flipped")
+            jr["extension"] = list(tie_aware(
+                where + " extension", got["e_tokens"][same],
+                ext["tokens"][same],
+                ext["logits"].float().cpu().numpy()[same],
+                got["e_logits"][same]))
+            del ext, res
+        for r, x in enumerate(ranks_j):
+            for k in needs[arch]:
+                check(x["launches"][k] > 0,
+                      f"{where} rank {r}: {k} was never launched")
+            check(sum(x["plain"].values()) == 0,
+                  f"{where} rank {r}: plain versions ran: {x['plain']}")
+            check(x["mesh_eager"] > 0, f"{where} rank {r}: no dispatch on "
+                                       "the eager route")
+            for row in ("local_row2", "local_row5"):
+                lr = x.get(row)
+                if lr is None:
+                    continue
+                check(lr["finite"] and lr["max_abs_err"] <= lr["tol"],
+                      f"{where} rank {r}: {row} on its own cache "
+                      f"{lr['shape']} is {lr['max_abs_err']} from its plain "
+                      f"version (tol {lr['tol']})")
+                print(f"[D3] {arch} rank {r}: {row[6:]} on its own "
+                      f"{'pool' if row == 'local_row5' else 'cache'} "
+                      f"{lr['shape']}: err {lr['max_abs_err']:.2e} (tol "
+                      f"{lr['tol']:g})")
+            x["device_share"] = (x["profile_collective_ms"]
+                                 / max(x["profile_device_ms"], 1e-9))
+            cs = x["collectives"]
+            print(f"[D3] {arch} on {x['mesh']} rank {r}: "
+                  f"{x['ms_per_generate']:.1f} ms per generate (B=8, {mn} "
+                  f"tokens, f32, eager), weights "
+                  f"{x['weight_bytes'] / 1e9:.4f} GB, state "
+                  f"{x['state_bytes'] / 1e9:.4f} GB, launches "
+                  f"{ {k: v for k, v in x['launches'].items() if v} }, "
+                  f"collectives {cs['all_reduce']} all-reduce + "
+                  f"{cs['all_gather']} all-gather + {cs['agree']} "
+                  f"agreements, {cs['bytes'] / 1e6:.1f} MB, "
+                  f"{cs['staged_bytes'] / 1e6:.1f} MB staged; host share "
+                  f"{x['host_share']:.3f}, device share "
+                  f"{x['device_share']:.4f} ({x['profile_collective_ms']:.2f}"
+                  f" of {x['profile_device_ms']:.2f} device ms, a 2-token "
+                  "generate)")
+        print(f"[D3] {where}: tie-aware equal to the single-device engine "
+              f"({flips} rows diverged at a tie, logits {dlog:.2e} apart, "
+              f"reading {reading:.3f})"
+              + (f"; checkpoint restored on one device in "
+                 f"{jr['restore_s']:.2f} s, its extension reading "
+                 f"{jr['restored'][1]:.3f}" if paged else ""))
+        rep["ranks"][arch] = jr
+        del eng, model, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    rep["phase_s"] = time.perf_counter() - t_ph
+    print(f"[D3] ranks' phase {rep['phase_s']:.1f} s (its rank jobs ran in "
+          "D1's spawn)")
+    c.report["mesh_d3"] = rep
 
 
 def phase_d1_gateway(c):
@@ -2586,6 +2798,8 @@ def main():
     phase_d1(ctx)
     # ---- D2. the paged pool and quantized weights on a mesh --------------
     phase_d2(ctx)
+    # ---- D3. the recurrent mixers and MoE on a mesh: the two ranks -------
+    phase_d3(ctx)
     mesh11 = ctx.mesh11
     del ctx, paged4g
 
@@ -3096,6 +3310,32 @@ def main():
     from repro_torch.serving.swarm import SwarmExecutor
     ATTN_KERNELS = ("flash_attention_positions", "decode_attention",
                     "paged_decode_attention", "flash_attention")
+    # D3 (1, 1): each recurrent and MoE phase's served engine against the
+    # same engine on the (1, 1) NCCL mesh (phase 7's gateway check ended
+    # D1's world; D3 starts one of its own and ends it after M2)
+    d3_rep = {"mesh11": {}}
+    d3c = SimpleNamespace(np=np, torch=torch, prompts=prompts,
+                          counted=counted)
+
+    def d3_mesh11(label, base, kw, needs, forbid):
+        """D3 on the (1, 1) mesh: ``base`` (a phase's single-device engine,
+        built with ``kw``) and an engine on the same weights on the (1, 1)
+        NCCL mesh: ``generate`` on phase 4's prompts (16 tokens) bitwise,
+        one graph launch, no collective (``mesh11_generate``)."""
+        from repro_torch.launch.mesh import serving_mesh
+        t0 = time.perf_counter()
+        if "mesh" not in d3_rep:
+            d3_rep["mesh"] = serving_mesh(device=dev)
+        me = InferenceEngine(base.name + "-mesh11", base.cfg, base.params,
+                             base.ucfg, mesh=d3_rep["mesh"], **kw)
+        check(not me._state_cut and me._mcfg == base.cfg,
+              f"D3 {label}: the (1, 1) mesh cut the model")
+        d3_rep["mesh11"][label] = mesh11_generate(
+            d3c, "D3", f"D3 {label}", base, me, 16, needs, forbid)
+        del me
+        gc.collect()
+        torch.cuda.empty_cache()
+        d3_rep["mesh11"][label]["seconds"] = time.perf_counter() - t0
     RPOOL = dict(paged=True, block_len=64, pool_blocks=1024, pool_rows=40)
     recurrent_rep: dict = {}
 
@@ -3428,6 +3668,10 @@ def main():
      rg_prompts) = model_phase("R1", "recurrentgemma-2b", SEED + 50,
                                SERVE_KERNELS, PAGED_SERVE, layers=5,
                                f32_graph_layers=3)
+    d3_mesh11("recurrentgemma-2b", rg, {}, SERVE_KERNELS,
+              ("paged_decode_attention", "flash_attention"))
+    d3_mesh11("recurrentgemma-2b paged", prg, RPOOL, PAGED_SERVE,
+              ("decode_attention", "flash_attention"))
     # the ring wraps: two ~2300-token prompts over the 2048-slot window,
     # bf16 (served, timed) and f32 (monolithic vs ring tables, tie-aware)
     wrng = np.random.default_rng(SEED + 51)
@@ -3503,6 +3747,7 @@ def main():
         model_phase("R2", "mamba2-780m", SEED + 60,
                     ("swarm_uncertainty",), ("swarm_uncertainty",),
                     layers=4, f32_graph_layers=2)
+    d3_mesh11("mamba2-780m", mb, {}, ("swarm_uncertainty",), ATTN_KERNELS)
     check(pmb.pool.row_bytes > 0 and pmb.pool.block_bytes == 0,
           "R2: the SSD pool holds KV blocks or no state rows")
     mb_rep["row_mb"] = pmb.pool.row_bytes / 1e6
@@ -3704,7 +3949,7 @@ def main():
     torch.cuda.empty_cache()
     print(f"[M0] phase {time.perf_counter() - t_m:.1f} s")
 
-    def lowest_k(router, h, c, valid=None):
+    def lowest_k(router, h, c, valid=None, tp=None):
         """The router taking the k LEAST likely experts."""
         logits = h.float() @ router.float()
         if valid is not None:
@@ -3730,13 +3975,15 @@ def main():
                               ref["logits"].float().cpu().numpy(),
                               lgs.float().cpu().numpy()))
 
-    # ---- M1. deepseek-moe-16b at published widths, 5 of 28 layers -------
+    # ---- M1. deepseek-moe-16b at published widths, 3 of 28 layers -------
     held_m = torch.cuda.memory_allocated() / 1e9
     print(f"[M1] {held_m:.2f} GB held on the card before M1")
     (dsc, dsm, dscf, dsmf, ds, pds, dsf, pdsf, ds_rep, ds_prompts) = \
         model_phase("M1", "deepseek-moe-16b", SEED + 80, SERVE_KERNELS,
-                    PAGED_SERVE, layers=5, f32_layers=5, scale=None,
+                    PAGED_SERVE, layers=3, f32_layers=3, scale=None,
                     prompts_in=prompts, pool=MPOOL, warm=True)
+    d3_mesh11("deepseek-moe-16b", ds, {}, SERVE_KERNELS,
+              ("paged_decode_attention", "flash_attention"))
     ds_rep["held_gb_before"] = held_m
     ds_rep["f32_padding"] = padding_neutral("M1", dsf, ds_prompts)
     ds_rep["f32_wrong_lowest_k"] = wrong_path(
@@ -3754,6 +4001,14 @@ def main():
         model_phase("M2", "llama4-scout-17b-a16e", SEED + 90, SERVE_KERNELS,
                     PAGED_SERVE, layers=2, f32_layers=2, scale=None,
                     prompts_in=prompts, pool=MPOOL)
+    d3_mesh11("llama4-scout-17b-a16e", ls, {}, SERVE_KERNELS,
+              ("paged_decode_attention", "flash_attention"))
+    torch.distributed.destroy_process_group()
+    del d3_rep["mesh"]
+    report.setdefault("mesh_d3", {})["mesh11"] = d3_rep["mesh11"]
+    print("[D3] (1, 1) mesh: recurrentgemma-2b (monolithic and paged), "
+          "mamba2-780m, deepseek-moe-16b, llama4-scout-17b-a16e: each "
+          "generate bitwise the single-device engine's, one graph launch")
     ls_rep["f32_padding"] = padding_neutral("M2", lsf, ls_prompts)
     ls_rep["f32_wrong_no_shared"] = wrong_path(
         "M2", lsf, ls_prompts, "the combine drops the shared expert",
@@ -4524,6 +4779,11 @@ def main():
             "launches": path_launches[main_path][name],
             "launches_by_path": {p: n[name]
                                  for p, n in path_launches.items()},
+            "launches_d3": {
+                "mesh11": sum(n[name] for p, n in path_launches.items()
+                              if p.startswith("mesh11 D3 ")),
+                "ranks": sum(x["launches"][name] for j in report[
+                    "mesh_d3"]["ranks"].values() for x in j["per_rank"])},
             "max_abs_err": max(c["max_abs_err"] for c in checks
                                if c["name"] == name),
             "ms": first["ms"], "plain_ms": first["plain_ms"],

@@ -34,10 +34,14 @@ placement and the collectives are explicit:
   rows (``act_pool`` over the batch axes; a block's KV heads are those
   the rank's attention holds);
 * ``Split``: what a module cut over mesh axes needs at run time (the
-  collective over those axes and, for a vocabulary, the rank's range).
+  collective over those axes and the rank's range of the cut dim).
   ``transformer.shard_params`` attaches one to each module whose
-  contraction or vocabulary it cut, and ``row_parallel`` sums a cut
-  contraction.
+  contraction, vocabulary, recurrent width, SSD heads or experts it cut,
+  and ``row_parallel`` sums a cut contraction;
+* ``take_cols`` / ``gather_cols``: a rank's columns of a dim that is not
+  one contiguous shard (the SSD's ``[z | x | B | C | dt]`` projection cut
+  segment by segment, the KV heads case (b) repeats) and the whole dim
+  joined back from every rank's columns, each column once.
 
 Meshes are ``torch.distributed.device_mesh.DeviceMesh`` objects
 (``launch/mesh.py``); ``spec_for`` reads only the axis sizes, so anything
@@ -498,6 +502,45 @@ class Split:
 
     def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         return self.comm.all_gather(x, self.axes, dim)
+
+    @property
+    def shards(self) -> int:
+        """How many ranks the dim is cut over (the axes' size)."""
+        return _axis_size(self.comm.sizes, self.axes)
+
+    @property
+    def index(self) -> int:
+        """This rank's shard of the dim, major to minor over the axes."""
+        return shard_index(self.axes, self.comm.mesh)[0]
+
+
+def take_cols(t: torch.Tensor, dim: int, cols: Sequence[int]) -> torch.Tensor:
+    """Columns ``cols`` of ``t`` along ``dim``, in that order, as a
+    contiguous copy of its own."""
+    idx = torch.as_tensor(list(cols), dtype=torch.long, device=t.device)
+    return t.index_select(dim, idx).contiguous()
+
+
+def gather_cols(comm: Comm, x: torch.Tensor, axes, dim: int,
+                per_rank: Sequence[Sequence[int]]) -> torch.Tensor:
+    """The whole of a dim of which the rank of shard r over ``axes`` holds
+    the columns ``per_rank[r]`` (of the whole, in its order; together they
+    cover it):
+    every rank's ``x`` gathered along ``dim`` in shard order, and each
+    whole column taken from the first rank that holds it.  The columns are
+    copied, not summed, so the whole is exact."""
+    first: dict[int, int] = {}
+    off = 0
+    for cols in per_rank:
+        for j, col in enumerate(cols):
+            first.setdefault(col, off + j)
+        off += len(cols)
+    n = len(first)
+    if sorted(first) != list(range(n)):
+        raise ValueError(f"the ranks' columns {sorted(first)} do not cover "
+                         f"[0, {n})")
+    every = comm.all_gather(x, axes, dim)
+    return take_cols(every, dim, [first[c] for c in range(n)])
 
 
 def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

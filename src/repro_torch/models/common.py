@@ -162,6 +162,24 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class RankConfig(ModelConfig):
+    """A mesh rank's config (``transformer.shard_params``): the model's,
+    with the rank's own heads, widths and SSD groups, and ``ssm_shards``,
+    the ways its SSD heads are cut (``ModelConfig`` derives the SSD's
+    d_inner and heads from ``d_model``, which stays whole)."""
+    ssm_shards: int = 1
+
+    @property
+    def ssm_d_inner(self) -> int:
+        return self.ssm_expand * self.d_model // self.ssm_shards
+
+    @classmethod
+    def of(cls, cfg: ModelConfig, **changes) -> "RankConfig":
+        return cls(**{**{f.name: getattr(cfg, f.name)
+                         for f in dataclasses.fields(cfg)}, **changes})
+
+
+@dataclasses.dataclass(frozen=True)
 class Stage:
     blocks: tuple[tuple[str, str], ...]   # ((mixer, ffn), ...)
     repeat: int

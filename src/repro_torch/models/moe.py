@@ -33,8 +33,23 @@ Nothing here syncs the host (no ``.item()``, ``nonzero``, boolean-mask
 indexing or tensor-count ``repeat_interleave``), so a decode step with MoE
 layers can be captured into a CUDA graph.  The router product runs in f32;
 the port's entry points leave TF32 off (``use_f32_accumulation``), since a
-routing flip is a different expert, not noise.  Expert parallelism (the
-reference's ``shard_map`` dispatch) is not ported.
+routing flip is a different expert, not noise.
+
+Expert parallelism on a mesh (``transformer.shard_params``): a rank holds
+E/m experts (``"experts"`` over 'model', ``SERVE_RULES``), their slice of
+the router's columns, and a ``sharding.Split`` as ``.tp``; the shared
+expert is an MLP cut over its d_ff.  The serving dispatches gather the
+router logits ((S, B, E), small), so top-k, the ranks inside each expert
+and the capacity decisions run whole and alike on every rank; a rank fills
+only its experts' rows of the capacity buffer (other assignments go to the
+sink), runs its experts' products, and gathers its experts' output row of
+each assignment into an (S, B*k, D) tensor, zero where another rank owns
+the assignment.  One all-reduce over 'model' joins them: each entry is
+nonzero on exactly one rank, so the sum is exact and the combine after it
+is the single device's.  The reference keeps the buffer's expert dim
+replicated under SPMD; the port moves the routed rows instead.  The
+full-sequence dispatch (``moe_block``: training and ``forward``) is not
+ported to a mesh and refuses a rank's shard.
 """
 
 from __future__ import annotations
@@ -106,12 +121,16 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _route_topk(router: torch.Tensor, h: torch.Tensor, cfg: ModelConfig,
-                valid: torch.Tensor | None = None):
+                valid: torch.Tensor | None = None, tp=None):
     """Top-k routing in f32: h (g,T,D) -> (gates (g,T,k), idx (g,T,k),
     probs (g,T,E)).  ``valid`` (g,T) masks inert tokens: their logits are
     forced to -1e30 (uniform probs); callers also keep them out of the
-    capacity counts and zero their combine weights."""
+    capacity counts and zero their combine weights.  On a mesh (``tp``,
+    the ``Split`` of the experts) the rank's logits of its experts are
+    gathered whole first."""
     logits = h.float() @ router.float()
+    if tp is not None:
+        logits = tp.gather(logits, -1)
     if valid is not None:
         logits = torch.where(valid[..., None], logits, _MASKED)
     probs = torch.softmax(logits, dim=-1)
@@ -136,31 +155,73 @@ def _rank_in_expert(flat_e: torch.Tensor) -> torch.Tensor:
     return torch.empty_like(sort_idx).scatter_(1, sort_idx, ar - seg_start)
 
 
-def _experts(p: MoE, hf: torch.Tensor, gates: torch.Tensor,
-             flat_e: torch.Tensor, pos: torch.Tensor, keep: torch.Tensor,
-             C: int, cfg: ModelConfig) -> torch.Tensor:
-    """Dispatch, expert products and combine.  hf (g,T,D) normed tokens;
-    gates (g,T,k); flat_e / pos / keep (g, T*k) each assignment's expert,
-    rank and whether it holds a slot.  Returns the routed experts plus the
-    shared expert, (g,T,D) in f32."""
+def _owned(p: MoE, flat_e: torch.Tensor, keep: torch.Tensor | None = None):
+    """(the assignments whose expert this rank holds, of those that hold a
+    slot where ``keep`` is given; their experts' local ids, 0 elsewhere).
+    Off a mesh ``keep`` and ``flat_e`` themselves."""
+    tp = getattr(p, "tp", None)
+    if tp is None:
+        return keep, flat_e
+    local = flat_e - tp.start
+    own = (local >= 0) & (local < tp.size)
+    if keep is not None:
+        own = own & keep
+    return own, torch.where(own, local, 0)
+
+
+def _join(p: MoE, y: torch.Tensor, mine: torch.Tensor) -> torch.Tensor:
+    """Every rank's expert outputs of the assignments it owns (``mine``),
+    joined: zeros elsewhere, summed over the axes the experts are cut over.
+    Each entry is nonzero on one rank, so the sum is exact.  ``y`` itself
+    off a mesh."""
+    tp = getattr(p, "tp", None)
+    if tp is None:
+        return y
+    m = mine.reshape(mine.shape + (1,) * (y.ndim - mine.ndim))
+    return tp.reduce(torch.where(m, y, torch.zeros((), dtype=y.dtype,
+                                                   device=y.device)))
+
+
+def _routed(p: MoE, hf: torch.Tensor, flat_e: torch.Tensor,
+            pos: torch.Tensor, keep: torch.Tensor, C: int,
+            cfg: ModelConfig) -> torch.Tensor:
+    """Dispatch and expert products: each assignment's expert output row,
+    (g, T*k, D) in the compute dtype.  hf (g,T,D) normed tokens; flat_e /
+    pos / keep (g, T*k) each assignment's expert, rank and whether it holds
+    a slot.  On a mesh the rank's experts fill and multiply their rows of
+    the buffer and the rows are joined over 'model' (``_join``)."""
     g, T, D = hf.shape
-    E, k = cfg.num_experts, cfg.top_k
+    k = cfg.top_k
     A, M = T * k, g * C
     dt = hf.dtype
+    mine, local = _owned(p, flat_e, keep)
+    El = p.w_gate.shape[0]
     gl = torch.arange(g, device=hf.device)[:, None]
-    # kept: expert e, row gl*C + pos; dropped: the sink row M of expert E-1
-    e_idx = torch.where(keep, flat_e, E - 1)
-    r_idx = torch.where(keep, gl * C + pos, M)
+    # kept: expert e, row gl*C + pos; dropped (and another rank's): the
+    # sink row M of the last expert
+    e_idx = torch.where(mine, local, El - 1)
+    r_idx = torch.where(mine, gl * C + pos, M)
     src = hf[:, :, None].expand(g, T, k, D).reshape(g, A, D)
-    buf = torch.zeros((E, M + 1, D), dtype=dt, device=hf.device)
+    buf = torch.zeros((El, M + 1, D), dtype=dt, device=hf.device)
     buf = buf.index_put_((e_idx, r_idx), src)[:, :M]
     act = ACTIVATIONS[cfg.ffn_act]
     gate_h = torch.bmm(buf, Q.cast(p.w_gate, dt))           # (E, M, Fe)
     up_h = torch.bmm(buf, Q.cast(p.w_up, dt))
     out_buf = torch.bmm(act(gate_h) * up_h, Q.cast(p.w_down, dt))  # (E,M,D)
     # dropped assignments read a real row and weigh it 0
-    y = out_buf[e_idx, torch.where(keep, r_idx, gl * C + C - 1)]
-    w = (gates.reshape(g, A) * keep).float()
+    return _join(p, out_buf[e_idx, torch.where(mine, r_idx, gl * C + C - 1)],
+                 mine)
+
+
+def _experts(p: MoE, hf: torch.Tensor, gates: torch.Tensor,
+             flat_e: torch.Tensor, pos: torch.Tensor, keep: torch.Tensor,
+             C: int, cfg: ModelConfig) -> torch.Tensor:
+    """Dispatch, expert products and combine (``_routed``), gates (g,T,k).
+    Returns the routed experts plus the shared expert, (g,T,D) in f32."""
+    g, T, D = hf.shape
+    k = cfg.top_k
+    y = _routed(p, hf, flat_e, pos, keep, C, cfg)
+    w = (gates.reshape(g, T * k) * keep).float()
     y = (y.float() * w[..., None]).reshape(g, T, k, D).sum(2)
     if hasattr(p, "shared"):
         y = y + ffn.mlp_body(p.shared, hf, cfg).float()
@@ -176,6 +237,12 @@ def moe_block(p: MoE, x: torch.Tensor, cfg: ModelConfig, *,
         raise NotImplementedError(
             f"moe_impl={cfg.moe_impl!r}: only the sort ranking is ported "
             "(it gives the one-hot cumsum's positions)")
+    if getattr(p, "mesh", None) is not None:
+        raise NotImplementedError(
+            "MoE training on a mesh is not ported: the full-sequence "
+            "dispatch (moe_block: training and forward, with its aux loss) "
+            "runs on one device; a mesh rank's shard serves through "
+            "moe_prefill_block and moe_decode_block")
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.top_k
     T = B * S
@@ -213,7 +280,8 @@ def moe_prefill_block(p: MoE, x: torch.Tensor, cfg: ModelConfig,
     h = rmsnorm(x, p.norm, cfg.norm_eps)
     hf = h.transpose(0, 1)                                   # (S, B, D)
     valid = (positions >= 0).transpose(0, 1)                 # (S, B)
-    gates, idx, probs = _route_topk(p.router, hf, cfg, valid=valid)
+    gates, idx, probs = _route_topk(p.router, hf, cfg, valid=valid,
+                                     tp=getattr(p, "tp", None))
     A = B * k
     valid_a = valid[..., None].expand(S, B, k).reshape(S, A)
     flat_e = torch.where(valid_a, idx.reshape(S, A), E)      # pad: sentinel
@@ -251,15 +319,20 @@ def moe_decode_block(p: MoE, x: torch.Tensor, cfg: ModelConfig
     T = B * S
     h = rmsnorm(x, p.norm, cfg.norm_eps)
     hf = h.reshape(T, D)
-    gates, idx, _ = _route_topk(p.router, hf[None], cfg)
+    gates, idx, _ = _route_topk(p.router, hf[None], cfg,
+                                tp=getattr(p, "tp", None))
     gates, idx = gates[0], idx[0]                            # (T, k)
     dt = h.dtype
     act = ACTIVATIONS[cfg.ffn_act]
+    # on a mesh the rank's experts' rows (another rank's assignment reads
+    # its first expert and is zeroed by the join)
+    mine, li = _owned(p, idx)
     hk = hf[:, None, None, :]                                # (T, 1, 1, D)
-    gate_h = hk @ _take_expert_rows(p.w_gate, idx, dt)       # (T, k, 1, Fe)
-    up_h = hk @ _take_expert_rows(p.w_up, idx, dt)
-    o = (act(gate_h) * up_h) @ _take_expert_rows(p.w_down, idx, dt)
-    y = (o[:, :, 0].float() * gates[..., None]).sum(1).reshape(B, S, D)
+    gate_h = hk @ _take_expert_rows(p.w_gate, li, dt)        # (T, k, 1, Fe)
+    up_h = hk @ _take_expert_rows(p.w_up, li, dt)
+    o = (act(gate_h) * up_h) @ _take_expert_rows(p.w_down, li, dt)
+    o = _join(p, o[:, :, 0], mine)                           # (T, k, D)
+    y = (o.float() * gates[..., None]).sum(1).reshape(B, S, D)
     if hasattr(p, "shared"):
         y = y + ffn.mlp_body(p.shared, h, cfg).float()
     return x + y.to(x.dtype), torch.zeros((), dtype=torch.float32,

@@ -9,6 +9,16 @@ tree over the same operator, so the two agree to rounding).  Decode is one
 step on a (B, W) f32 state.  The carried state (``RGLRUState``) is written
 IN PLACE by ``rglru_prefill`` and ``rglru_decode``, as the attention layers
 write their KV caches.
+
+On a mesh (``transformer.shard_params``) a rank holds W/m of the width
+``ssm_inner`` (``SERVE_RULES``): the columns of w_in, w_branch, the conv,
+wa, wx, their biases and lam, and the rows of w_out, with a
+``sharding.Split`` as ``.tp``.  The conv is depthwise and the recurrence
+elementwise, so both run on the rank's columns, and its state is
+``(B, W/m)`` and ``(B, conv_width-1, W/m)``.  The gate products contract
+over the whole W (wa/wx keep their rows), so they read the post-conv
+``u`` gathered over 'model' (a copy: exact); w_out's product is
+row-parallel (``sharding.row_parallel``).
 """
 
 from __future__ import annotations
@@ -18,6 +28,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from repro_torch.distributed.sharding import row_parallel
 from repro_torch.models.common import (ModelConfig, frozen_zeros, gelu,
                                        rmsnorm, softplus)
 from repro_torch.models.ssm import _causal_conv, _causal_conv_step
@@ -69,10 +80,14 @@ def lam_init(shape, generator: torch.Generator) -> torch.Tensor:
 
 
 def _gates(p: RGLRU, u: torch.Tensor):
-    """u (B,L,W) post-conv -> (a, b) of the recurrence, f32."""
+    """u (B,L,W) post-conv -> (a, b) of the recurrence, f32.  On a mesh u
+    holds the rank's columns: the gate products read it gathered whole,
+    the elementwise terms the rank's own."""
     uf = u.float()
-    r = torch.sigmoid(uf @ p.wa.float() + p.ba.float())
-    i = torch.sigmoid(uf @ p.wx.float() + p.bx.float())
+    tp = getattr(p, "tp", None)
+    uw = uf if tp is None else tp.gather(u, -1).float()
+    r = torch.sigmoid(uw @ p.wa.float() + p.ba.float())
+    i = torch.sigmoid(uw @ p.wx.float() + p.bx.float())
     a = torch.exp(-_C * softplus(p.lam.float()) * r)
     b = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * (i * uf)
     return a, b
@@ -100,13 +115,19 @@ def _branches(p: RGLRU, x: torch.Tensor, cfg: ModelConfig):
     return h @ p.w_in.to(h.dtype), gelu(h @ p.w_branch.to(h.dtype))
 
 
+def _out(p: RGLRU, x: torch.Tensor, h: torch.Tensor,
+         g: torch.Tensor) -> torch.Tensor:
+    """x + (h * g) W_out, h the recurrence's f32 output; row-parallel on a
+    mesh."""
+    return x + row_parallel(p, h.to(x.dtype) * g, p.w_out)
+
+
 def rglru_block(p: RGLRU, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Full-sequence Griffin recurrent block.  x (B,S,D)."""
     u, g = _branches(p, x, cfg)
     u, _ = _causal_conv(u, p.conv_w, p.conv_b)
     a, b = _gates(p, u)
-    hseq = linear_scan(a, b)
-    return x + (hseq.to(x.dtype) * g) @ p.w_out.to(x.dtype)
+    return _out(p, x, linear_scan(a, b), g)
 
 
 def rglru_prefill(p: RGLRU, x: torch.Tensor, state: RGLRUState,
@@ -135,7 +156,7 @@ def rglru_prefill(p: RGLRU, x: torch.Tensor, state: RGLRUState,
     b = b.masked_fill(~valid, 0.0)
     b = torch.cat([b[:, :1] + a[:, :1] * state.h[:, None], b[:, 1:]], dim=1)
     hseq = linear_scan(a, b)
-    out = x + (hseq.to(x.dtype) * g) @ p.w_out.to(x.dtype)
+    out = _out(p, x, hseq, g)
     state.h.copy_(hseq[:, -1])
     state.conv.copy_(conv_tail)
     return out, state
@@ -159,7 +180,7 @@ def rglru_decode(p: RGLRU, x: torch.Tensor, state: RGLRUState,
     u, conv_tail = _causal_conv_step(u, p.conv_w, p.conv_b, state.conv)
     a, b = _gates(p, u)                                      # (B,1,W)
     h_new = a[:, 0] * state.h + b[:, 0]
-    out = x + (h_new[:, None].to(x.dtype) * g) @ p.w_out.to(x.dtype)
+    out = _out(p, x, h_new[:, None], g)
     state.h.copy_(h_new)
     state.conv.copy_(conv_tail)
     return out, state

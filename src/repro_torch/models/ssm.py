@@ -15,6 +15,20 @@ The conv helpers ``_causal_conv`` / ``_causal_conv_step`` serve the RG-LRU
 block too (``models/rglru.py``).  Both accumulate the window in f32 and
 round to the activation dtype before bias and silu, the numerics the
 reference's conv lowering produces.
+
+On a mesh (``transformer.shard_params``) a rank holds H/m of the SSD heads,
+cut as Mamba-2's own tensor-parallel layer cuts them: in_proj's columns
+segment by segment (``rank_columns``: the rank's z, x and dt, and the B/C
+groups its heads read, whole when one group serves every head), the conv
+alike (depthwise: local), A_log, dt_bias, D_skip and the gated norm's
+weight by heads, and out_proj's rows, row-parallel
+(``sharding.row_parallel``).  The reference cuts the concatenated
+projection contiguously (XLA reshards it); a contiguous cut would mix the
+segments here.  The rank's config (``common.RankConfig``) gives the local
+d_inner, heads and groups, so the scan, the decode step and the state,
+``ssd (B, H/m, P, N)`` and ``conv (B, W-1, d_inner/m + 2 G_l N)``, run
+unchanged on the rank's heads.  The gated RMSNorm normalises over the
+whole d_inner: its per-row sum of squares is summed over 'model' in f32.
 """
 
 from __future__ import annotations
@@ -25,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.sharding import row_parallel
 from repro_torch.models.common import (ModelConfig, frozen_zeros, rmsnorm,
                                        softplus)
 
@@ -88,6 +103,42 @@ def dt_init(shape, generator: torch.Generator) -> torch.Tensor:
     lo, hi = torch.log(torch.tensor(1e-3)), torch.log(torch.tensor(0.1))
     dt = torch.exp(u * (hi - lo).to(u.device) + lo.to(u.device))
     return dt + torch.log(-torch.expm1(-dt))
+
+
+class RankColumns(NamedTuple):
+    """A rank's share of an SSD layer cut over m ranks, in the whole
+    layer's column numbers: its heads [h0, h0 + H/m), its groups [g0, g0 +
+    G_l), and the columns of in_proj and of the conv (and its state's conv
+    tail) it holds, segment by segment."""
+    h0: int
+    heads: int
+    g0: int
+    groups: int
+    in_proj: list
+    conv: list
+
+
+def rank_columns(cfg: ModelConfig, r: int, m: int) -> RankColumns:
+    """Rank r's columns of an SSD layer whose H heads are cut m ways (m
+    divides H).  Its heads read groups: one group (``m % G == 0``: the
+    group of its heads, every group when G = 1) or G/m (``G % m == 0``);
+    other shapes raise ``NotImplementedError``."""
+    d_inner, H, P, G, N, conv_dim, _ = _dims(cfg)
+    if m % G == 0:
+        g0, gl = r // (m // G), 1
+    elif G % m == 0:
+        g0, gl = r * (G // m), G // m
+    else:
+        raise NotImplementedError(
+            f"{cfg.name}: {G} SSD groups over a {m}-way model axis: the "
+            "groups neither divide the ranks nor split among them")
+    hl, dl = H // m, d_inner // m
+    x = list(range(r * dl, (r + 1) * dl))
+    bc = list(range(g0 * N, (g0 + gl) * N))
+    conv = x + [d_inner + c for c in bc] + [d_inner + G * N + c for c in bc]
+    proj = (x + [d_inner + c for c in conv]
+            + [d_inner + conv_dim + h for h in range(r * hl, (r + 1) * hl)])
+    return RankColumns(r * hl, hl, g0, gl, proj, conv)
 
 
 def _split_proj(zxbcdt: torch.Tensor, cfg: ModelConfig):
@@ -222,8 +273,23 @@ def _gated_out(p: SSD, x: torch.Tensor, y: torch.Tensor, xs: torch.Tensor,
     d_inner = H * P
     y = y + xs.reshape(B, S, H, P).float() * p.D_skip[:, None]
     y = y.reshape(B, S, d_inner)
-    y = rmsnorm((y * F.silu(z.float())).to(x.dtype), p.gnorm, cfg.norm_eps)
-    return x + y @ p.out_proj.to(x.dtype)
+    y = _gnorm(p, (y * F.silu(z.float())).to(x.dtype), cfg)
+    return x + row_parallel(p, y, p.out_proj)
+
+
+def _gnorm(p: SSD, y: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The gated RMSNorm over the whole d_inner.  On a mesh y holds the
+    rank's heads: each row's f32 sum of squares is summed over the axes
+    the heads are cut over, then the rank's slice is scaled (``rmsnorm``'s
+    arithmetic, its mean taken over the whole width)."""
+    tp = getattr(p, "tp", None)
+    if tp is None:
+        return rmsnorm(y, p.gnorm, cfg.norm_eps)
+    yf = y.float()
+    var = tp.reduce(yf.square().sum(-1, keepdim=True)) / (
+        yf.shape[-1] * tp.shards)
+    out = yf * torch.rsqrt(var + cfg.norm_eps)
+    return (out * (1.0 + p.gnorm.float())).to(y.dtype)
 
 
 def ssd_block(p: SSD, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

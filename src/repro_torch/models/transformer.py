@@ -29,10 +29,12 @@ on for the step's own backward only (``training/train.py::value_and_grad``),
 so the weights it hands to serving are frozen as before.
 
 On a mesh a rank holds the shard ``shard_params`` cut for it: each module
-whose contraction was cut (attention's heads, the MLP's d_ff) carries a
-``sharding.Split`` as ``.tp`` and sums its row-parallel product over the
-mesh axes, and a model whose vocabulary was cut looks its tokens up
-vocabulary-parallel and gathers its logits (``_embed``, ``_logits``).
+whose dim was cut (attention's heads, the MLP's d_ff, the RG-LRU's width,
+the SSD's heads, the MoE's experts) carries a ``sharding.Split`` as
+``.tp`` and sums its row-parallel product, gathers its operand or joins
+its experts' rows over the mesh axes, and a model whose vocabulary was
+cut looks its tokens up vocabulary-parallel and gathers its logits
+(``_embed``, ``_logits``).
 Without a ``.tp`` nothing crosses a mesh: a (1, 1) mesh, and every model
 off a mesh, computes as one device does.
 
@@ -59,8 +61,8 @@ from torch import nn
 from repro_torch.distributed import sharding as sh
 from repro_torch.models import attention, ffn, moe, rglru, ssm
 from repro_torch.models import quant as Q
-from repro_torch.models.common import (ModelConfig, frozen_zeros, rmsnorm,
-                                       shallow_copy)
+from repro_torch.models.common import (ModelConfig, RankConfig,
+                                       frozen_zeros, rmsnorm, shallow_copy)
 
 ATTN = ("attn", "attn_local")
 STATE_TYPES = (rglru.RGLRUState, ssm.SSMState)
@@ -659,7 +661,12 @@ def param_axes(model: nn.Module) -> dict[str, tuple]:
 
 def cache_axes(cfg: ModelConfig) -> list:
     """The logical axes of ``init_cache``'s tensors, entry for entry (the
-    reference's ``cache_axes`` without the repeat axis)."""
+    reference's ``cache_axes`` without the repeat axis).  A mesh rank's
+    state follows their specs but for an SSD conv tail, whose
+    ``act_ssm_inner`` dim holds the rank's x channels and its groups' B/C
+    columns (``state_columns``) where the spec would take a contiguous
+    cut; a KV cache in case (b) holds the one KV head the rank's query
+    heads read (``shard_params``)."""
     kv = attention.KVCache(
         k=("act_batch", "act_kv_seq", "act_kv_heads", None),
         v=("act_batch", "act_kv_seq", "act_kv_heads", None),
@@ -684,22 +691,26 @@ def _leaves(model: nn.Module) -> dict[str, torch.Tensor]:
 
 
 #: the logical axes a rank's shard may cut: the tensor-parallel ones, whose
-#: products the model sums (row-parallel) or gathers (the vocabulary)
-_TP_AXES = ("vocab", "heads", "bias_heads", "kv_heads", "ffn")
+#: products the model sums (row-parallel), gathers (the vocabulary, the
+#: RG-LRU's gate input, the router logits) or joins (the experts' rows)
+_TP_AXES = ("vocab", "heads", "bias_heads", "kv_heads", "ffn", "ssm_inner",
+            "experts")
 
 
 def shard_params(model: Transformer, cfg: ModelConfig, mesh, comm=None,
                  rules=sh.SERVE_RULES) -> Transformer:
     """This rank's shard of ``model`` on ``mesh``: a new model (``model`` is
     not changed) holding each parameter cut as ``sharding.spec_for`` under
-    ``rules`` places it, and a ``cfg`` with the rank's ``num_heads``,
-    ``num_kv_heads`` and ``d_ff`` (the vocabulary stays whole: the logits
-    are gathered).  ``SERVE_RULES`` puts the heads, KV heads, QKV biases,
-    d_ff and vocabulary over 'model' and replicates the rest; a tensor the
-    spec does not cut is shared with ``model``, so a (1, 1) mesh copies
-    nothing.  Rules that cut any other dim (``DEFAULT_RULES`` and
-    ``SP_RULES`` put d_model over 'data': FSDP) raise
-    ``NotImplementedError``.
+    ``rules`` places it, and a config (a ``common.RankConfig`` where the
+    SSD heads are cut) with the rank's ``num_heads``, ``num_kv_heads``,
+    ``d_ff``, RG-LRU ``rnn_width`` and SSD heads and groups (the vocabulary
+    and the experts' count stay whole: the logits are gathered and the
+    routing runs whole).  ``SERVE_RULES`` puts the heads, KV heads, QKV
+    biases, d_ff, the recurrent width (``ssm_inner``), the experts and the
+    vocabulary over 'model' and replicates the rest; a tensor the spec does
+    not cut is shared with ``model``, so a (1, 1) mesh copies nothing.
+    Rules that cut any other dim (``DEFAULT_RULES`` and ``SP_RULES`` put
+    d_model over 'data': FSDP) raise ``NotImplementedError``.
 
     Attention takes one of three placements, by the size m of the axes the
     heads go over:
@@ -717,23 +728,28 @@ def shard_params(model: Transformer, cfg: ModelConfig, mesh, comm=None,
     from a sequence-sharded cache (``act_kv_seq``), which needs the decode
     kernels to return each row's log-sum-exp.
 
+    The recurrent mixers and the MoE (``models/rglru.py``,
+    ``models/ssm.py``, ``models/moe.py``): an RG-LRU holds W/m of its width
+    (every ``ssm_inner`` column, w_out's rows); an SSD layer H/m heads, its
+    in_proj and conv cut segment by segment (``ssm.rank_columns``), not
+    contiguously as the spec would; an MoE E/m experts and their router
+    columns, its shared expert cut over d_ff as an MLP.  A dim the axes do
+    not divide stays whole (the module runs whole on every rank, as
+    attention's case (c)).  Each MoE of the shard refuses the full-sequence
+    dispatch (``moe.moe_block``: training on a mesh is not ported).
+
     A quantized model (``quant.quantize_params`` of the whole model) is cut
     the same way: a ``QTensor``'s payload like its weight and its row
     scales like the weight minus its trailing dim
     (``quant.quantize_param_axes``), so each rank holds the slices of the
     full quantized tree.
 
-    Each module whose contraction was cut gets a ``sharding.Split`` as
-    ``.tp`` (attention: wo's heads; the MLP: w_down's d_ff), and the model
-    one when its vocabulary was cut; ``comm`` (a ``sharding.Comm`` of the
-    mesh, made when None) runs their collectives."""
+    Each module whose dim was cut gets a ``sharding.Split`` as ``.tp``
+    (attention: wo's heads; the MLP and a shared expert: w_down's d_ff; an
+    RG-LRU: its width; an SSD: its heads; an MoE: its experts), and the
+    model one when its vocabulary was cut; ``comm`` (a ``sharding.Comm`` of
+    the mesh, made when None) runs their collectives."""
     sh.check_mesh(mesh)
-    for mixer, f in cfg.layer_plan():
-        if mixer not in ATTN or f != "mlp":
-            raise NotImplementedError(
-                f"{cfg.name}: a ({mixer}, {f}) layer on a mesh is not "
-                "ported yet (the recurrent mixers' 'ssm_inner' and MoE's "
-                "expert parallelism); dense attention + MLP layers are")
     comm = comm or sh.Comm(mesh)
     axes = Q.quantize_param_axes(param_axes(model), model)
     named = _leaves(model)
@@ -746,6 +762,9 @@ def shard_params(model: Transformer, cfg: ModelConfig, mesh, comm=None,
                     f"{n}: its {axes[n][d]!r} dim over {part!r} (an FSDP "
                     "placement) is not ported; serve with SERVE_RULES, whose "
                     "weights are replicated but for the tensor-parallel dims")
+    # an SSD layer's leaves are cut by its heads below, segment by segment
+    ssd_pre = tuple(f"{n}." for n, m in model.named_modules()
+                    if isinstance(m, ssm.SSD))
 
     def part(name: str, dim: int):
         spec = specs.get(name, specs.get(name + ".q"))
@@ -769,54 +788,142 @@ def shard_params(model: Transformer, cfg: ModelConfig, mesh, comm=None,
 
     with torch.no_grad():
         for name, p in named.items():
+            if name.startswith(ssd_pre):
+                continue
             t = sh.shard(p, specs[name], mesh)
             if t is not p:
                 put(name, t)
-    H, K = cfg.num_heads, cfg.num_kv_heads
-    H_l, K_l, F_l = H, K, cfg.d_ff
-    for i, layer in enumerate(new.layers):
+    local = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                 d_ff=cfg.d_ff)
+    for i, (layer, (mixer, f)) in enumerate(zip(new.layers,
+                                                cfg.layer_plan())):
         pre = f"layers.{i}."
-        hp, kp = part(pre + "mixer.wq", 1), part(pre + "mixer.wk", 1)
-        _, m = sh.shard_index(hp, mesh)
-        if m > 1:
-            att = layer.mixer
-            H_l = H // m
-            if kp == hp:                                   # (a)
-                K_l = K // m
-            elif kp is None and m % K == 0:                # (b)
-                r, _ = sh.shard_index(hp, mesh)
-                kv = r * H_l // (H // K)
-                K_l = 1
-                # a quantized wk/wv: its payload and row scales narrowed
-                # alike (each scale row is one (d, KV head) row, whole)
-                with torch.no_grad():
-                    for leaf, dim in (("wk", 1), ("wv", 1), ("bk", 0),
-                                      ("bv", 0), ("wk.q", 1), ("wk.scale", 1),
-                                      ("wv.q", 1), ("wv.scale", 1)):
-                        w = named.get(pre + "mixer." + leaf)
-                        if w is not None:
-                            put(pre + "mixer." + leaf, w.narrow(
-                                dim, kv, 1).clone(
-                                    memory_format=torch.contiguous_format))
-            else:
-                raise NotImplementedError(
-                    f"{cfg.name}: {H} heads on {K} KV heads over a "
-                    f"{m}-way model axis need the sequence-sharded KV "
-                    "cache (the reference's act_kv_seq fallback), which is "
-                    "not ported: rows 2 and 5 would have to return each "
-                    "row's log-sum-exp for a merge over 'model'")
-            att.tp = split(hp, H_l)
-        fp = part(pre + "ffn.w_up", 1)
-        _, n = sh.shard_index(fp, mesh)
-        if n > 1:
-            F_l = cfg.d_ff // n
-            layer.ffn.tp = split(fp, F_l)
+        if mixer in ATTN:
+            local.update(_shard_attention(layer.mixer, cfg, pre, named, part,
+                                          split, put, mesh))
+        elif mixer == "rglru":
+            wp = part(pre + "mixer.w_in", 1)
+            _, m = sh.shard_index(wp, mesh)
+            if m > 1:
+                W = cfg.rnn_width or cfg.d_model
+                layer.mixer.tp = split(wp, W // m)
+                local["rnn_width"] = W // m
+        else:
+            local.update(_shard_ssd(layer.mixer, cfg, pre, named, part,
+                                    split, put, mesh))
+        if f == "mlp":
+            fp = part(pre + "ffn.w_up", 1)
+            _, n = sh.shard_index(fp, mesh)
+            if n > 1:
+                local["d_ff"] = cfg.d_ff // n
+                layer.ffn.tp = split(fp, cfg.d_ff // n)
+        elif f == "moe":
+            layer.ffn.mesh = mesh
+            ep = part(pre + "ffn.w_up", 0)
+            _, n = sh.shard_index(ep, mesh)
+            if n > 1:
+                layer.ffn.tp = split(ep, cfg.num_experts // n)
+            sp = part(pre + "ffn.shared.w_up", 1)
+            _, n = sh.shard_index(sp, mesh)
+            if n > 1:
+                w = named.get(pre + "ffn.shared.w_up")
+                if w is None:                             # a QTensor's
+                    w = named[pre + "ffn.shared.w_up.q"]
+                fs = w.shape[1]
+                layer.ffn.shared.tp = split(sp, fs // n)
     # a cut over axes of size 1 cuts nothing: no Split, so nothing crosses
     # the mesh and the (1, 1) mesh computes as one device does
     vp = part("embed", 0)
     _, n = sh.shard_index(vp, mesh)
     if n > 1:
         new.tp = split(vp, cfg.vocab_size // n)
-    new.cfg = dataclasses.replace(cfg, num_heads=H_l, num_kv_heads=K_l,
-                                  d_ff=F_l)
+    if local.get("ssm_shards", 1) > 1:
+        new.cfg = RankConfig.of(cfg, **local)
+    else:
+        local.pop("ssm_shards", None)
+        new.cfg = dataclasses.replace(cfg, **local)
     return new
+
+
+def _shard_attention(att, cfg: ModelConfig, pre: str, named: dict, part,
+                     split, put, mesh) -> dict:
+    """Attention's placement (a), (b) or (c) (``shard_params``): attaches
+    its ``Split`` and returns the rank's head counts."""
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    hp, kp = part(pre + "mixer.wq", 1), part(pre + "mixer.wk", 1)
+    _, m = sh.shard_index(hp, mesh)
+    if m == 1:
+        return {}
+    H_l = H // m
+    if kp == hp:                                           # (a)
+        K_l = K // m
+    elif kp is None and m % K == 0:                        # (b)
+        r, _ = sh.shard_index(hp, mesh)
+        kv = r * H_l // (H // K)
+        K_l = 1
+        # a quantized wk/wv: its payload and row scales narrowed alike
+        # (each scale row is one (d, KV head) row, whole)
+        with torch.no_grad():
+            for leaf, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0),
+                              ("wk.q", 1), ("wk.scale", 1), ("wv.q", 1),
+                              ("wv.scale", 1)):
+                w = named.get(pre + "mixer." + leaf)
+                if w is not None:
+                    put(pre + "mixer." + leaf, w.narrow(dim, kv, 1).clone(
+                        memory_format=torch.contiguous_format))
+    else:
+        raise NotImplementedError(
+            f"{cfg.name}: {H} heads on {K} KV heads over a {m}-way model "
+            "axis need the sequence-sharded KV cache (the reference's "
+            "act_kv_seq fallback), which is not ported: rows 2 and 5 would "
+            "have to return each row's log-sum-exp for a merge over "
+            "'model'")
+    att.tp = split(hp, H_l)
+    return {"num_heads": H_l, "num_kv_heads": K_l}
+
+
+#: an SSD layer's leaves cut by its heads: (leaf, dim, how) — "heads" a
+#: contiguous cut of H, "inner" of d_inner (the heads' channels), "proj" and
+#: "conv" the segment columns of ``ssm.rank_columns``
+_SSD_CUTS = (("A_log", 0, "heads"), ("dt_bias", 0, "heads"),
+             ("D_skip", 0, "heads"), ("gnorm", 0, "inner"),
+             ("out_proj", 0, "inner"), ("in_proj", 1, "proj"),
+             ("conv_w", 1, "conv"), ("conv_b", 0, "conv"))
+
+
+def _shard_ssd(mix, cfg: ModelConfig, pre: str, named: dict, part, split,
+               put, mesh) -> dict:
+    """An SSD layer's heads over the axes its ``A_log`` goes over
+    (``"heads"``): every leaf but the norm cut by ``ssm.rank_columns``, or
+    left whole when they do not divide H.  Returns the rank's SSD sizes."""
+    H = cfg.ssm_nheads
+    hp = part(pre + "mixer.A_log", 0)
+    r, m = sh.shard_index(hp, mesh)
+    if m == 1:
+        return {}
+    rc = ssm.rank_columns(cfg, r, m)
+    P = cfg.ssm_head_dim
+    inner = range(rc.h0 * P, (rc.h0 + rc.heads) * P)
+    cols = {"heads": range(rc.h0, rc.h0 + rc.heads), "inner": inner,
+            "proj": rc.in_proj, "conv": rc.conv}
+    with torch.no_grad():
+        for leaf, dim, how in _SSD_CUTS:
+            name = pre + "mixer." + leaf
+            put(name, sh.take_cols(named[name], dim, cols[how]))
+    mix.tp = split(hp, H // m)
+    return {"ssm_shards": m, "ssm_ngroups": rc.groups}
+
+
+def state_columns(cfg: ModelConfig, mixer: str, m: int) -> dict:
+    """Where the ranks of a recurrent layer cut m ways hold its state:
+    ``{field: (dim, [rank r's columns of the whole dim, for each r])}``
+    (an RG-LRU's width; an SSD state's heads and its conv tail's segment
+    columns, ``ssm.rank_columns``).  The engine gathers a session's whole
+    state by it and cuts a whole one back (``sharding.gather_cols``)."""
+    if mixer == "rglru":
+        wl = (cfg.rnn_width or cfg.d_model) // m
+        cols = [list(range(r * wl, (r + 1) * wl)) for r in range(m)]
+        return {"h": (1, cols), "conv": (2, cols)}
+    rcs = [ssm.rank_columns(cfg, r, m) for r in range(m)]
+    return {"ssd": (1, [list(range(c.h0, c.h0 + c.heads)) for c in rcs]),
+            "conv": (2, [c.conv for c in rcs])}

@@ -68,13 +68,18 @@ it computes in it (``serving/cache_manager.py``; its data ranks agree on
 every pool decision, so they raise, defer and evict together); a selected
 row that changes data rank is copied over (``_move_rows``).
 ``weight_quant`` quantizes the whole model, then cuts payload and scales
-(``quant.quantize_param_axes``).  Session checkpoints gather the whole
-view and restore onto any layout.  On the (1, 1) mesh no collective is
-issued and the engine is the single-device one, CUDA graphs included; on
-a mesh of more than one rank it runs the eager route
-(``counters["mesh_eager"]`` counts those dispatches).  Still refused on a
-mesh, with ``NotImplementedError``: recurrent and MoE layers, head counts
-that need the sequence-sharded cache (``transformer.shard_params``), and
+(``quant.quantize_param_axes``).  Every decoder family serves so: the
+RG-LRU's width and the SSD's heads (``ssm_inner``) and the MoE's experts
+go over 'model' as well (``models/rglru.py``, ``models/ssm.py``,
+``models/moe.py``), a rank's recurrent state and pooled state rows hold
+its own width or heads, and a session's whole view joins them back.
+Session checkpoints gather the whole view and restore onto any layout.
+On the (1, 1) mesh no collective is issued and the engine is the
+single-device one, CUDA graphs included; on a mesh of more than one rank
+it runs the eager route (``counters["mesh_eager"]`` counts those
+dispatches).  Still refused on a mesh, with ``NotImplementedError``: head
+counts that need the sequence-sharded cache and the FSDP rules
+(``transformer.shard_params``), MoE training (``moe.moe_block``), and
 graph capture over more than one rank.
 ``weight_quant`` (``"int8"`` / ``"fp8"``, monolithic or paged) serves from
 ``quant.quantize_params``'s copy of the model: the attention, MLP and
@@ -257,10 +262,10 @@ class InferenceEngine:
 
     def __post_init__(self):
         if self.mesh is not None:
-            # what the mesh path does not serve yet raises (ROADMAP A8b):
-            # ``transformer.shard_params`` refuses recurrent and MoE layers
-            # and the head counts that need the sequence-sharded cache,
-            # ``_no_capture`` a captured dispatch over more than one rank
+            # what the mesh path does not serve yet raises:
+            # ``transformer.shard_params`` the head counts that need the
+            # sequence-sharded cache and the FSDP rules, ``_no_capture`` a
+            # captured dispatch over more than one rank
             sh.check_mesh(self.mesh)
         if not self.cfg.causal:
             raise NotImplementedError(
@@ -318,6 +323,17 @@ class InferenceEngine:
         if self.weight_quant is not None and self.mesh is None:
             self.params = Q.quantize_params(self.params, self.weight_quant)
         self._kv_heads = self._kv_placement()
+        # a recurrent state type's cut over 'model' (RG-LRU width, SSD
+        # heads): a session's whole view gathers it, a restore cuts it
+        self._state_cut = {}
+        for layer, (mixer, _) in zip(self.params.layers,
+                                     self.cfg.layer_plan()):
+            tp = getattr(layer.mixer, "tp", None)
+            if mixer in ("rglru", "ssd") and tp is not None:
+                kind = (T.rglru.RGLRUState if mixer == "rglru"
+                        else T.ssm.SSMState)
+                self._state_cut[kind] = (tp.axes, tp.index, T.state_columns(
+                    self.cfg, mixer, tp.shards))
         self._recurrent = any(m in ("rglru", "ssd")
                               for m, _ in self.cfg.layer_plan())
         kvb = self.cfg.attn_kv_block
@@ -375,8 +391,9 @@ class InferenceEngine:
         K, K_l = self.cfg.num_kv_heads, self._mcfg.num_kv_heads
         if K_l == K:
             return _KVHeads(0, K)
-        tp = next(layer.mixer.tp for layer in self.params.layers
-                  if hasattr(layer.mixer, "tp"))
+        tp = next(layer.mixer.tp for layer, (mixer, _) in zip(
+            self.params.layers, self.cfg.layer_plan())
+            if mixer in T.ATTN and hasattr(layer.mixer, "tp"))
         H = self.cfg.num_heads
         m = math.prod(self.comm.sizes[a] for a in tp.axes)
         starts = tuple(r * tp.size * K // H for r in range(m))
@@ -939,10 +956,12 @@ class InferenceEngine:
         the sampling generator's state go with it.
 
         On a mesh the file is the same: every rank gathers its rows over the
-        batch axes and its KV heads over 'model' (case (b)'s repeated heads
-        taken once), global rank 0 writes it, and every rank waits at a
-        barrier after the publish; ``restore_session`` cuts the view onto
-        any engine's layout (``launch.mesh.elastic_mesh``'s re-meshing)."""
+        batch axes and its KV heads and recurrent state columns over
+        'model' (case (b)'s repeated heads and an SSD's shared B/C columns
+        taken once: ``_entry_whole``), global rank 0 writes it, and every
+        rank waits at a barrier after the publish; ``restore_session`` cuts
+        the view onto any engine's layout (``launch.mesh.elastic_mesh``'s
+        re-meshing)."""
         self._state_kind_check(state)
         if self.paged:
             h = state.cache
@@ -953,7 +972,7 @@ class InferenceEngine:
             cov_len = int(state.max_len)
             cache = state.cache
         if self.mesh is not None:
-            cache = [self._kv_whole(self._whole(c, state.batch))
+            cache = [self._entry_whole(self._whole(c, state.batch))
                      for c in cache]
         tree = {"cache": _cache_tree(cache), "pos": state.pos,
                 "cur": state.cur, "last": state.last}
@@ -974,29 +993,44 @@ class InferenceEngine:
         self.comm.barrier()
         return ck.step_path(ckpt_dir, step)
 
-    def _kv_whole(self, c):
-        """A KV cache entry of the rank's KV heads as one of all the
-        model's: gathered over the axes its heads are cut over, each head
-        once.  Other entries, and an uncut attention, as they are."""
-        kv = self._kv_heads
-        if not kv.starts or not isinstance(c, T.attention.KVCache):
-            return c
-        kl = kv.count
-        pick = torch.tensor([next(r * kl + h - a for r, a in
-                                  enumerate(kv.starts) if a <= h < a + kl)
-                             for h in range(self.cfg.num_kv_heads)],
-                            device=c.k.device)
-        k, v = (self.comm.all_gather(t, kv.axes, 2).index_select(2, pick)
-                for t in (c.k, c.v))
-        return c._replace(k=k, v=v)
+    def _cuts(self, c) -> tuple:
+        """How the model axes cut a cache entry of this rank: ``(axes,
+        this rank's shard, {field: (dim, each shard's columns of the
+        whole)})`` — an attention entry's KV heads (case (a) or (b) of
+        ``shard_params``), a recurrent entry's state (``transformer.
+        state_columns``) — or None where nothing is cut."""
+        if isinstance(c, T.attention.KVCache):
+            kv = self._kv_heads
+            if not kv.starts:
+                return None
+            per = [list(range(a, a + kv.count)) for a in kv.starts]
+            return kv.axes, kv.starts.index(kv.start), {"k": (2, per),
+                                                        "v": (2, per)}
+        return self._state_cut.get(type(c))
 
-    def _kv_mine(self, c):
-        """This rank's rows and KV heads of a whole cache entry."""
-        k0, kl = self._kv_heads.start, self._kv_heads.count
+    def _entry_whole(self, c):
+        """A cache entry of the rank's KV heads or state columns as one of
+        the whole model's: gathered over the axes they are cut over, each
+        head or column once (``sharding.gather_cols``).  An uncut entry as
+        it is."""
+        cut = self._cuts(c)
+        if cut is None:
+            return c
+        axes, _, fields = cut
+        return c._replace(**{f: sh.gather_cols(self.comm, getattr(c, f),
+                                               axes, d, per)
+                             for f, (d, per) in fields.items()})
+
+    def _entry_mine(self, c):
+        """This rank's rows, and KV heads or state columns, of a whole
+        cache entry."""
         B = c[0].shape[0]
         c = type(c)(*(t[self._rows(B)] for t in c))
-        if isinstance(c, T.attention.KVCache):
-            c = c._replace(k=c.k[:, :, k0:k0 + kl], v=c.v[:, :, k0:k0 + kl])
+        cut = self._cuts(c)
+        if cut is not None:
+            _, r, fields = cut
+            c = c._replace(**{f: sh.take_cols(getattr(c, f), d, per[r])
+                              for f, (d, per) in fields.items()})
         return type(c)(*(t.contiguous() for t in c))
 
     @torch.inference_mode()
@@ -1011,8 +1045,9 @@ class InferenceEngine:
         (``checkpoint_session``).  Raises ``FileNotFoundError`` without a
         checkpoint, ``ValueError`` for one that is not a session's and
         ``QuantMismatchError`` for another cache representation.  On a
-        mesh every rank reads the file and keeps its rows and KV heads, on
-        whatever layout the session was saved from."""
+        mesh every rank reads the file and keeps its rows, KV heads and state
+        columns (``_entry_mine``), on whatever layout the session was saved
+        from."""
         if step is None:
             step = ck.latest_step(ckpt_dir)
             if step is None:
@@ -1049,7 +1084,7 @@ class InferenceEngine:
         if gen is not None:
             gen.set_state(tree["gen"])
         if self.mesh is not None:
-            cache = [self._kv_mine(c) for c in cache]
+            cache = [self._entry_mine(c) for c in cache]
         if self.paged:
             n = self._nrows(B)
             handle = self.pool.alloc(n, cov_len // self.block_len)

@@ -183,14 +183,14 @@ class TestPortContracts:
             np.testing.assert_allclose(fin[i]["u"], tres["u"][i], atol=1e-4)
 
     def test_unported_paths_raise(self, engines):
-        """What the port does not serve yet raises: a recurrent mixer on a
-        mesh (dense engines on a mesh, paged and quantized too, are ported:
-        test_torch_mesh_engine.py, test_torch_mesh_paged.py; warm sessions,
-        paged pools, fault injection and the deadline clock:
-        tests/test_torch_continuation.py, test_torch_paged.py,
-        test_torch_faults.py), and a mesh that is not a ``DeviceMesh``
-        raises ``TypeError``.  An empty fault plan and a clock no request
-        has a deadline on change nothing."""
+        """What the port does not serve yet raises: MoE training on a mesh
+        (engines of every decoder on a mesh, paged and quantized too, are
+        ported: test_torch_mesh_engine.py, test_torch_mesh_paged.py,
+        test_torch_mesh_mixers.py; warm sessions, paged pools, fault
+        injection and the deadline clock: tests/test_torch_continuation.py,
+        test_torch_paged.py, test_torch_faults.py), and a mesh that is not
+        a ``DeviceMesh`` raises ``TypeError``.  An empty fault plan and a
+        clock no request has a deadline on change nothing."""
         _, te, _, tres = engines
         fin = te.serve([Request(rid=0, prompt=PROMPTS[0].tolist(),
                                 max_new=MAX_NEW)],
@@ -202,10 +202,19 @@ class TestPortContracts:
         paged = TEngine("x", te.cfg, te.params, device="cpu", paged=True,
                         mesh=mesh)
         assert paged.generate(PROMPTS, 2)["tokens"].shape == (len(PROMPTS), 2)
-        rg = TC.get_smoke("recurrentgemma-2b")
+        rg = dataclasses.replace(TC.get_smoke("recurrentgemma-2b"),
+                                 vocab_size=512)
+        rec = TEngine("x", rg, TT.Transformer(rg), device="cpu", paged=True,
+                      block_len=16, mesh=mesh)
+        assert rec.generate(PROMPTS, 2)["tokens"].shape == (len(PROMPTS), 2)
+        mc = dataclasses.replace(TC.get_smoke("deepseek-moe-16b"),
+                                 vocab_size=512)
+        moe = TEngine("x", mc, TT.Transformer(mc), device="cpu", paged=True,
+                      mesh=mesh)
+        tokens = torch.as_tensor(PROMPTS)
         with pytest.raises(NotImplementedError, match="mesh"):
-            TEngine("x", rg, TT.Transformer(rg), device="cpu", paged=True,
-                    mesh=mesh)
+            TT.loss_fn(moe.params, moe._mcfg, {"tokens": tokens,
+                                               "labels": tokens})
         with pytest.raises(TypeError, match="DeviceMesh"):
             TEngine("x", te.cfg, te.params, device="cpu", mesh=object())
 

@@ -17,10 +17,12 @@
   mesh: the same routing decisions and tokens as the single-device one.
 * Paged pools, quantized weights and pools and session checkpoints build
   and run on the (1, 1) mesh here (``tests/test_torch_mesh_paged.py``
-  holds them to one device and to JAX); what the mesh path does not serve
-  yet raises ``NotImplementedError`` naming it (recurrent and MoE layers,
-  the sequence-sharded cache, graph capture over more than one rank); a
-  mesh that is not a ``DeviceMesh`` raises ``TypeError``.
+  holds them to one device and to JAX), and so do the recurrent and MoE
+  decoders (``tests/test_torch_mesh_mixers.py`` holds them); what the mesh
+  path does not serve yet raises ``NotImplementedError`` naming it (MoE
+  training on a mesh, the sequence-sharded cache, the FSDP rules, graph
+  capture over more than one rank); a mesh that is not a ``DeviceMesh``
+  raises ``TypeError``.
 * The serve CLI with ``--model-parallel 2 --paged --cache-quant int8`` on
   two gloo ranks routes the study workload as one device does.
 """
@@ -143,25 +145,43 @@ def test_gateway_on_a_model_parallel_mesh():
     ids=["paged", "cache_quant", "weight_quant"])
 def test_unported_mesh_paths_raise(mesh11, kw):
     """Paged pools and quantized weights and pools are served on a mesh
-    (the engine builds and generates); what stays unported beside them
-    raises, naming it: a recurrent mixer on a mesh."""
+    (the engine builds and generates), an MoE model's too; what stays
+    unported beside them raises, naming it: MoE training on a mesh (the
+    full-sequence dispatch of the engine's shard)."""
     tc = dataclasses.replace(TC.get_smoke("llama3-8b"), vocab_size=512)
     eng = TEngine("x", tc, TT.Transformer(tc), device="cpu", mesh=mesh11,
                   **kw)
     assert eng.generate(PROMPTS, 2)["tokens"].shape == (len(PROMPTS), 2)
-    rg = TC.get_smoke("recurrentgemma-2b")
-    with pytest.raises(NotImplementedError, match="rglru"):
-        TEngine("x", rg, TT.Transformer(rg), device="cpu", mesh=mesh11,
-                **kw)
+    mc = dataclasses.replace(TC.get_smoke("deepseek-moe-16b"),
+                             vocab_size=512)
+    moe = TEngine("x", mc, TT.init_params(mc, torch.Generator().manual_seed(
+        0), device="cpu"), device="cpu", mesh=mesh11, **kw)
+    assert moe.generate(PROMPTS, 2)["tokens"].shape == (len(PROMPTS), 2)
+    tokens = torch.as_tensor(PROMPTS)
+    with pytest.raises(NotImplementedError, match="MoE training on a mesh"):
+        TT.loss_fn(moe.params, moe._mcfg, {"tokens": tokens,
+                                           "labels": tokens})
 
 
 @pytest.mark.parametrize("arch,what", [
     ("recurrentgemma-2b", "rglru"), ("mamba2-780m", "ssd"),
-    ("deepseek-moe-16b", "moe")])
+    ("deepseek-moe-16b", "moe"), ("llama4-scout-17b-a16e", "moe")])
 def test_other_mixers_on_a_mesh_raise(mesh11, arch, what):
-    tc = TC.get_smoke(arch)
-    with pytest.raises(NotImplementedError, match=what):
-        TEngine("x", tc, TT.Transformer(tc), device="cpu", mesh=mesh11)
+    """The recurrent and MoE decoders, which the mesh path once refused,
+    build and generate on the (1, 1) mesh: their layer plans hold the
+    ``what`` kind, the engine's shard is the whole model and its tokens
+    one device's (``tests/test_torch_mesh_mixers.py`` holds them to one
+    device bitwise and across ranks)."""
+    tc = dataclasses.replace(TC.get_smoke(arch), vocab_size=512)
+    assert what in {k for kind in tc.layer_plan() for k in kind}
+    m = TT.init_params(tc, torch.Generator().manual_seed(1), device="cpu")
+    eng = TEngine("x", tc, m, device="cpu", mesh=mesh11)
+    one = TEngine("x", tc, m, device="cpu")
+    got = eng.generate(PROMPTS, 3)
+    assert got["tokens"].shape == (len(PROMPTS), 3)
+    np.testing.assert_array_equal(got["tokens"],
+                                  one.generate(PROMPTS, 3)["tokens"])
+    assert eng._mcfg == tc
 
 
 def test_session_checkpoints_on_a_mesh_raise(mesh11, tmp_path):

@@ -9,6 +9,9 @@ port's mesh-sharded engine and gateway against its single-device ones.
     python tests/torch_mesh_ranks.py ckpt DIR  # 4 ranks: sessions, meshes
     python tests/torch_mesh_ranks.py paged_gateway  # 2 ranks: (1,2), int8 pool
     python tests/torch_mesh_ranks.py cli [STEPS]  # 2 ranks: the serve CLI
+    python tests/torch_mesh_ranks.py mixers    # 4 ranks: RG-LRU, SSD, MoE
+    python tests/torch_mesh_ranks.py mixers_ckpt DIR  # 2 ranks: recurrent
+                                                      # sessions, meshes
 
 Spawns its ranks over a ``FileStore`` in a temporary directory (no socket
 but gloo's own on the loopback device); every rank builds the same
@@ -98,52 +101,127 @@ def model(arch: str, dtype, seed: int, gain: float = 0.0):
 
 
 def check_local_shapes(eng, full, mesh):
-    """Each leaf of the rank's shard is the full leaf divided as its spec
-    says, but for case (b)'s one KV head."""
+    """Each leaf of the rank's shard is the full leaf's slice its spec
+    gives, bitwise, but for case (b)'s one KV head and an SSD layer's
+    leaves, which are cut by heads segment by segment (``ssd_slice``);
+    weights the shard holds quantized are ``check_qtensor_slices``'s."""
     from repro_torch.distributed import sharding as sh
+    from repro_torch.models import ssm
     from repro_torch.models import transformer as T
     axes = T.param_axes(full)
     cfg = eng.cfg
     local = dict(eng.params.named_parameters())
+    mods = dict(full.named_modules())
     for name, p in full.named_parameters():
-        spec = sh.spec_for(p.shape, axes[name], mesh,
-                           sh.SERVE_RULES.param_rules)
-        want = [n // sh.shard_index(spec[d] if d < len(spec) else None,
-                                    mesh)[1] for d, n in enumerate(p.shape)]
-        leaf = name.rsplit(".", 1)[-1]
-        kv_dim = {"wk": 1, "wv": 1, "bk": 0, "bv": 0}.get(leaf)
-        if kv_dim is not None and eng._mcfg.num_kv_heads != cfg.num_kv_heads \
-                and want[kv_dim] == cfg.num_kv_heads:
-            want[kv_dim] = 1                                    # case (b)
-        assert tuple(local[name].shape) == tuple(want), \
-            (name, tuple(local[name].shape), want, spec)
+        if name not in local:
+            continue                                    # a QTensor now
+        mname, _, leaf = name.rpartition(".")
+        if isinstance(mods[mname], ssm.SSD):
+            want = ssd_slice(cfg, leaf, p, mesh)
+        else:
+            spec = sh.spec_for(p.shape, axes[name], mesh,
+                               sh.SERVE_RULES.param_rules)
+            want = p[sh.local_slices(p.shape, spec, mesh)]
+            kv_dim = {"wk": 1, "wv": 1, "bk": 0, "bv": 0}.get(leaf)
+            if kv_dim is not None \
+                    and eng._mcfg.num_kv_heads != cfg.num_kv_heads \
+                    and want.shape[kv_dim] == cfg.num_kv_heads:
+                want = want.narrow(kv_dim, eng._kv_heads.start, 1)  # (b)
+        got = local[name]
+        assert got.shape == want.shape, (name, tuple(got.shape),
+                                         tuple(want.shape))
+        assert torch.equal(got, want), name
     return sum(t.nbytes for t in local.values())
 
 
+def _model_coord(mesh) -> tuple[int, int]:
+    """(this rank's 'model' coordinate, the axis' size)."""
+    from repro_torch.distributed import sharding as sh
+    return sh.coordinates(mesh)["model"], sh.axis_sizes(mesh)["model"]
+
+
+def ssd_slice(cfg, leaf: str, p, mesh):
+    """An SSD leaf as the rank holds it when its H heads go over 'model'
+    (m ranks, m dividing H; whole otherwise), written out segment by
+    segment: in_proj's columns [z | x | B | C | dt] -> the rank's z and x
+    channels, B and C whole (one group: G = 1 in the smokes), its dt
+    heads; the conv's [x | B | C] -> its x channels, B and C whole; A_log,
+    dt_bias, D_skip by heads, gnorm and out_proj's rows by channels."""
+    r, m = _model_coord(mesh)
+    H, P, N = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state
+    if H % m or leaf == "norm":
+        return p
+    assert cfg.ssm_ngroups == 1, cfg.ssm_ngroups
+    hl, di = H // m, cfg.ssm_d_inner
+    dl = hl * P
+    if leaf in ("A_log", "dt_bias", "D_skip"):
+        return p[r * hl:(r + 1) * hl]
+    if leaf in ("gnorm", "out_proj"):
+        return p[r * dl:(r + 1) * dl]
+    if leaf == "in_proj":
+        return torch.cat([p[:, r * dl:(r + 1) * dl],
+                          p[:, di + r * dl:di + (r + 1) * dl],
+                          p[:, 2 * di:2 * di + 2 * N],
+                          p[:, 2 * di + 2 * N + r * hl:
+                            2 * di + 2 * N + (r + 1) * hl]], 1)
+    x = p[..., r * dl:(r + 1) * dl]                       # conv_w, conv_b
+    return torch.cat([x, p[..., di:]], -1)
+
+
+def state_width(cfg, kind, mesh) -> dict:
+    """The rank's state shapes past the batch dim of a recurrent layer
+    (``kind``: an ``RGLRUState`` or ``SSMState`` class): the RG-LRU's W/m
+    (W where m does not divide it), an SSD's H/m heads and d_inner/m + 2N
+    conv channels (whole where m does not divide H)."""
+    from repro_torch.models import rglru
+    _, m = _model_coord(mesh)
+    if kind is rglru.RGLRUState:
+        W = cfg.rnn_width or cfg.d_model
+        w = W // m if W % m == 0 else W
+        return {"h": (w,), "conv": (cfg.rnn_conv_width - 1, w)}
+    H, P, N = cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state
+    h = H // m if H % m == 0 else H
+    return {"ssd": (h, P, N),
+            "conv": (cfg.ssm_conv_width - 1, h * P + 2 * N)}
+
+
+def check_state_shapes(cfg, cache, mesh):
+    """Every recurrent entry of a cache list (or pool) holds the rank's
+    width or heads (``state_width``)."""
+    from repro_torch.models import transformer as T
+    for c in cache:
+        if isinstance(c, T.STATE_TYPES):
+            for f, shape in state_width(cfg, type(c), mesh).items():
+                got = tuple(getattr(c, f).shape[1:])
+                assert got == shape, (type(c).__name__, f, got, shape)
+
+
 def engines_case(mesh, arch: str, seed: int, kw=None,
-                 dtypes=(torch.bfloat16, torch.float32)):
+                 dtypes=(torch.bfloat16, torch.float32), build=None):
     """``arch``'s engine on ``mesh`` (built with ``kw``) against one
-    device's (the same ``kw``) through every entry point, tie-aware."""
+    device's (the same ``kw``) through every entry point, tie-aware; the
+    model from ``build`` (default ``model``)."""
     from repro_torch.core.uncertainty import UncertaintyConfig
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving.scheduler import Request
     ucfg = UncertaintyConfig(mode="distribution")
     kw = kw or {}
     for dtype in dtypes:
-        cfg, m = model(arch, dtype, seed)
+        cfg, m = (build or model)(arch, dtype, seed)
         base = InferenceEngine(arch, cfg, m, ucfg, device="cpu", **kw)
         shard = InferenceEngine(arch, cfg, m, ucfg, device="cpu", mesh=mesh,
                                 **kw)
         if kw.get("weight_quant"):
             check_qtensor_slices(shard, m, kw["weight_quant"], mesh)
-        else:
-            check_local_shapes(shard, m, mesh)
+        check_local_shapes(shard, m, mesh)
         if kw.get("paged"):
             check_pool_shapes(shard, mesh)
         tag = (f"{arch} {dtype} {kw} "
                f"{dict(zip(mesh.mesh_dim_names, mesh.shape))}")
         r0 = base.generate(PROMPTS, 8, return_state=True)
         r1 = shard.generate(PROMPTS, 8, return_state=True)
+        if not kw.get("paged"):
+            check_state_shapes(cfg, r1["state"].cache, mesh)
         tie_aware(r1, r0, tag + " generate")
         if dtype == torch.float32:
             np.testing.assert_allclose(r1["u"], r0["u"], atol=1e-4,
@@ -284,7 +362,11 @@ def check_pool_shapes(eng, mesh):
         == eng.pool_rows // d, (pool.n_rows, eng.pool_rows)
     full = T.init_block_pool(cfg, n_blocks, eng.block_len, 1,
                              cache_quant=eng.cache_quant, device="meta")
+    check_state_shapes(cfg, pool.arrays, mesh)
     for fl, ll in zip(full, pool.arrays):
+        if isinstance(fl, T.STATE_TYPES):
+            assert all(t.shape[0] == pool.n_rows + 1 for t in ll)
+            continue
         for f, t in zip(fl.served(), ll.served()):
             if f is None:
                 assert t is None
@@ -677,11 +759,200 @@ def run_paged_gateway(rank: int, world: int, arg=None):
                 label="paged gateway")
 
 
+#: the recurrent and MoE decoders: on (1, 4), (2, 2) and (4, 1) the
+#: recurrentgemma smoke (W 64, H4/K1: attention (b) at model 2 and 4), the
+#: mamba2 smoke (8 SSD heads, G=1), deepseek (8 experts top-2, 2 shared,
+#: H4/K4: (a)) and llama4-scout (4 experts top-1, 1 shared, H4/K2: (a) at
+#: 2, (b) at 4)
+MIXERS = ("recurrentgemma-2b", "mamba2-780m", "deepseek-moe-16b",
+          "llama4-scout-17b-a16e")
+RECURRENT = ("recurrentgemma-2b", "mamba2-780m")
+#: each mesh's layout per decoder (in ``MIXERS`` order): every decoder
+#: monolithic and paged, each quantized layout twice; deepseek paged with
+#: int8 weights on (2, 2); the mamba2 smoke has no weight to quantize
+MIX_PLAN = {
+    4: ({}, dict(PAGED), dict(PAGED, cache_quant="int8"),
+        dict(weight_quant="int8")),
+    2: (dict(PAGED, cache_quant="int8"), {},
+        dict(PAGED, weight_quant="int8"),
+        dict(PAGED, weight_quant="fp8", attn_decode_impl="gather")),
+    1: (dict(PAGED, weight_quant="fp8"),
+        dict(PAGED, attn_decode_impl="gather"), {}, dict(PAGED))}
+
+
+def mixer_model(arch: str, dtype, seed: int, gain: float = 0.0):
+    """``model``, with every matrix of a recurrent smoke but the embedding
+    and the convs scaled by 6: at the init scale the tied smoke's greedy
+    streams repeat their last prompt token (as the recurrent engine tests
+    scale them)."""
+    cfg, m = model(arch, dtype, seed, gain)
+    if arch in RECURRENT:
+        with torch.no_grad():
+            for name, p in m.named_parameters():
+                if p.dim() >= 2 and "embed" not in name \
+                        and "conv" not in name:
+                    p.mul_(6.0)
+    return cfg, m
+
+
+def gather_model(arch: str, dtype, seed: int):
+    """``mixer_model`` with ``moe_decode_impl="gather"``: decode multiplies
+    the k selected experts' rows only."""
+    cfg, m = mixer_model(arch, dtype, seed)
+    return dataclasses.replace(cfg, moe_decode_impl="gather"), m
+
+
+def moe_combine_case(mesh, arch: str, seed: int):
+    """MoE's combine over 'model' is bitwise one device's: given the same
+    routing (the single device's ranks and slots), the rank's experts'
+    rows joined by the all-reduce (``moe._routed``) equal the single
+    device's rows, and so does the gather decode's join; then the gate
+    weighting is the same arithmetic on the same numbers."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    cfg, m = mixer_model(arch, torch.float32, seed)
+    shard = T.shard_params(m, cfg, mesh)
+    i = next(j for j, (_, f) in enumerate(cfg.layer_plan()) if f == "moe")
+    full, mine = m.layers[i].ffn, shard.layers[i].ffn
+    _, n = _model_coord(mesh)
+    assert mine.w_gate.shape[0] == cfg.num_experts // n
+    g = torch.Generator().manual_seed(seed)
+    S, B, D = 5, 4, cfg.d_model
+    hf = torch.randn((S, B, D), generator=g)
+    valid = torch.rand((S, B), generator=g) > 0.2
+    _, idx, _ = moe._route_topk(full.router, hf, cfg, valid=valid)
+    A, C = B * cfg.top_k, moe.moe_serve_capacity(cfg, B)
+    va = valid[..., None].expand(S, B, cfg.top_k).reshape(S, A)
+    flat_e = torch.where(va, idx.reshape(S, A), cfg.num_experts)
+    pos = moe._rank_in_expert(flat_e)
+    keep = (pos < C) & va
+    y0 = moe._routed(full, hf, flat_e, pos, keep, C, cfg)
+    y1 = moe._routed(mine, hf, flat_e, pos, keep, C, cfg)
+    assert torch.equal(y1, y0), f"{arch}: the expert-parallel rows differ"
+    gates = torch.rand((S, B, cfg.top_k), generator=g)
+    w = (gates.reshape(S, A) * keep).float()[..., None]
+    assert torch.equal((y1.float() * w).reshape(S, B, cfg.top_k, D).sum(2),
+                       (y0.float() * w).reshape(S, B, cfg.top_k, D).sum(2))
+    # the decode gather's join: every assignment is some rank's
+    tid = idx[0]
+    own, loc = moe._owned(mine, tid)
+    rows = mine.w_down[loc].sum(-2)                           # (B, k, D)
+    got = moe._join(mine, rows, own)
+    assert torch.equal(got, full.w_down[tid].sum(-2)), arch
+    return sh.axis_sizes(mesh)
+
+
+def run_mixers(rank: int, world: int, arg=None):
+    """Each (data, model) mesh over the four decoders, a layout each
+    (``MIX_PLAN``):
+    the rank's leaves the placements' slices (``check_local_shapes``,
+    ``check_qtensor_slices``), its states and pool rows its width or
+    heads, every entry point tie-aware one device's (f32 copies of the
+    recurrent smokes: their scaled weights make bf16 noise read past the
+    budget), llama4-scout's gather decode on (1, 4); then MoE's combine
+    bitwise one device's."""
+    from repro_torch.launch.mesh import serving_mesh
+    for mp_, plan in MIX_PLAN.items():
+        mesh = serving_mesh(model_parallel=mp_)
+        for i, (arch, kw) in enumerate(zip(MIXERS, plan)):
+            dtype = torch.float32 if arch in RECURRENT else torch.bfloat16
+            engines_case(mesh, arch, seed=i, kw=kw, dtypes=(dtype,),
+                         build=mixer_model)
+        if mp_ == 4:
+            # the MoE gather decode: the rank's experts' rows, joined
+            engines_case(mesh, "llama4-scout-17b-a16e", seed=4, kw=PAGED,
+                         dtypes=(torch.bfloat16,), build=gather_model)
+        for arch in MIXERS[2:]:
+            moe_combine_case(mesh, arch, seed=3)
+        if rank == 0:
+            print(f"mixers mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))}"
+                  " ok", flush=True)
+    if rank == 0:
+        print("moe combine bitwise ok", flush=True)
+
+
+MIX_CKPT = dict(paged=True, block_len=8, pool_blocks=128, pool_rows=16)
+
+
+def mixer_ckpt_reference(arch: str):
+    """(config, weights, the single-device paged engine's first generate
+    with its session, and that session's uninterrupted 5-token
+    continuation) of a recurrent smoke in f32."""
+    from repro_torch.core.uncertainty import UncertaintyConfig
+    from repro_torch.serving.engine import InferenceEngine
+    cfg, m = mixer_model(arch, torch.float32, CKPT_SEED)
+    one = InferenceEngine("one", cfg, m, UncertaintyConfig(
+        mode="distribution"), device="cpu", **MIX_CKPT)
+    r = one.generate(PROMPTS, 6, return_state=True)
+    return cfg, m, r, one.generate(None, 5, state=r["state"])
+
+
+def run_mixers_ckpt(rank: int, world: int, arg: str):
+    """Recurrent sessions across layouts, for the recurrentgemma smoke
+    (RG-LRU width and attention (b)) and the mamba2 smoke (SSD heads): saved
+    on (1, 2) paged (each rank half the width or heads; the SSD conv tail's
+    B/C columns held by both and saved once), restored on (1, 2) paged
+    (bitwise the uninterrupted (1, 2) run), on one device (monolithic and
+    paged) and on (2, 1) monolithic, each held to the uninterrupted
+    continuation of the same session tie-aware; saved on (2, 1)
+    monolithic, restored on (1, 2) paged.  ``arg``: the directory;
+    ``<arg>/<arch>12`` and the (1, 2) run's continuation
+    ``<arg>/<arch>12.npz`` stay for the caller's in-process restores."""
+    from repro_torch.core.uncertainty import UncertaintyConfig
+    from repro_torch.launch.mesh import serving_mesh
+    from repro_torch.serving.engine import InferenceEngine
+    ucfg = UncertaintyConfig(mode="distribution")
+    m12, m21 = serving_mesh(model_parallel=2), serving_mesh(model_parallel=1)
+    assert tuple(m12.shape) == (1, 2) and tuple(m21.shape) == (2, 1)
+    for arch in RECURRENT:
+        cfg, m, r0, c0 = mixer_ckpt_reference(arch)
+
+        def eng(mesh=None, **kw):
+            return InferenceEngine("e", cfg, m, ucfg, device="cpu",
+                                   mesh=mesh, **kw)
+        d12 = os.path.join(arg, arch + "12")
+        e12 = eng(m12, **MIX_CKPT)
+        r = e12.generate(PROMPTS, 6, return_state=True)
+        tie_aware(r, r0, f"{arch} ckpt (1,2) generate")
+        check_state_shapes(cfg, e12.pool.arrays, m12)
+        e12.checkpoint_session(r["state"], d12)
+        c12 = e12.generate(None, 5, state=r["state"])
+        tie_aware(c12, c0, f"{arch} ckpt (1,2) uninterrupted")
+        if rank == 0:
+            np.savez(d12 + ".npz", tokens=c12["tokens"],
+                     logits=c12["logits"].numpy())
+        f12 = eng(m12, **MIX_CKPT)
+        x = f12.generate(None, 5, state=f12.restore_session(d12))
+        np.testing.assert_array_equal(x["tokens"], c12["tokens"])
+        assert torch.equal(x["logits"], c12["logits"]), \
+            f"{arch} (1,2) -> (1,2)"
+        for what, e in (("one device monolithic", eng()),
+                        ("one device paged", eng(**MIX_CKPT)),
+                        ("(2,1) monolithic", eng(m21))):
+            st = e.restore_session(d12)
+            if e.mesh is not None and not e.paged:
+                check_state_shapes(cfg, st.cache, m21)
+            x = e.generate(None, 5, state=st)
+            tie_aware(x, c12, f"{arch} ckpt (1,2) paged -> {what}")
+        d21 = os.path.join(arg, arch + "21")
+        e21 = eng(m21)
+        s21 = e21.generate(PROMPTS, 6, return_state=True)["state"]
+        e21.checkpoint_session(s21, d21)
+        c21 = e21.generate(None, 5, state=s21)
+        e = eng(m12, **MIX_CKPT)
+        x = e.generate(None, 5, state=e.restore_session(d21))
+        tie_aware(x, c21, f"{arch} ckpt (2,1) monolithic -> (1,2) paged")
+        if rank == 0:
+            print(f"{arch} ckpt ok", flush=True)
+
+
 #: job -> (ranks, function); a function takes (rank, world, argument)
 JOBS = {"engines": (4, "run_engines"), "gateway": (2, "run_gateway"),
         "paged": (4, "run_paged"), "lockstep": (2, "run_lockstep"),
         "ckpt": (4, "run_ckpt"), "paged_gateway": (2, "run_paged_gateway"),
-        "cli": (2, "run_cli")}
+        "cli": (2, "run_cli"), "mixers": (4, "run_mixers"),
+        "mixers_ckpt": (2, "run_mixers_ckpt")}
 
 
 def _rank(rank: int, job: str, world: int, store: str, arg):
