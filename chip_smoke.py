@@ -228,7 +228,7 @@ M2. ``llama4-scout-17b-a16e`` at published widths cut to 2 layers (~10.4
    budget, ``moe_decode_impl="gather"`` tie-aware equal to the dispatch
    (f32; bf16 read and timed), and a swarm round on the 50 study prompts
    with the MoE peer beside a precomputed probe, timed;
-M3. 10 AdamW steps of ``deepseek-moe-16b`` at published widths cut to 2
+M3. 6 AdamW steps of ``deepseek-moe-16b`` at published widths cut to 2
    layers (the dense layer and one MoE layer), B=4, S=128: the loss falls,
    ``moe_aux`` finite and positive, every parameter moves, no kernel
    launched; ms per step;
@@ -254,13 +254,13 @@ V1. ``llava-next-mistral-7b`` at published widths, 16 of its 32 layers
    token backbone through C1's paths (the contracts on an f32 copy of 4
    layers), then ``forward`` on B=4 batches of 576 patch embeddings ahead
    of 448 text tokens through row 4, within the tie budget of the same
-   forward with row 4's plain version swapped in; 10 AdamW steps of the
+   forward with row 4's plain version swapped in; 6 AdamW steps of the
    model cut to 4 layers on such batches (the loss falls, every parameter
    moves, no kernel launched);
 H1. ``hubert-xlarge`` at published widths, all 48 layers: ``forward`` on
    B=4, S=1000 frame embeddings (bidirectional row 4 at D=80) held to the
    plain op in bf16 and in f32; building an ``InferenceEngine`` on it
-   raises; 10 AdamW steps at full depth on a B=2, S=1024 batch (the
+   raises; 6 AdamW steps at full depth on a B=2, S=1024 batch (the
    embedding table, which frames never read, moves its f32 master by the
    decay alone);
 S1. session checkpoints on the probe (``smollm-135m``, 30 layers): for
@@ -274,21 +274,42 @@ S1. session checkpoints on the probe (``smollm-135m``, 30 layers): for
    bf16 engine; checkpoint bytes, save and restore seconds;
 T1. training at published width: ``training.train.build_train_step`` on
    ``smollm-135m`` (30 layers) and ``llama3-8b`` cut to the cloud tier's 4
-   layers (vocabulary 128256), AdamW lr 3e-4, batch 8, seq 128, 12 steps of
+   layers (vocabulary 128256), AdamW lr 3e-4, batch 8, seq 128, 10 steps of
    ``SyntheticLMPipeline`` batches: the loss must fall (mean of the last 5
    below the first 5), every parameter must change, and no kernel and no
    plain version may run (training attends through ``chunked_attention``);
    ms per step, tokens/s, model TFLOP/s (6 N tokens / time) beside 989,
    peak memory and the device busy share of a step (``torch.profiler``);
-T2. checkpoint and restart through the CLI: ``python -m
-   repro_torch.launch.train --arch smollm-135m --steps 10 --batch 8 --seq
-   128 --ckpt-every 5`` run to its end, and the same run killed once it
-   prints ``[train] checkpoint @ 5`` and restarted with ``--resume``: the
-   two ``step_10`` checkpoints must hold bitwise-equal parameters and
-   optimizer state; save and restore seconds and bytes of one checkpoint
-   (10 steps, to keep the script inside its time);
+   then 3 more steps with ``remat=False``: ms/step and peak beside the
+   remat steps' (every layer recomputed in the backward), and 3 with the
+   recompute through ``torch.utils.checkpoint`` (ms/step);
+T4. training on a mesh.  After T1, on a (1, 1) NCCL mesh of its own:
+   ``llama3-8b`` (4 layers, bf16) cut by ``shard_params(...,
+   DEFAULT_RULES)``, ``T4_STEPS`` steps of ``build_train_step(cfg, ocfg,
+   mesh)`` on T1's batches from T1's weights bitwise T1's first steps
+   (losses, grad norms, every parameter), no collective, no kernel and no
+   plain version, ms/step beside T1's.  Before D1's spawn the parent runs
+   ``T4_JOBS`` on one device (``t4_reference``); the two ranks run them in
+   D1's spawn (``t4_rank``): ``smollm-135m`` whole on (2, 1) (FSDP),
+   ``llama3-8b`` 2 layers (TP, the vocabulary-parallel loss) and
+   ``deepseek-moe-16b`` 2 layers (EP) on (1, 2) as f32 copies, each held
+   to one device per leaf (first-batch gradient norms; ``T4_SAMPLES``
+   sampled elements of the first gradient, the parameters, moments and
+   update after the steps) and per step (``phase_t4_ranks``), and
+   ``llama3-8b`` bf16 on (1, 2) within the tie
+   budget; ms/step, collectives, host and device share, peak GB and
+   optimizer bytes a rank against one device;
+T2. checkpoint and restart through the CLI: ``launch.train.main(["--arch",
+   "smollm-135m", "--steps", "6", "--batch", "8", "--seq", "128",
+   "--ckpt-every", "3", ...])`` run to its end in this process, the same
+   run as ``python -m repro_torch.launch.train`` in a process of its own
+   killed once it prints ``[train] checkpoint @ 3``, and restarted with
+   ``--resume`` in this process: the two ``step_6`` checkpoints must hold
+   bitwise-equal parameters and optimizer state; save and restore seconds
+   and bytes of one checkpoint (6 steps and one interpreter start, to keep
+   the script inside its time);
 T3. the trained gateway, the paper's study: ``launch.serve.build_gateway(
-   train_steps=300)`` (the reference CLI's default is 400; cut for the
+   train_steps=200)`` (the reference CLI's default is 400; cut for the
    script's time) trains the four smoke
    tiers (vocabulary 512) and the classifier and calibrates tau; every
    tier's final loss must be finite and below its first, ``answer_batch``
@@ -330,12 +351,14 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import io
 import json
 import math
 import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -360,9 +383,12 @@ SEED = 0
 TIE_ATOL = 0.03
 TIE_ULPS = 4
 # T3's training steps per tier unit (the reference CLI's default is 400;
-# cut to 300, then 250 with D2, to keep the script inside its time; at
-# 200 the local route held 3 of 50 queries, too few for its check)
-T3_STEPS = 250
+# cut to 300, then 250 with D2, then 200 with remat honoured, to keep the
+# script inside its time; at 200 the trained gateway routed 3 of the 50
+# queries locally on the card, and its check needs at least one)
+T3_STEPS = 200
+T4_STEPS = 3                # T4's (1, 1) steps, T1's first ones
+T2_STEPS = 6                # the CLI runs of T2, killed at half
 SERVE_KERNELS = ("flash_attention_positions", "decode_attention",
                  "swarm_uncertainty")                   # one tier's generate
 MONO_KERNELS = SERVE_KERNELS + ("flash_attention",)     # + the safety gate
@@ -752,6 +778,24 @@ D3_JOBS = (("recurrentgemma-2b", 5, 2, 16, {},
             {"f32": True, "seed": 60, "scale": 6.0}),
            ("deepseek-moe-16b", 3, 2, 16, D2_POOL,
             {"f32": True, "seed": 80}))
+# T4's, spawned with them: (arch, layers or None for all, model
+# parallelism, steps, dtype) on the two ranks' (2/mp, mp) mesh under the
+# training rules: smollm-135m whole on (2, 1) (FSDP: half of every d_model
+# dim and 4 of 8 rows a rank), llama3-8b 2 layers on (1, 2) (case (a):
+# 16 of 32 heads, 4 of 8 KV heads, half of d_ff and of the vocabulary, the
+# vocabulary-parallel loss), deepseek-moe-16b M3's 2 layers on (1, 2) (32
+# of 64 experts a rank), each an f32 copy (bf16 noise would hide a wrong
+# gradient), then llama3-8b bf16 on (1, 2) (the bf16 cut products
+# differentiate); the parent runs each job on one device first
+# (``t4_reference``), batch T4_B x T4_S from SyntheticLMPipeline
+T4_JOBS = (("smollm-135m", None, 1, 3, "float32"),
+           ("llama3-8b", 2, 2, 3, "float32"),
+           ("deepseek-moe-16b", 2, 2, 3, "float32"),
+           ("llama3-8b", 2, 2, 2, "bfloat16"))
+T4_B, T4_S, T4_SEED = 8, 128, 40
+# elements of each leaf an f32 T4 job holds to one device, drawn from a
+# seed (the whole of a leaf of fewer); a rank holds the ones in its slice
+T4_SAMPLES = 8192
 D1_COLLECTIVES = ("mesh.all_reduce", "mesh.all_gather")
 D1_SAMPLE_SEED = 5          # D1's sampled generate
 
@@ -786,6 +830,243 @@ def job_model(cfg, opt: dict, dev):
                         and "conv" not in name:
                     p.mul_(opt["scale"])
     return cfg, model
+
+
+def t4_model(arch: str, layers, dtype: str, dev):
+    """(config, model) of a T4 job: the published config cut to ``layers``,
+    in ``dtype``, seeded on the card (the parent and both ranks draw the
+    same weights)."""
+    import torch
+    from repro_torch import configs
+    from repro_torch.models.transformer import init_params
+    cfg = dataclasses.replace(configs.get_config(arch),
+                              dtype=getattr(torch, dtype))
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    return cfg, init_params(cfg, torch.Generator(device=dev).manual_seed(
+        SEED + T4_SEED), device=dev)
+
+
+def remat_by_checkpoint(step_fn, model, state, batches) -> list:
+    """Seconds of ``step_fn`` on each batch with every layer recomputed
+    through ``torch.utils.checkpoint`` instead of ``transformer._Remat``
+    (T1's comparison of the two)."""
+    import torch
+    from torch.utils.checkpoint import checkpoint
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import shallow_copy
+    real = T._remat_layer
+
+    def by_checkpoint(layer, x, *args):
+        return checkpoint(T._layer, shallow_copy(layer), x, *args,
+                          use_reentrant=False, preserve_rng_state=False)
+
+    T._remat_layer = by_checkpoint
+    secs = []
+    try:
+        for b in batches:
+            t = time.perf_counter()
+            step_fn(model, state, b)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+    finally:
+        T._remat_layer = real
+    return secs
+
+
+def t4_coords(cfg) -> dict:
+    """{leaf: (its whole shape, (T4_SAMPLES, ndim) coordinates in it)}:
+    the elements an f32 T4 job holds to one device, the same in the parent
+    and the ranks (drawn leaf by leaf from one seed)."""
+    import torch
+    from repro_torch.models import transformer as T
+    g = torch.Generator().manual_seed(SEED + T4_SEED)
+    return {n: (tuple(p.shape), torch.stack([
+        torch.randint(d, (T4_SAMPLES,), generator=g) for d in p.shape], 1))
+        for n, p in T.Transformer(cfg, device="meta").named_parameters()}
+
+
+def t4_locate(cut, shape, coords, mesh):
+    """(held, index): which of a leaf's sampled whole coordinates lie in
+    the rank's slice (``Cut``: a product of per-dim selections, so each dim
+    is located on its own through ``Cut.cut`` of the dim's positions) and
+    their positions in the rank's leaf (0 where not held)."""
+    import torch
+    from repro_torch.distributed import sharding as sh
+    held = torch.ones(len(coords), dtype=torch.bool)
+    index = []
+    for d, size in enumerate(shape):
+        mine = sh.Cut(tp_axes=cut.tp_axes if cut.tp_dim == d else (),
+                      cols=cut.cols if cut.tp_dim == d else None,
+                      dp_axes=cut.dp_axes if cut.dp_dim == d else ()).cut(
+            torch.arange(size), mesh)
+        inv = torch.full((size,), -1, dtype=torch.long)
+        inv[mine] = torch.arange(len(mine))
+        at = inv[coords[:, d]]
+        held &= at >= 0
+        index.append(at.clamp_min(0))
+    return held, tuple(index)
+
+
+def leaf_norms(grads: dict, model=None) -> dict:
+    """{leaf: the f32 norm of its whole gradient}: one device's, or on a
+    mesh shard (``model.cuts``) each element counted once
+    (``optimizer.shard_pieces``) and summed over the mesh in one
+    all-reduce."""
+    import torch
+    from repro_torch.training import optimizer as opt
+    names = list(grads)
+    if model is None or getattr(model, "cuts", None) is None:
+        return {n: float(grads[n].float().norm()) for n in names}
+    sq = []
+    for n in names:
+        ts, once = opt.shard_pieces({n: grads[n]}, model.cuts, model.comm)
+        sq.append(sum(float(w) * t.float().square().sum()
+                      for t, w in zip(ts, once)))
+    tot = model.comm.all_reduce(torch.stack(sq), tuple(model.comm.sizes))
+    return dict(zip(names, tot.sqrt().tolist()))
+
+
+def t4_run(cfg, model, steps: int, host: list, dev, mesh=None,
+           profile: bool = False) -> dict:
+    """A T4 job's numbers: the first batch's gradient per leaf
+    (``leaf_norms``), then ``steps`` AdamW steps (lr 3e-4, warm-up 1):
+    their losses, grad norms and seconds, the peak device memory of the
+    steps and the optimizer state's bytes; on a mesh the steps' collective
+    counts, and with ``profile`` the last step under ``torch.profiler`` for
+    the collectives' device share (ms per step leaves it out).  An f32 job
+    also samples each leaf at ``t4_coords`` ("samples": the first batch's
+    gradient, the parameters before and after the steps and the AdamW
+    moments after them, as f32 CPU tensors; "held": which samples the
+    rank's slice holds) and one device gives each leaf's largest gradient
+    magnitude ("grad_max")."""
+    import numpy as np
+    import torch
+    from repro_torch.data.pipeline import device_put_batch
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train as TR
+
+    def put(b):
+        return (device_put_batch(b, dev) if mesh is None
+                else device_put_batch(b, mesh, dev))
+
+    where = None
+    if cfg.dtype == torch.float32:
+        where = {}
+        for n, (shape, c) in t4_coords(cfg).items():
+            where[n] = ((torch.ones(len(c), dtype=torch.bool), tuple(c.T))
+                        if mesh is None
+                        else t4_locate(model.cuts[n], shape, c, mesh))
+
+    def sample(ts: dict) -> dict:
+        return {n: t.detach()[tuple(i.to(t.device) for i in where[n][1])]
+                .float().cpu() for n, t in ts.items()}
+
+    (_, _), g = TR.value_and_grad(lambda m, b: T.loss_fn(m, model.cfg, b),
+                                  model, put(host[0]), has_aux=True)
+    if mesh is not None:
+        opt.sync_grads(g, model.cuts, model.comm)
+    norms = leaf_norms(g, model if mesh is not None else None)
+    samples = {}
+    if where is not None:
+        samples["grad"] = sample(g)
+        samples["param0"] = sample(dict(model.named_parameters()))
+        grad_max = ({n: float(t.abs().max()) for n, t in g.items()}
+                    if mesh is None else None)
+    del g
+    state = opt.init(model)
+    step = TR.build_train_step(cfg, opt.AdamWConfig(
+        lr=3e-4, warmup_steps=1, total_steps=10), mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    if mesh is not None:
+        model.comm.reset()
+    losses, gnorms, secs = [], [], []
+    prof = None
+    for i, b in enumerate(host[:steps]):
+        last = profile and i == steps - 1
+        if last:
+            prof = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof.__enter__()
+        t = time.perf_counter()
+        _, _, m = step(model, state, put(b))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        if last:
+            prof.__exit__(None, None, None)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    # ms per step: the steps after the first, the profiled one left out
+    # where another is left
+    timed = (secs[1:-1] if profile else []) or secs[1:]
+    out = {"leaf_norms": norms, "losses": losses, "grad_norms": gnorms,
+           "step_s": secs, "ms_per_step": float(np.median(timed)) * 1e3,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "opt_bytes": sum(t.nbytes for d in (state.master, state.m,
+                                               state.v) for t in d.values()),
+           "param_bytes": sum(p.nbytes for p in model.parameters())}
+    if mesh is not None:
+        out["collectives"] = dict(model.comm.stats)
+        out["host_share"] = model.comm.stats["host_s"] / sum(secs)
+    if prof is not None:
+        out["profile_collective_ms"], out["profile_device_ms"] = \
+            collective_share(prof)
+    if where is not None:
+        samples.update(param=sample(dict(model.named_parameters())),
+                       m=sample(state.m), v=sample(state.v))
+        out.update(samples=samples,
+                   held={n: h for n, (h, _) in where.items()})
+        if grad_max is not None:
+            out["grad_max"] = grad_max
+    return out
+
+
+def t4_rank(i: int, job: tuple, dev, out_dir: str, rank: int) -> dict:
+    """One of T4's jobs on a rank: the seeded whole model cut to the rank's
+    shard (``shard_params`` under ``DEFAULT_RULES``; the whole is freed),
+    then ``t4_run`` on the rank's rows, with the kernels' counts zeroed
+    just before the steps and read just after (training launches none).
+    An f32 job's samples go to ``out_dir/t4_<i>_rank<rank>.pt``."""
+    import torch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    from repro_torch.launch.mesh import serving_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.swarm_uncertainty import ops as uops
+    arch, layers, mp, steps, dtype = job
+    mesh = serving_mesh(model_parallel=mp)
+    cfg, whole = t4_model(arch, layers, dtype, dev)
+    shard = T.shard_params(whole, cfg, mesh, sh.Comm(mesh),
+                           rules=sh.DEFAULT_RULES)
+    del whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    pipe = SyntheticLMPipeline(T4_B, T4_S, seed=SEED)
+    host = [pipe.get_batch(k) for k in range(steps)]
+    counts = (fops.counts, dops.counts, uops.counts, fops.grid_counts,
+              dops.paged_counts)
+    for c in counts:
+        c.reset()
+    out = t4_run(cfg, shard, steps, host, dev, mesh, profile=True)
+    if "samples" in out:
+        torch.save({k: out.pop(k) for k in ("samples", "held")},
+                   os.path.join(out_dir, f"t4_{i}_rank{rank}.pt"))
+    out["launches"] = sum(c.launches for c in counts)
+    out["plain"] = sum(c.plain for c in counts)
+    out["mesh"] = dict(zip(mesh.mesh_dim_names, mesh.shape))
+    out["local"] = {"heads": [shard.cfg.num_heads, shard.cfg.num_kv_heads],
+                    "d_ff": shard.cfg.d_ff, "vocab_rows": (
+                        shard.embed.shape[0]), "d_model_cols": (
+                        shard.embed.shape[1]),
+                    "experts": [l.ffn.w_up.shape[0] for l in shard.layers
+                                if hasattr(l.ffn, "router")]}
+    del shard
+    return out
 
 
 def d1_rank(rank: int, world: int, store: str, out_dir: str, prompts,
@@ -829,6 +1110,12 @@ def d1_rank(rank: int, world: int, store: str, out_dir: str, prompts,
         out = {}
         for i, (arch, layers, mp, max_new, kw, *opt) in enumerate(jobs):
             opt = opt[0] if opt else {}
+            if "train" in opt:                     # a T4 job
+                out[str(i)] = t4_rank(i, (arch, layers, mp, max_new,
+                                          opt["train"]), dev, out_dir, rank)
+                gc.collect()
+                torch.cuda.empty_cache()
+                continue
             cfg = configs.get_config(arch)
             if layers is not None:
                 cfg = dataclasses.replace(cfg, num_layers=layers)
@@ -1101,6 +1388,185 @@ def spawn_ranks(c, jobs, name: str, limit: float = 400):
     return ranks, time.perf_counter() - t0, out_dir
 
 
+def t4_reference(c) -> list:
+    """T4's jobs on one device, run by the parent before D1's spawn (so
+    that no rank holds a second whole model): ``t4_run`` on the whole
+    batch of each, the model freed after it."""
+    torch = c.torch
+    from repro_torch.data.pipeline import SyntheticLMPipeline
+    refs = []
+    t0 = time.perf_counter()
+    for arch, layers, mp, steps, dtype in T4_JOBS:
+        cfg, model = t4_model(arch, layers, dtype, c.dev)
+        pipe = SyntheticLMPipeline(T4_B, T4_S, seed=SEED)
+        host = [pipe.get_batch(k) for k in range(steps)]
+        refs.append(t4_run(cfg, model, steps, host, c.dev))
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[T4] one-device references of the rank jobs "
+          f"{time.perf_counter() - t0:.1f} s")
+    return refs
+
+
+def t4_held_to(ref: dict, files: list) -> dict:
+    """An f32 T4 job's sampled elements (``t4_run``) on the ranks against
+    one device's, leaf by leaf, each element from every rank that holds
+    it: the first gradient's largest difference over the leaf's largest
+    gradient magnitude ("grad", budget 1e-2: the CPU tests' port-numerics
+    budget, where a last-bit difference of a split product flips a bf16
+    rounding of q, k, v or P; an MoE layer's router and routed experts,
+    "grad_routed", budget 5e-2: there such a difference can also swap two
+    near-tied experts of a token, whose share of their gradients then
+    moves: 2.1e-2 of the router's largest on an H100 at full width); the
+    parameters and both moments after the steps, largest difference
+    ("param", "m", "v", budget 5e-3 as the CPU tests, which lr 3e-4 over 3
+    steps keeps the parameters within whatever the update); the first
+    moment over the leaf's largest ("m_rel": a gradient scaled on one
+    rank moves it by ~1, which Adam's normalised update hides) and the
+    update the steps made, the L2 norm of its difference over its own
+    ("update_rel": a wrong step size or moment moves it by ~1).  Returns
+    {measure: (worst value, its leaf)} and the leaves whose samples no
+    rank holds."""
+    import torch
+    got = [torch.load(f) for f in files]
+    want = ref["samples"]
+    routed = {n[:-len("router")] + w for n in want["grad"]
+              if n.endswith(".router")
+              for w in ("router", "w_gate", "w_up", "w_down")}
+    worst: dict = {}
+    uncovered = []
+
+    def note(k, v, n):
+        if k not in worst or v > worst[k][0]:
+            worst[k] = (v, n)
+
+    for n in want["grad"]:
+        held = [g["held"][n] for g in got]
+        if not torch.stack(held).any(0).all():
+            uncovered.append(n)
+        d = {k: max((float((g["samples"][k][n] - want[k][n])[h].abs()
+                           .max()) if h.any() else 0.0)
+                    for g, h in zip(got, held))
+             for k in ("grad", "param", "m", "v")}
+        note("grad_routed" if n in routed else "grad",
+             d["grad"] / max(ref["grad_max"][n], 1e-30), n)
+        for k in ("param", "m", "v"):
+            note(k, d[k], n)
+        note("m_rel", d["m"] / max(float(want["m"][n].abs().max()), 1e-30),
+             n)
+        du = []
+        for g, h in zip(got, held):
+            up = g["samples"]["param"][n] - g["samples"]["param0"][n]
+            du.append((up - (want["param"][n] - want["param0"][n]))[h])
+        du = torch.cat(du)
+        base = float((want["param"][n] - want["param0"][n]).norm())
+        note("update_rel", float(du.norm()) / max(base, 1e-30)
+             * math.sqrt(T4_SAMPLES / max(len(du), 1)), n)
+    return worst, uncovered
+
+
+T4_BUDGET = {"grad": 1e-2, "grad_routed": 5e-2, "param": 5e-3, "m": 5e-3,
+             "v": 5e-3, "m_rel": 5e-2, "update_rel": 0.5}
+
+
+def phase_t4_ranks(c, ranks, first: int, refs: list, out_dir):
+    """T4's two-rank jobs (spawned with D1's, indices from ``first``)
+    against the parent's one-device runs: an f32 job's sampled elements of
+    every leaf within ``T4_BUDGET`` (``t4_held_to``: the first gradient
+    per element, the parameters, moments and update after the steps), the
+    first-batch gradient norm of every leaf within rtol 1e-2 (a missing
+    ``enter`` or a sum over the wrong axes moves a leaf's by a factor),
+    its first step's loss within rtol 1e-5 and grad norm within rtol 2e-4,
+    and the later steps' losses within rtol 1e-3, looser than the CPU
+    tests' 1e-5 because those hold only one step at the port's numerics:
+    after a step, Adam's normalised update moves an element whose
+    gradient a flipped bf16 rounding turned over by ~2 lr, and the loss
+    with it (2.6e-4 seen); the bf16 job's losses within TIE_ATOL; every
+    rank the same metrics, no kernel and no plain version launched;
+    ms/step, collectives, host and device share, peak GB and optimizer
+    bytes a rank against one device."""
+    np = c.np
+    rep = {}
+    for j, ((arch, layers, mp, steps, dtype), ref) in enumerate(
+            zip(T4_JOBS, refs)):
+        xs = [rr[str(first + j)] for rr in ranks]
+        tag = f"T4 {arch} {dtype} on {xs[0]['mesh']}"
+        for r, x in enumerate(xs):
+            check(x["launches"] == 0 and x["plain"] == 0,
+                  f"{tag} rank {r}: {x['launches']} kernel launches, "
+                  f"{x['plain']} plain versions")
+            check(x["losses"] == xs[0]["losses"]
+                  and x["grad_norms"] == xs[0]["grad_norms"],
+                  f"{tag}: the ranks' metrics differ")
+        x = xs[0]
+        dl = [abs(a - b) / abs(b) for a, b in zip(x["losses"],
+                                                   ref["losses"])]
+        dg = [abs(a - b) / abs(b) for a, b in zip(x["grad_norms"],
+                                                   ref["grad_norms"])]
+        held = None
+        if dtype == "float32":
+            bad = {n: (x["leaf_norms"][n], v)
+                   for n, v in ref["leaf_norms"].items()
+                   if abs(x["leaf_norms"][n] - v) > 1e-2 * v + 1e-12}
+            check(not bad, f"{tag}: leaf gradient norms differ: "
+                           f"{list(bad.items())[:4]}")
+            held, uncovered = t4_held_to(ref, [
+                out_dir / f"t4_{first + j}_rank{r}.pt"
+                for r in range(len(xs))])
+            check(not uncovered, f"{tag}: no rank holds the samples of "
+                                 f"{uncovered[:4]}")
+            over = {k: v for k, v in held.items() if v[0] > T4_BUDGET[k]}
+            check(not over, f"{tag}: sampled elements past {T4_BUDGET}: "
+                            f"{over}")
+            check(dl[0] <= 1e-5 and dg[0] <= 2e-4
+                  and max(dl[1:]) <= 1e-3,
+                  f"{tag}: losses {x['losses']} vs {ref['losses']}, grad "
+                  f"norms {x['grad_norms']} vs {ref['grad_norms']}")
+        else:
+            worst = max(abs(a - b) for a, b in zip(x["losses"],
+                                                   ref["losses"]))
+            check(worst <= TIE_ATOL, f"{tag}: losses {x['losses']} vs "
+                                     f"{ref['losses']}")
+        ms, ms1 = x["ms_per_step"], ref["ms_per_step"]
+        st = x["collectives"]
+        share = x["profile_collective_ms"] / max(x["profile_device_ms"],
+                                                 1e-9)
+        worst_leaf = (max(abs(x["leaf_norms"][n] - v) / max(v, 1e-30)
+                          for n, v in ref["leaf_norms"].items())
+                      if dtype == "float32" else None)
+        print(f"[T4] {arch} {dtype} ({'all' if layers is None else layers}"
+              f" layers) on {x['mesh']}: local {x['local']}; losses "
+              f"{[round(v, 5) for v in x['losses']]} (one device "
+              f"{[round(v, 5) for v in ref['losses']]}, rel "
+              f"{[f'{v:.1e}' for v in dl]}), grad norm rel "
+              f"{[f'{v:.1e}' for v in dg]}, worst leaf norm rel "
+              f"{'not held' if worst_leaf is None else f'{worst_leaf:.1e}'}"
+              f"; {ms:.1f} ms/step a rank vs {ms1:.1f} one device; "
+              f"{st['all_reduce']} all-reduce + {st['all_gather']} "
+              f"all-gather in {steps} steps, {st['bytes'] / 1e6:.1f} MB "
+              f"given, {st['staged_bytes'] / 1e6:.1f} MB staged; host share "
+              f"{x['host_share']:.3f}, device share {share:.3f} "
+              f"({x['profile_collective_ms']:.1f} of "
+              f"{x['profile_device_ms']:.1f} device ms, the last step); peak "
+              f"{x['peak_gb']:.2f} GB a rank vs {ref['peak_gb']:.2f}, "
+              f"optimizer state {x['opt_bytes'] / 1e9:.3f} GB a rank vs "
+              f"{ref['opt_bytes'] / 1e9:.3f}")
+        if held is not None:
+            print(f"[T4]   {T4_SAMPLES} sampled elements a leaf, worst "
+                  f"against one device (budget): " + ", ".join(
+                      f"{k} {v:.2e} ({T4_BUDGET[k]:g}, {n})"
+                      for k, (v, n) in held.items()))
+        for k in ("samples", "held", "grad_max"):
+            ref.pop(k, None)
+        rep[f"{arch}-{dtype}"] = {
+            "per_rank": xs, "reference": ref, "ms_per_step": ms,
+            "ms_per_step_one_device": ms1, "loss_rel": dl,
+            "grad_norm_rel": dg, "worst_leaf_norm_rel": worst_leaf,
+            "device_share": share, "sampled": held}
+    return rep
+
+
 def phase_d1(c):
     """D1. serving on a (data, model) mesh.  In process, on the (1, 1)
     NCCL mesh (a world of one over a ``HashStore``): the probe at full
@@ -1141,9 +1607,14 @@ def phase_d1(c):
     # two ranks on the one card, spawned after the build, for D1's, D2's
     # and D3's jobs (one spawn: each costs the ranks' start and CUDA
     # contexts)
-    ranks, t_ranks, out_dir = spawn_ranks(c, D1_JOBS + D2_JOBS + D3_JOBS,
-                                          "d1")
+    t4_refs = t4_reference(c)
+    t4_jobs = tuple((a, l, mp, n, {}, {"train": dt})
+                    for a, l, mp, n, dt in T4_JOBS)
+    ranks, t_ranks, out_dir = spawn_ranks(
+        c, D1_JOBS + D2_JOBS + D3_JOBS + t4_jobs, "d1")
     c.d2_ranks = ranks, out_dir
+    c.t4 = {"ranks": phase_t4_ranks(
+        c, ranks, len(D1_JOBS + D2_JOBS + D3_JOBS), t4_refs, out_dir)}
     refs = {"llama3-8b": (c.cloud, 16), "smollm-135m": (c.probe, c.max_new)}
     for j, (arch, layers, mp, mn, _) in enumerate(D1_JOBS):
         got = np.load(out_dir / f"job{j}.npz")
@@ -1200,7 +1671,8 @@ def phase_d1(c):
                               "sampled_max_dlogit": s_dlog}
     rep["ranks_s"] = t_ranks
     rep["phase_s"] = time.perf_counter() - t_ph
-    print(f"[D1] two ranks (D1's, D2's and D3's jobs) {t_ranks:.1f} s; phase "
+    print(f"[D1] two ranks (D1's, D2's, D3's and T4's jobs) {t_ranks:.1f} s; "
+          "phase "
           f"{rep['phase_s']:.1f} s")
     c.report["mesh"] = rep
 
@@ -1736,6 +2208,7 @@ def main():
         from repro_torch.data.pipeline import (SyntheticLMPipeline,
                                                device_put_batch)
         from repro_torch.launch import serve as serve_mod
+        from repro_torch.launch import train as train_mod
         from repro_torch.launch.serve import (TIERS, gateway_from_weights,
                                               tier_configs)
         from repro_torch.training import checkpoint as ck
@@ -2801,6 +3274,7 @@ def main():
     # ---- D3. the recurrent mixers and MoE on a mesh: the two ranks -------
     phase_d3(ctx)
     mesh11 = ctx.mesh11
+    ctx_t4 = ctx.t4
     del ctx, paged4g
 
     # ---- 4f. serve() under injected faults, at the probe's full width ---
@@ -4082,7 +4556,7 @@ def main():
     torch.cuda.empty_cache()
 
     # ---- M3. training deepseek-moe-16b at published widths, 2 layers -----
-    # the dense layer and one MoE layer, batch 4, seq 128, 10 AdamW steps
+    # the dense layer and one MoE layer, batch 4, seq 128, 6 AdamW steps
     # (lr 3e-4, warm-up 1): the loss falls, moe_aux finite and positive,
     # every parameter moves, no kernel launched
     t_phase = time.perf_counter()
@@ -4092,9 +4566,9 @@ def main():
     mbefore = [p.detach().to("cpu", copy=True) for p in mtm.parameters()]
     mst = opt.init(mtm)
     mstep = TR.build_train_step(mtc, opt.AdamWConfig(
-        lr=3e-4, total_steps=10, warmup_steps=1), moe_groups=1)
+        lr=3e-4, total_steps=6, warmup_steps=1), moe_groups=1)
     mpipe = SyntheticLMPipeline(4, 128, seed=SEED)
-    mb_ = [device_put_batch(mpipe.get_batch(i), dev) for i in range(10)]
+    mb_ = [device_put_batch(mpipe.get_batch(i), dev) for i in range(6)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     m_s, m_loss, m_aux = [], [], []
@@ -4123,7 +4597,7 @@ def main():
     print(f"[M3] train deepseek-moe-16b (2 layers: dense + MoE) B=4 S=128: "
           f"loss {m_loss[0]:.4f} -> {m_loss[-1]:.4f}, moe_aux "
           f"{m_aux[0]:.4f} -> {m_aux[-1]:.4f}, {m_ms:.2f} ms/step (median of "
-          f"steps 3-10), peak {m_peak:.2f} GB; every parameter moved, no "
+          f"steps 3-6), peak {m_peak:.2f} GB; every parameter moved, no "
           "kernel launched")
     moe_rep["train"] = {"losses": m_loss, "moe_aux": m_aux,
                         "ms_per_step": m_ms, "peak_gb": m_peak,
@@ -4253,7 +4727,7 @@ def main():
     torch.cuda.empty_cache()
 
     def train_phase(tag, c, seed, batches, exempt=()):
-        """10 AdamW steps (lr 3e-4, warm-up 1) at published widths: the
+        """6 AdamW steps (lr 3e-4, warm-up 1) at published widths: the
         loss falls, every parameter moves (``exempt``: weights the batch
         never reads, whose f32 masters must move by the decay alone), no
         kernel and no plain version launched; ms per step, peak GB."""
@@ -4308,7 +4782,7 @@ def main():
     vtc = dataclasses.replace(vlc, num_layers=4)
     vpipe = SyntheticLMPipeline(4, 1024 - vlc.frontend_tokens, seed=SEED)
     vb = []
-    for i in range(10):
+    for i in range(6):
         b = device_put_batch(vpipe.get_batch(i), dev)
         b["frontend_embeds"] = randn(4, vlc.frontend_tokens, vlc.d_model)
         vb.append(b)
@@ -4322,7 +4796,7 @@ def main():
     # ---- H1. hubert-xlarge at published widths, all 48 layers ------------
     # ``forward`` on B=4, S=1000 frame embeddings (bidirectional row 4 at
     # D=80) held to the plain op in f32 and in bf16; the engine refuses the
-    # encoder; 10 AdamW steps at full depth on a fixed B=2, S=1024 batch
+    # encoder; 6 AdamW steps at full depth on a fixed B=2, S=1024 batch
     # whose labels are a function of the frames (the embedding table is
     # never read)
     t_h = time.perf_counter()
@@ -4353,7 +4827,7 @@ def main():
     hlab = (hx.float() @ proj).argmax(-1).to(torch.int32)
     hb = {"frontend_embeds": hx, "labels": hlab,
           "loss_mask": torch.ones(hlab.shape, device=dev)}
-    h1_rep["train"] = train_phase("H1", hbc, SEED + 141, [hb] * 10,
+    h1_rep["train"] = train_phase("H1", hbc, SEED + 141, [hb] * 6,
                                   exempt=("embed",))
     del hx, proj, hlab, hb
     h1_rep["phase_s"] = time.perf_counter() - t_h
@@ -4468,17 +4942,18 @@ def main():
     t_phase = time.perf_counter()
     held_gb = torch.cuda.memory_allocated() / 1e9   # left by phases 1-8
     # the reference CLI's AdamW (lr 3e-4, warm-up a tenth of the steps),
-    # batch 8, seq 128; the loss and no kernel through all 12 steps, then
+    # batch 8, seq 128; the loss and no kernel through all 10 steps, then
     # two profiled steps for the device's busy share
-    n_train = 12                 # cut from 30 for the script's time
+    n_train = 10                 # cut from 30 for the script's time
     train_rep: dict = {}
+    t4_snap: dict = {}
     for arch, layers in (("smollm-135m", None), ("llama3-8b", 4)):
         tcfg = configs.get_config(arch)
         if layers is not None:
             tcfg = dataclasses.replace(tcfg, num_layers=layers)
         tmodel = init_params(tcfg, torch.Generator(device=dev).manual_seed(
             SEED + 30), device=dev)
-        before = [p.detach().to("cpu", copy=True) for p in tmodel.parameters()]
+        before = [p.detach().clone() for p in tmodel.parameters()]
         tstate = opt.init(tmodel)
         step_fn = TR.build_train_step(tcfg, opt.AdamWConfig(
             lr=3e-4, total_steps=n_train, warmup_steps=max(n_train // 10, 1)))
@@ -4487,7 +4962,7 @@ def main():
                    for i in range(n_train + 2)]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        step_s, losses = [], []
+        step_s, losses, gnorms = [], [], []
 
         def train_run():
             for i in range(n_train):
@@ -4497,6 +4972,14 @@ def main():
                 torch.cuda.synchronize()
                 step_s.append(time.perf_counter() - t)
                 losses.append(m["loss"])
+                gnorms.append(m["grad_norm"])
+                if i + 1 == T4_STEPS and arch == "llama3-8b":
+                    # T4 (1, 1) holds its mesh steps to these
+                    t4_snap["params"] = {
+                        n: p.detach().clone()
+                        for n, p in tmodel.named_parameters()}
+                    t4_snap["metrics"] = [(float(a), float(b)) for a, b in
+                                          zip(losses, gnorms)]
 
         counted(f"train {tcfg.name}", (), train_run, forbid=KERNELS)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -4505,7 +4988,7 @@ def main():
         check(bool(np.isfinite(losses).all()) and last < first,
               f"T1 {tcfg.name}: the loss did not fall ({first} -> {last})")
         same = [n for (n, p), b in zip(tmodel.named_parameters(), before)
-                if torch.equal(p.detach().cpu(), b)]
+                if torch.equal(p.detach(), b)]
         check(not same, f"T1 {tcfg.name}: parameters unchanged: {same[:5]}")
         del before
         with torch.profiler.profile(activities=[
@@ -4517,6 +5000,25 @@ def main():
         ka = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
         dev_us = sum(e.self_device_time_total for e in ka)
+        # the same steps without remat (each layer's forward kept for the
+        # backward instead of recomputed): 3 more steps
+        nr_fn = TR.build_train_step(dataclasses.replace(tcfg, remat=False),
+                                    opt.AdamWConfig(
+            lr=3e-4, total_steps=n_train, warmup_steps=max(n_train // 10, 1)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        nr_s = []
+        for i in range(3):
+            t = time.perf_counter()
+            nr_fn(tmodel, tstate, batches[i])
+            torch.cuda.synchronize()
+            nr_s.append(time.perf_counter() - t)
+        nr_ms = float(np.median(nr_s[1:])) * 1e3
+        nr_peak = torch.cuda.max_memory_allocated() / 1e9
+        # and 3 with each layer recomputed through torch.utils.checkpoint
+        # (its hooks on every saved tensor) in place of transformer._Remat
+        ck_s = remat_by_checkpoint(step_fn, tmodel, tstate, batches[:3])
+        ck_ms = float(np.median(ck_s[1:])) * 1e3
         top = sorted(((e.self_device_time_total, e.key, e.count)
                       for e in ka), reverse=True)[:6]
         ms = float(np.median(step_s[3:])) * 1e3
@@ -4537,6 +5039,11 @@ def main():
               f"% of 989), peak {peak_gb:.2f} GB ({held_gb:.2f} GB held "
               f"before the phase), busy share "
               f"{'not measured' if busy is None else f'{busy:.3f}'}")
+        print(f"[T1] {tcfg.name}: remat (cfg.remat, each layer "
+              f"recomputed in the backward) {ms:.2f} ms/step, peak "
+              f"{peak_gb:.2f} GB; without remat {nr_ms:.2f} ms/step, peak "
+              f"{nr_peak:.2f} GB; remat through torch.utils.checkpoint "
+              f"{ck_ms:.2f} ms/step")
         for us, key, n in top:
             print(f"[T1]   2 steps: {us / 1e3:9.3f} ms in {n:5d} x "
                   f"{key[:70]}")
@@ -4544,7 +5051,9 @@ def main():
             "layers": tcfg.num_layers, "weights_in_products": n_prod,
             "losses": losses, "ms_per_step": ms,
             "tokens_per_s": tokens / ms * 1e3, "model_tflops": tflops,
-            "peak_gb": peak_gb, "step_device_ms": dev_us / 2 / 1e3,
+            "peak_gb": peak_gb, "no_remat_ms_per_step": nr_ms,
+            "no_remat_peak_gb": nr_peak, "checkpoint_ms_per_step": ck_ms,
+            "step_device_ms": dev_us / 2 / 1e3,
             "busy_share": busy,
             "profile_top_2steps": [(us / 1e3, key, n) for us, key, n in top]}
         del tmodel, tstate, batches, step_fn, prof
@@ -4552,6 +5061,66 @@ def main():
     t_t1 = time.perf_counter() - t_phase
     print(f"[T1] phase {t_t1:.1f} s")
     report["train"] = dict(train_rep, phase_s=t_t1, held_gb=held_gb)
+
+    # ---- T4 (1, 1). T1's llama3-8b steps on the (1, 1) NCCL mesh ---------
+    t_phase = time.perf_counter()
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import serving_mesh
+    from repro_torch.models.transformer import shard_params
+    t4_mesh = serving_mesh(device=dev)
+    tcfg = dataclasses.replace(configs.get_config("llama3-8b"), num_layers=4)
+    whole = init_params(tcfg, torch.Generator(device=dev).manual_seed(
+        SEED + 30), device=dev)
+    t4_comm = sh.Comm(t4_mesh)
+    tshard = shard_params(whole, tcfg, t4_mesh, t4_comm,
+                          rules=sh.DEFAULT_RULES)
+    check(all(not (c_.tp_axes or c_.dp_axes)
+              for c_ in tshard.cuts.values()),
+          "T4 (1, 1): the (1, 1) mesh cut a leaf")
+    tstate = opt.init(tshard)
+    mstep = TR.build_train_step(tcfg, opt.AdamWConfig(
+        lr=3e-4, total_steps=n_train, warmup_steps=max(n_train // 10, 1)),
+        t4_mesh)
+    pipe = SyntheticLMPipeline(8, 128, seed=SEED)
+    t4_batches = [device_put_batch(pipe.get_batch(i), t4_mesh, dev)
+                  for i in range(T4_STEPS)]
+    t4_got, t4_s = [], []
+
+    def t4_run11():
+        for b in t4_batches:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, _, m = mstep(tshard, tstate, b)
+            torch.cuda.synchronize()
+            t4_s.append(time.perf_counter() - t)
+            t4_got.append((float(m["loss"]), float(m["grad_norm"])))
+
+    counted("train llama3-8b on the (1, 1) mesh", (), t4_run11,
+            forbid=KERNELS)
+    check(t4_comm.stats["all_reduce"] + t4_comm.stats["all_gather"]
+          + t4_comm.stats["agree"] == 0,
+          f"T4 (1, 1): collectives issued: {t4_comm.stats}")
+    check(t4_got == t4_snap["metrics"],
+          f"T4 (1, 1): losses and grad norms {t4_got} differ from T1's "
+          f"{t4_snap['metrics']}")
+    differ11 = [n for n, p in tshard.named_parameters()
+                if not torch.equal(p.detach(), t4_snap["params"][n])]
+    check(not differ11, f"T4 (1, 1): {len(differ11)} parameters differ "
+                        f"from T1's after {T4_STEPS} steps: {differ11[:4]}")
+    ms11 = float(np.median(t4_s[1:])) * 1e3
+    ms1 = train_rep[tcfg.name]["ms_per_step"]
+    print(f"[T4] (1, 1) NCCL mesh: llama3-8b (4 layers, bf16, B=8, S=128) "
+          f"{T4_STEPS} steps of build_train_step(mesh) bitwise T1's "
+          f"one-device steps (losses, grad norms, all "
+          f"{len(t4_snap['params'])} parameters), no collective, no kernel "
+          f"and no plain version; {ms11:.2f} ms/step vs T1's {ms1:.2f}")
+    report["t4"] = dict(ctx_t4, mesh11={
+        "ms_per_step": ms11, "one_device_ms_per_step": ms1,
+        "metrics": t4_got, "phase_s": time.perf_counter() - t_phase})
+    del whole, tshard, tstate, mstep, t4_batches, t4_snap
+    torch.distributed.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # ---- T2. checkpoint and restart through the CLI ---------------------
     t_phase = time.perf_counter()
@@ -4576,37 +5145,52 @@ def main():
         torch.cuda.empty_cache()
 
         env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-        cli = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-               "smollm-135m", "--steps", "10", "--batch", "8", "--seq",
-               "128", "--ckpt-every", "5", "--ckpt-dir"]
+        args = ["--arch", "smollm-135m", "--steps", str(T2_STEPS), "--batch",
+                "8", "--seq", "128", "--ckpt-every", str(T2_STEPS // 2),
+                "--ckpt-dir"]
         d1, d2 = str(ck_root / "straight"), str(ck_root / "restarted")
+        # the straight run and the resumed one in this process (``main``
+        # is the CLI's body: no interpreter start), the killed run as the
+        # CLI in a process of its own, started first: a thread kills it
+        # once it has published its checkpoint at half while this process
+        # runs the straight run
+        half = T2_STEPS // 2
         t0 = time.perf_counter()
-        r1 = subprocess.run(cli + [d1], env=env, capture_output=True,
-                            text=True, timeout=400)
-        t_straight = time.perf_counter() - t0
-        check(r1.returncode == 0, f"T2: the straight run failed: "
-                                  f"{r1.stderr[-2000:]}")
-        t0 = time.perf_counter()
-        proc = subprocess.Popen(cli + [d2], env=env, stdout=subprocess.PIPE,
-                                stderr=subprocess.DEVNULL, text=True)
-        try:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train"] + args + [d2],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+            text=True)
+
+        def watch():
             for line in proc.stdout:
-                if line.startswith("[train] checkpoint @ 5"):
-                    break
+                if line.startswith(f"[train] checkpoint @ {half}"):
+                    proc.kill()
+                    return
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        try:
+            t1 = time.perf_counter()
+            train_mod.main(args + [d1])
+            torch.cuda.synchronize()
+            t_straight = time.perf_counter() - t1
+            watcher.join(timeout=400)
         finally:
             proc.kill()
             proc.wait(timeout=60)
+            watcher.join(timeout=10)
             proc.stdout.close()
-        check(ck.latest_step(d2) == 5, f"T2: the killed run left "
-                                        f"checkpoint {ck.latest_step(d2)}")
-        r2 = subprocess.run(cli + [d2, "--resume"], env=env,
-                            capture_output=True, text=True, timeout=400)
+        check(ck.latest_step(d2) == half,
+              f"T2: the killed run left checkpoint {ck.latest_step(d2)}")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            train_mod.main(args + [d2, "--resume"])
+        torch.cuda.synchronize()
         t_restart = time.perf_counter() - t0
-        check(r2.returncode == 0 and "[train] resumed from step 5"
-              in r2.stdout, f"T2: the resumed run failed: "
-                            f"{r2.stdout[-1000:]} {r2.stderr[-2000:]}")
-        a, _ = ck.load_leaves(d1, 10)
-        b, _ = ck.load_leaves(d2, 10)
+        check(f"[train] resumed from step {T2_STEPS // 2}" in out.getvalue(),
+              f"T2: the resumed run did not resume: {out.getvalue()[-1000:]}")
+        a, _ = ck.load_leaves(d1, T2_STEPS)
+        b, _ = ck.load_leaves(d2, T2_STEPS)
         check(sorted(a) == sorted(b), "T2: the checkpoints hold other leaves")
 
         def bits(x):
@@ -4616,15 +5200,17 @@ def main():
                            8: torch.int64}[x.element_size()])
 
         differ = [k for k in a if not torch.equal(bits(a[k]), bits(b[k]))]
-        check(not differ, f"T2: step_10 of the restarted run differs from "
-                          f"the straight run's in {len(differ)} leaves: "
-                          f"{differ[:5]}")
+        check(not differ, f"T2: step_{T2_STEPS} of the restarted run "
+                          f"differs from the straight run's in {len(differ)} "
+                          f"leaves: {differ[:5]}")
     finally:
         shutil.rmtree(ck_root, ignore_errors=True)
     print(f"[T2] checkpoint of smollm-135m + AdamW state: {ck_bytes / 1e9:.3f}"
-          f" GB, save {t_save:.2f} s, restore {t_restore:.2f} s; CLI 10 "
-          f"steps straight {t_straight:.1f} s, killed at step 5 and resumed "
-          f"{t_restart:.1f} s: step_10 bitwise equal in all {len(a)} leaves")
+          f" GB, save {t_save:.2f} s, restore {t_restore:.2f} s; CLI "
+          f"{T2_STEPS} steps straight {t_straight:.1f} s (in process, beside "
+          f"the killed run's start), killed at step {T2_STEPS // 2} (its own "
+          f"process) and resumed (in process) {t_restart:.1f} s from its "
+          f"start: step_{T2_STEPS} bitwise equal in all {len(a)} leaves")
     t_t2 = time.perf_counter() - t_phase
     print(f"[T2] phase {t_t2:.1f} s")
     report["checkpoint"] = {"phase_s": t_t2, "bytes": ck_bytes,

@@ -1,5 +1,6 @@
 """Logical-axis sharding rules and the collectives of the mesh-sharded
-serving path (PyTorch port of ``repro/distributed/sharding.py``).
+serving and training paths (PyTorch port of
+``repro/distributed/sharding.py``).
 
 Every parameter and activation dim is tagged with a *logical* axis name;
 the rules map a logical name to a chain of physical mesh axes.  A spec is
@@ -41,7 +42,15 @@ placement and the collectives are explicit:
 * ``take_cols`` / ``gather_cols``: a rank's columns of a dim that is not
   one contiguous shard (the SSD's ``[z | x | B | C | dt]`` projection cut
   segment by segment, the KV heads case (b) repeats) and the whole dim
-  joined back from every rank's columns, each column once.
+  joined back from every rank's columns, each column once;
+* training: ``reduce`` / ``enter`` / ``gather`` / ``fsdp_gather``,
+  collectives that autograd differentiates under one convention (a tensor
+  every rank of some axes holds whole has its whole gradient on each of
+  them; built on ``Comm``, so they are counted, staged on gloo and not
+  issued over axes of size 1), ``gathered`` (a module's leaves cut over
+  the batch axes, FSDP, joined before use) and ``Cut`` (where a rank's
+  leaf lies in the whole: the training step's gradient sums and norm, and
+  the checkpoints, read it).
 
 Meshes are ``torch.distributed.device_mesh.DeviceMesh`` objects
 (``launch/mesh.py``); ``spec_for`` reads only the axis sizes, so anything
@@ -51,7 +60,9 @@ there.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import math
 import time
 from typing import Any, Mapping, Sequence
 
@@ -369,12 +380,14 @@ class Comm:
     def _staged(self, t: torch.Tensor, group) -> bool:
         return t.is_cuda and dist.get_backend(group) == "gloo"
 
-    def all_reduce(self, x: torch.Tensor, axes) -> torch.Tensor:
-        """The sum of ``x`` over every rank of ``axes`` (x itself when they
-        have size 1), in ``x``'s dtype."""
+    def all_reduce(self, x: torch.Tensor, axes, op: str = "sum"
+                   ) -> torch.Tensor:
+        """The sum (``op="max"``: the maximum) of ``x`` over every rank of
+        ``axes`` (x itself when they have size 1), in ``x``'s dtype."""
         live = self._live(axes)
         if not live:
             return x
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
         t0 = time.perf_counter()
         with torch.profiler.record_function("mesh.all_reduce"):
             y = (x if x.dtype == torch.float32 else x.float()
@@ -382,7 +395,7 @@ class Comm:
             for a in live:
                 g = self.mesh.get_group(a)
                 buf = y.cpu() if self._staged(y, g) else y
-                dist.all_reduce(buf, group=g)
+                dist.all_reduce(buf, op=red, group=g)
                 if buf is not y:
                     y.copy_(buf)
                     self.stats["staged_bytes"] += 2 * buf.nbytes
@@ -486,22 +499,171 @@ def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:
     return t
 
 
+# ---------------------------------------------------------------------------
+# Collectives autograd differentiates (training on a mesh)
+# ---------------------------------------------------------------------------
+#
+# One convention: a tensor that every rank of some axes holds whole has its
+# whole gradient on every one of those ranks.  ``reduce`` (Megatron-LM's g)
+# sums the partial products of a cut contraction and passes the gradient
+# through; ``enter`` (Megatron-LM's f) passes a whole tensor into a rank's
+# cut computation and sums the gradient the ranks' cuts give it; ``gather``
+# joins a cut dim and hands each rank its slice of the gradient;
+# ``fsdp_gather`` joins leaves cut over the batch axes (one all-gather for
+# all of a layer's) and hands each rank its slice of the gradient summed
+# over them (a reduce-scatter, built as an all-reduce and a slice, which
+# gloo has).  Each is the plain collective (or nothing) where no gradient
+# is asked for, and nothing over axes of size 1.
+
+
+def _fresh(x: torch.Tensor) -> torch.Tensor:
+    """A copy ``Comm.all_reduce`` may sum in place (it sums an f32 tensor
+    in place)."""
+    return x.clone() if x.dtype == torch.float32 else x
+
+
+def _grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axes):
+        return comm.all_reduce(_fresh(x), axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axes):
+        ctx.comm, ctx.axes = comm, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce(_fresh(g), ctx.axes), None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, axes, dim):
+        ctx.comm, ctx.axes, ctx.dim = comm, axes, dim
+        ctx.n = x.shape[dim]
+        return comm.all_gather(x, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        r = shard_index(ctx.axes, ctx.comm.mesh)[0]
+        return g.narrow(ctx.dim, r * ctx.n, ctx.n), None, None, None
+
+
+def _join_flat(every: torch.Tensor, shapes, dims) -> list:
+    """Leaves joined from ``every`` (n, total): row r the ranks' flattened
+    shards one after another; leaf i's shards concatenated along
+    ``dims[i]`` in shard order."""
+    n = every.shape[0]
+    out = []
+    for part, shape, d in zip(every.split([math.prod(s) for s in shapes],
+                                          dim=1), shapes, dims):
+        t = part.reshape((n,) + tuple(shape)).movedim(0, d)
+        out.append(t.reshape(shape[:d] + (n * shape[d],) + shape[d + 1:]))
+    return out
+
+
+def _split_flat(gs, shapes, dims, n: int) -> torch.Tensor:
+    """``_join_flat``'s inverse: (n, total), row r every leaf's shard r."""
+    rows = []
+    for g, shape, d in zip(gs, shapes, dims):
+        t = g.reshape(shape[:d] + (n, shape[d]) + shape[d + 1:])
+        rows.append(t.movedim(d, 0).reshape(n, -1))
+    return torch.cat(rows, dim=1)
+
+
+class _FSDPGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, comm, axes, dims, *xs):
+        ctx.comm, ctx.axes, ctx.dims = comm, axes, dims
+        ctx.shapes = [tuple(x.shape) for x in xs]
+        flat = torch.cat([x.reshape(-1) for x in xs])
+        every = comm.all_gather(flat, axes, 0).view(-1, flat.numel())
+        return tuple(_join_flat(every, ctx.shapes, dims))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        r, n = shard_index(ctx.axes, ctx.comm.mesh)
+        mine = ctx.comm.all_reduce(_split_flat(gs, ctx.shapes, ctx.dims, n),
+                                   ctx.axes)[r]
+        return (None, None, None) + tuple(
+            t.view(shape) for t, shape in zip(
+                mine.split([math.prod(s) for s in ctx.shapes]), ctx.shapes))
+
+
+def reduce(x: torch.Tensor, comm: Comm, axes) -> torch.Tensor:
+    """The sum of ``x`` over ``axes``; its gradient passes through."""
+    if not comm._live(axes):
+        return x
+    if _grad(x):
+        return _Reduce.apply(x, comm, axes)
+    return comm.all_reduce(x, axes)
+
+
+def enter(x: torch.Tensor, comm: Comm, axes) -> torch.Tensor:
+    """``x`` itself; its gradient is summed over ``axes``."""
+    if not comm._live(axes) or not _grad(x):
+        return x
+    return _Enter.apply(x, comm, axes)
+
+
+def gather(x: torch.Tensor, comm: Comm, axes, dim: int) -> torch.Tensor:
+    """Every rank's ``x`` joined along ``dim``; each rank's gradient is
+    its slice of the joined one's."""
+    if not comm._live(axes):
+        return x
+    if _grad(x):
+        return _Gather.apply(x, comm, axes, dim)
+    return comm.all_gather(x, axes, dim)
+
+
+def fsdp_gather(xs: Sequence[torch.Tensor], comm: Comm, axes,
+                dims: Sequence[int]) -> list:
+    """Leaves cut over the batch axes ``axes`` (of one dtype), each joined
+    along its ``dims`` entry, in one all-gather of their flattened shards;
+    each rank's gradient of a leaf is its slice of the joined one's summed
+    over ``axes`` (every rank ran other rows through the whole leaf), in
+    one all-reduce."""
+    if not comm._live(axes):
+        return list(xs)
+    if any(_grad(x) for x in xs):
+        return list(_FSDPGather.apply(comm, tuple(axes), tuple(dims), *xs))
+    flat = torch.cat([x.reshape(-1) for x in xs])
+    every = comm.all_gather(flat, axes, 0).view(-1, flat.numel())
+    return _join_flat(every, [tuple(x.shape) for x in xs], dims)
+
+
 @dataclasses.dataclass(eq=False)
 class Split:
     """A module's dim cut over mesh ``axes``: this rank holds ``[start,
     start + size)`` of it.  ``reduce`` sums a row-parallel product (its
     contraction ran over this rank's slice) over the axes; ``gather``
-    joins vocabulary-parallel logits along a dim."""
+    joins vocabulary-parallel logits along a dim; ``enter`` passes a whole
+    tensor into the rank's cut computation.  All three are
+    differentiable under the convention above."""
     comm: Comm
     axes: MeshAxes
     start: int
     size: int
 
     def reduce(self, x: torch.Tensor) -> torch.Tensor:
-        return self.comm.all_reduce(x, self.axes)
+        return reduce(x, self.comm, self.axes)
 
     def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        return self.comm.all_gather(x, self.axes, dim)
+        return gather(x, self.comm, self.axes, dim)
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        return enter(x, self.comm, self.axes)
 
     @property
     def shards(self) -> int:
@@ -512,6 +674,116 @@ class Split:
     def index(self) -> int:
         """This rank's shard of the dim, major to minor over the axes."""
         return shard_index(self.axes, self.comm.mesh)[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class Cut:
+    """Where a rank's leaf lies in the whole one (``transformer.
+    shard_params`` records one per leaf as ``model.cuts``): cut over the
+    tensor-parallel axes ``tp_axes`` along ``tp_dim`` (contiguous, or, with
+    ``cols``, the columns ``cols[r]`` of the whole dim for shard r), then
+    over the batch axes ``dp_axes`` along ``dp_dim`` (FSDP, contiguous).
+    Only axes of more than one rank are listed, so on a (1, 1) mesh a leaf
+    is its whole.  ``shared``: the rank's columns along ``tp_dim`` that
+    other ranks of ``tp_axes`` hold too (an SSD's B/C groups, case (b)'s
+    KV head), as (their local positions, their positions in the union of
+    the shared columns, the union's size, the local positions of those this
+    rank is the first holder of)."""
+    tp_axes: MeshAxes = ()
+    tp_dim: int = 0
+    cols: tuple | None = None
+    dp_axes: MeshAxes = ()
+    dp_dim: int = 0
+    shared: tuple | None = None
+
+    def cut(self, whole: torch.Tensor, mesh) -> torch.Tensor:
+        """This rank's leaf from the whole one (a copy of its own; ``whole``
+        itself where nothing is cut)."""
+        spec = [None] * whole.ndim
+        if self.cols is not None:
+            whole = take_cols(whole, self.tp_dim, self.cols[shard_index(
+                self.tp_axes, mesh)[0]])
+        elif self.tp_axes:
+            spec[self.tp_dim] = self.tp_axes
+        if self.dp_axes:
+            spec[self.dp_dim] = self.dp_axes
+        return shard(whole, tuple(spec), mesh)
+
+    def join(self, t: torch.Tensor, comm: Comm) -> torch.Tensor:
+        """The whole leaf from every rank's (collectives over the cut
+        axes: every rank calls it)."""
+        if self.dp_axes:
+            t = comm.all_gather(t, self.dp_axes, self.dp_dim)
+        if self.tp_axes:
+            if self.cols is not None:
+                t = gather_cols(comm, t, self.tp_axes, self.tp_dim,
+                                self.cols)
+            else:
+                t = comm.all_gather(t, self.tp_axes, self.tp_dim)
+        return t
+
+
+def shared_columns(per_rank: Sequence[Sequence[int]], r: int):
+    """``Cut.shared`` of shard r of a dim whose shard s holds the whole
+    dim's columns ``per_rank[s]``, or None when no column is held twice."""
+    holders: dict[int, list[int]] = {}
+    for s, cols in enumerate(per_rank):
+        for c in cols:
+            holders.setdefault(c, []).append(s)
+    union = sorted(c for c, h in holders.items() if len(h) > 1)
+    if not union:
+        return None
+    where = {c: i for i, c in enumerate(union)}
+    mine = [(j, c) for j, c in enumerate(per_rank[r]) if c in where]
+    return (tuple(j for j, _ in mine), tuple(where[c] for _, c in mine),
+            len(union), tuple(j for j, c in mine if holders[c][0] == r))
+
+
+@dataclasses.dataclass(eq=False)
+class FSDP:
+    """A module's leaves cut over the batch axes: ``leaves`` maps a leaf's
+    name to (the dim, the axes); ``gathered`` joins them before use."""
+    comm: Comm
+    leaves: dict
+
+
+def gathered(module, children: bool = True):
+    """``module`` with its FSDP leaves joined whole, and with ``children``
+    those of every submodule: a shallow copy whose parameter tables hold
+    the joined tensors (autograd carries their gradients back to the
+    leaves), joined by one ``fsdp_gather`` per set of axes and dtype.
+    ``module`` itself where nothing is cut."""
+    from repro_torch.models.common import shallow_copy
+
+    def cut(m) -> bool:
+        return getattr(m, "fsdp", None) is not None
+
+    subs = list(module.modules()) if children else [module]
+    if not any(cut(m) for m in subs):
+        return module
+    if children:
+        new = shallow_copy(module)
+        mods = list(new.modules())
+    else:
+        new = copy.copy(module)
+        new._parameters = dict(module._parameters)
+        mods = [new]
+    groups: dict[tuple, list] = {}
+    for m in mods:
+        f = getattr(m, "fsdp", None)
+        if f is None:
+            continue
+        for leaf, (dim, axes) in f.leaves.items():
+            t = m._parameters[leaf]
+            groups.setdefault((id(f.comm), axes, t.dtype), []).append(
+                (m, leaf, dim, f.comm))
+    for (_, axes, _), entries in groups.items():
+        joined = fsdp_gather([m._parameters[leaf] for m, leaf, _, _ in
+                              entries], entries[0][3], axes,
+                             [d for _, _, d, _ in entries])
+        for (m, leaf, _, _), t in zip(entries, joined):
+            m._parameters[leaf] = t
+    return new
 
 
 def take_cols(t: torch.Tensor, dim: int, cols: Sequence[int]) -> torch.Tensor:
@@ -543,14 +815,37 @@ def gather_cols(comm: Comm, x: torch.Tensor, axes, dim: int,
     return take_cols(every, dim, [first[c] for c in range(n)])
 
 
+class _MmF32(torch.autograd.Function):
+    """cuBLAS's f32-output GEMM of 16-bit operands, differentiable (the
+    op has no derivative of its own): the gradients are the 16-bit
+    products one device's ``a @ w`` backward runs, of the incoming f32
+    gradient rounded to the operands' dtype (it holds 16-bit values: the
+    product's result is rounded to them after the sum)."""
+
+    @staticmethod
+    def forward(ctx, a2, w):
+        ctx.save_for_backward(a2, w)
+        return torch.mm(a2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a2, w = ctx.saved_tensors
+        g = g.to(a2.dtype)
+        return (g @ w.T if ctx.needs_input_grad[0] else None,
+                a2.T @ g if ctx.needs_input_grad[1] else None)
+
+
 def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``a @ w`` (a (..., K), w (K, N)) accumulated and returned in f32.
     A 16-bit product on the card reads the operands as stored (cuBLAS's
-    f32-output GEMM); elsewhere they are widened first."""
+    f32-output GEMM, through ``_MmF32`` when a gradient is asked for);
+    elsewhere they are widened first."""
     if a.is_cuda and a.dtype in (torch.bfloat16, torch.float16) \
             and w.dtype == a.dtype:
-        return torch.mm(a.reshape(-1, a.shape[-1]), w,
-                        out_dtype=torch.float32).unflatten(0, a.shape[:-1])
+        a2 = a.reshape(-1, a.shape[-1])
+        out = (_MmF32.apply(a2, w) if _grad(a) or _grad(w)
+               else torch.mm(a2, w, out_dtype=torch.float32))
+        return out.unflatten(0, a.shape[:-1])
     return a.float() @ w.float()
 
 

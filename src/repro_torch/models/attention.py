@@ -110,12 +110,22 @@ def _attn_out(p: Attention, out: torch.Tensor) -> torch.Tensor:
 
 def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor):
-    """x (B,S,D), positions (B,S) -> q (B,S,H,Dh), k/v (B,S,K,Dh), roped."""
-    q, k, v = _proj(x, p.wq), _proj(x, p.wk), _proj(x, p.wv)
+    """x (B,S,D), positions (B,S) -> q (B,S,H,Dh), k/v (B,S,K,Dh), roped.
+    On a mesh (``.tp``) x enters the rank's cut projections
+    (``sharding.enter``); a training shard in case (b) (``.kv_pick``, see
+    ``transformer.shard_params``) projects every KV head whole and passes
+    k and v into its query heads' cut, keeping the one KV head they read."""
+    tp = getattr(p, "tp", None)
+    pick = getattr(p, "kv_pick", None)
+    xq = x if tp is None else tp.enter(x)
+    xkv = x if pick is not None else xq
+    q, k, v = _proj(xq, p.wq), _proj(xkv, p.wk), _proj(xkv, p.wv)
     if cfg.attn_bias:
         q = q + p.bq.to(x.dtype)
         k = k + p.bk.to(x.dtype)
         v = v + p.bv.to(x.dtype)
+    if pick is not None:
+        k, v = (tp.enter(t).narrow(2, pick, 1) for t in (k, v))
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     q = apply_rope(q, cos[..., None, :], sin[..., None, :])
     k = apply_rope(k, cos[..., None, :], sin[..., None, :])

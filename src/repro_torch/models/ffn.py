@@ -46,6 +46,9 @@ def mlp_body(p: MLP, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The MLP on normed activations h (..., D), in h's dtype (the JAX
     ``_mlp_body``)."""
     act = ACTIVATIONS[cfg.ffn_act]
+    tp = getattr(p, "tp", None)
+    if tp is not None:
+        h = tp.enter(h)                  # into the rank's d_ff columns
     up = h @ Q.cast(p.w_up, h.dtype)
     if hasattr(p, "w_gate"):
         up = act(h @ Q.cast(p.w_gate, h.dtype)) * up

@@ -48,8 +48,9 @@ the assignment.  One all-reduce over 'model' joins them: each entry is
 nonzero on exactly one rank, so the sum is exact and the combine after it
 is the single device's.  The reference keeps the buffer's expert dim
 replicated under SPMD; the port moves the routed rows instead.  The
-full-sequence dispatch (``moe_block``: training and ``forward``) is not
-ported to a mesh and refuses a rank's shard.
+full-sequence dispatch (``moe_block``: training and ``forward``) does the
+same over the groups of the rank's rows (``moe_block``), differentiable
+(``sharding.enter`` / ``reduce`` / ``gather``).
 """
 
 from __future__ import annotations
@@ -128,6 +129,8 @@ def _route_topk(router: torch.Tensor, h: torch.Tensor, cfg: ModelConfig,
     capacity counts and zero their combine weights.  On a mesh (``tp``,
     the ``Split`` of the experts) the rank's logits of its experts are
     gathered whole first."""
+    if tp is not None:
+        h = tp.enter(h)                  # into the rank's router columns
     logits = h.float() @ router.float()
     if tp is not None:
         logits = tp.gather(logits, -1)
@@ -201,6 +204,9 @@ def _routed(p: MoE, hf: torch.Tensor, flat_e: torch.Tensor,
     # sink row M of the last expert
     e_idx = torch.where(mine, local, El - 1)
     r_idx = torch.where(mine, gl * C + pos, M)
+    tp = getattr(p, "tp", None)
+    if tp is not None:
+        hf = tp.enter(hf)                # into the rank's experts
     src = hf[:, :, None].expand(g, T, k, D).reshape(g, A, D)
     buf = torch.zeros((El, M + 1, D), dtype=dt, device=hf.device)
     buf = buf.index_put_((e_idx, r_idx), src)[:, :M]
@@ -232,17 +238,28 @@ def moe_block(p: MoE, x: torch.Tensor, cfg: ModelConfig, *,
               groups: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """x (B,S,D) -> (x + moe(x), aux_loss).  ``groups`` must divide B*S;
     the tokens of each group compete for ``moe_capacity`` slots per
-    expert."""
+    expert.
+
+    On a mesh shard (``transformer.shard_params`` sets ``.data_shards``,
+    d, and the experts' ``.tp``) x holds the rank's rows of the batch, and
+    ``groups`` counts the groups of the whole batch, as the reference's
+    group-local ``shard_map`` dispatch counts them: the rank dispatches
+    ``groups / d`` groups of its own rows, each with the whole batch's
+    group size and capacity, and its aux is its groups' mean over d, so
+    that the sum over the batch axes is the mean over every group.  The
+    routing runs whole (the router logits are gathered over 'model'), each
+    rank multiplies its experts' rows, and the rows are joined over
+    'model' (``_join``): every rank issues the same collectives, whether
+    its experts got tokens or not."""
     if cfg.moe_impl != "sort":
         raise NotImplementedError(
             f"moe_impl={cfg.moe_impl!r}: only the sort ranking is ported "
             "(it gives the one-hot cumsum's positions)")
-    if getattr(p, "mesh", None) is not None:
-        raise NotImplementedError(
-            "MoE training on a mesh is not ported: the full-sequence "
-            "dispatch (moe_block: training and forward, with its aux loss) "
-            "runs on one device; a mesh rank's shard serves through "
-            "moe_prefill_block and moe_decode_block")
+    d = getattr(p, "data_shards", 1)
+    if groups % d:
+        raise ValueError(f"{groups} MoE groups over {d} data shards: the "
+                         "data shards must divide the groups")
+    groups //= d
     B, S, D = x.shape
     E, k = cfg.num_experts, cfg.top_k
     T = B * S
@@ -251,9 +268,12 @@ def moe_block(p: MoE, x: torch.Tensor, cfg: ModelConfig, *,
     C = moe_capacity(cfg, Tg)
     h = rmsnorm(x, p.norm, cfg.norm_eps)
     hf = h.reshape(groups, Tg, D)
-    gates, idx, probs = _route_topk(p.router, hf, cfg)
+    gates, idx, probs = _route_topk(p.router, hf, cfg,
+                                     tp=getattr(p, "tp", None))
     # Switch load-balance aux: E * mean_e(frac_tokens_e * mean_prob_e)
     aux = E * torch.mean(_one_hot(idx[..., 0], E).mean(1) * probs.mean(1))
+    if d > 1:
+        aux = aux / d
     flat_e = idx.reshape(groups, Tg * k)
     pos = _rank_in_expert(flat_e)
     y = _experts(p, hf, gates, flat_e, pos, pos < C, C, cfg)

@@ -85,7 +85,8 @@ def _gates(p: RGLRU, u: torch.Tensor):
     the elementwise terms the rank's own."""
     uf = u.float()
     tp = getattr(p, "tp", None)
-    uw = uf if tp is None else tp.gather(u, -1).float()
+    # gathered whole, then into the rank's cut gate columns
+    uw = uf if tp is None else tp.enter(tp.gather(u, -1)).float()
     r = torch.sigmoid(uw @ p.wa.float() + p.ba.float())
     i = torch.sigmoid(uw @ p.wx.float() + p.bx.float())
     a = torch.exp(-_C * softplus(p.lam.float()) * r)
@@ -112,6 +113,9 @@ def _branches(p: RGLRU, x: torch.Tensor, cfg: ModelConfig):
     """The block's two input branches: (u = x W_in, g = gelu(x W_branch)),
     both after the pre-norm, in x's dtype."""
     h = rmsnorm(x, p.norm, cfg.norm_eps)
+    tp = getattr(p, "tp", None)
+    if tp is not None:
+        h = tp.enter(h)                  # into the rank's width columns
     return h @ p.w_in.to(h.dtype), gelu(h @ p.w_branch.to(h.dtype))
 
 

@@ -149,6 +149,18 @@ def _split_proj(zxbcdt: torch.Tensor, cfg: ModelConfig):
     return z, xBC, dt
 
 
+def _project(p: "SSD", x: torch.Tensor, cfg: ModelConfig):
+    """(z, xBC, dt) of the pre-normed x.  On a mesh x enters the rank's
+    columns (``sharding.enter``); the B/C columns that other ranks hold too
+    get their gradient summed over those ranks by the training step
+    (``sharding.Cut.shared``), not here."""
+    h = rmsnorm(x, p.norm, cfg.norm_eps)
+    tp = getattr(p, "tp", None)
+    if tp is not None:
+        h = tp.enter(h)
+    return _split_proj(h @ p.in_proj.to(h.dtype), cfg)
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  prev: torch.Tensor | None = None,
                  tail_index: torch.Tensor | None = None):
@@ -286,7 +298,8 @@ def _gnorm(p: SSD, y: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     if tp is None:
         return rmsnorm(y, p.gnorm, cfg.norm_eps)
     yf = y.float()
-    var = tp.reduce(yf.square().sum(-1, keepdim=True)) / (
+    # the whole variance scales the rank's own columns: it enters them
+    var = tp.enter(tp.reduce(yf.square().sum(-1, keepdim=True))) / (
         yf.shape[-1] * tp.shards)
     out = yf * torch.rsqrt(var + cfg.norm_eps)
     return (out * (1.0 + p.gnorm.float())).to(y.dtype)
@@ -296,8 +309,7 @@ def ssd_block(p: SSD, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Full-sequence mamba2 block.  x (B,S,D)."""
     d_inner, H, P, G, N, conv_dim, _ = _dims(cfg)
     B, S, _ = x.shape
-    h = rmsnorm(x, p.norm, cfg.norm_eps)
-    z, xBC, dt = _split_proj(h @ p.in_proj.to(h.dtype), cfg)
+    z, xBC, dt = _project(p, x, cfg)
     xBC, _ = _causal_conv(xBC, p.conv_w, p.conv_b)
     xs = xBC[..., :d_inner]
     Bm = xBC[..., d_inner:d_inner + G * N].reshape(B, S, G, N)
@@ -324,8 +336,7 @@ def ssd_prefill(p: SSD, x: torch.Tensor, state: SSMState,
     d_inner, H, P, G, N, conv_dim, _ = _dims(cfg)
     B, S, _ = x.shape
     valid = (positions >= 0)[..., None]                        # (B,S,1)
-    h = rmsnorm(x, p.norm, cfg.norm_eps)
-    z, xBC, dt = _split_proj(h @ p.in_proj.to(h.dtype), cfg)
+    z, xBC, dt = _project(p, x, cfg)
     xBC = xBC.masked_fill(~valid, 0)
     tail_index = valid[..., 0].sum(dim=1) if continuation else None
     xBC, conv_tail = _causal_conv(xBC, p.conv_w, p.conv_b, prev=state.conv,
@@ -359,8 +370,7 @@ def ssd_decode(p: SSD, x: torch.Tensor, state: SSMState,
     """One-token decode.  x (B,1,D); ``state`` updated in place."""
     d_inner, H, P, G, N, conv_dim, _ = _dims(cfg)
     B = x.shape[0]
-    h = rmsnorm(x, p.norm, cfg.norm_eps)
-    z, xBC, dt = _split_proj(h @ p.in_proj.to(h.dtype), cfg)
+    z, xBC, dt = _project(p, x, cfg)
     xBC, conv_tail = _causal_conv_step(xBC, p.conv_w, p.conv_b, state.conv)
     xs = xBC[:, 0, :d_inner]
     Bm = xBC[:, 0, d_inner:d_inner + G * N].reshape(B, G, N)

@@ -266,6 +266,79 @@ def _ffn(layer: Block, x: torch.Tensor, cfg: ModelConfig,
     return x if f is None else ffn.mlp_block(f, x, cfg)
 
 
+def _layer(layer: Block, x: torch.Tensor, cfg: ModelConfig, mixer: str,
+           f: str, train: bool, moe_groups: int):
+    """One layer's full-sequence block -> (x, its MoE aux or None), its
+    FSDP leaves joined first (``sharding.gathered``)."""
+    layer = sh.gathered(layer)
+    if mixer in ATTN:
+        x = attention.attn_block(layer.mixer, x, cfg,
+                                 local=(mixer == "attn_local"), train=train)
+    elif mixer == "rglru":
+        x = rglru.rglru_block(layer.mixer, x, cfg)
+    else:
+        x = ssm.ssd_block(layer.mixer, x, cfg)
+    if f == "moe":
+        return moe.moe_block(layer.ffn, x, cfg, groups=moe_groups)
+    if f == "mlp":
+        x = ffn.mlp_block(layer.ffn, x, cfg)
+    return x, None
+
+
+class _Remat(torch.autograd.Function):
+    """A layer run without keeping its activations and run again in the
+    backward: ``forward(ctx, run, x, *leaves)`` calls ``run(x, leaves)`` ->
+    (x, aux or None) with no graph; ``backward`` calls it again on
+    detached copies that ask for a gradient and differentiates that graph
+    (``torch.autograd.grad``), so the gradients go to ``x`` and the leaves
+    as the function's own inputs.  The ops, and so the bits, are those of a
+    run kept whole; the collectives inside run again in the same order on
+    every rank."""
+
+    @staticmethod
+    def forward(ctx, run, x, *leaves):
+        ctx.run = run
+        ctx.save_for_backward(x, *leaves)
+        return run(x, leaves)
+
+    @staticmethod
+    def backward(ctx, gx, ga):
+        x, *leaves = ctx.saved_tensors
+        need = ctx.needs_input_grad[1:]
+        ins = [t.detach().requires_grad_(n) for t, n in zip([x] + leaves,
+                                                             need)]
+        with torch.enable_grad():
+            y, a = ctx.run(ins[0], ins[1:])
+        outs, gouts = ([y], [gx]) if a is None else ([y, a], [gx, ga])
+        asked = [t for t in ins if t.requires_grad]
+        got = iter(torch.autograd.grad(outs, asked, gouts, allow_unused=True))
+        return (None,) + tuple(next(got) if n else None for n in need)
+
+
+def _remat_layer(layer: Block, x: torch.Tensor, *args):
+    """``_layer(layer, x, *args)`` recomputed in the backward (``_Remat``):
+    the layer's tensors, as they stand for this call (also where
+    ``torch.func.functional_call`` substituted them: ``models/lora.py``),
+    are the function's inputs, and each run reads them from a shallow copy
+    of the layer whose tables hold the ones it is given."""
+    named = list(layer.named_parameters(remove_duplicate=False))
+    copy = shallow_copy(layer)
+    slots = []
+    for name, _ in named:
+        *path, leaf = name.split(".")
+        m = copy
+        for part in path:
+            m = m._modules[part]
+        slots.append((m._parameters, leaf))
+
+    def run(xi, leaves):
+        for (table, leaf), t in zip(slots, leaves):
+            table[leaf] = t
+        return _layer(copy, xi, *args)
+
+    return _Remat.apply(run, x, *(t for _, t in named))
+
+
 def run_layers(layers: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
                *, train: bool = False, moe_groups: int = 1
                ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -276,22 +349,20 @@ def run_layers(layers: nn.ModuleList, x: torch.Tensor, cfg: ModelConfig,
     the MoE layers' aux losses summed in f32, 0 without MoE layers).
     ``train=True`` attends through ``attention.chunked_attention``,
     differentiable by autograd (the other mixers and the FFNs are plain
-    PyTorch either way)."""
+    PyTorch either way); with ``cfg.remat`` and a gradient asked for, each
+    layer then keeps none of its activations and is recomputed in the
+    backward (``_Remat``), its FSDP gather included (the reference's
+    ``jax.checkpoint`` with ``nothing_saveable``)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = train and cfg.remat and torch.is_grad_enabled()
     for layer, (mixer, f) in zip(layers, cfg.layer_plan()):
-        if mixer in ATTN:
-            x = attention.attn_block(layer.mixer, x, cfg,
-                                     local=(mixer == "attn_local"),
-                                     train=train)
-        elif mixer == "rglru":
-            x = rglru.rglru_block(layer.mixer, x, cfg)
+        if remat:
+            # no layer draws random numbers: no RNG state to keep
+            x, a = _remat_layer(layer, x, cfg, mixer, f, train, moe_groups)
         else:
-            x = ssm.ssd_block(layer.mixer, x, cfg)
-        if f == "moe":
-            x, a = moe.moe_block(layer.ffn, x, cfg, groups=moe_groups)
+            x, a = _layer(layer, x, cfg, mixer, f, train, moe_groups)
+        if a is not None:
             aux = aux + a
-        elif f == "mlp":
-            x = ffn.mlp_block(layer.ffn, x, cfg)
     return x, aux
 
 
@@ -300,9 +371,33 @@ def forward(params: Transformer, cfg: ModelConfig, batch: dict, *,
             moe_groups: int = 1) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward -> (logits (B,S,V), moe_aux): the MoE layers'
     aux losses summed in f32 (0 without MoE layers)."""
-    x, aux = run_layers(params.layers, embed_inputs(params, cfg, batch), cfg,
+    top = sh.gathered(params, children=False)
+    x, aux = run_layers(params.layers, embed_inputs(top, cfg, batch), cfg,
                         train=train, moe_groups=moe_groups)
-    return _logits(params, cfg, x), aux
+    return _logits(top, cfg, x), aux
+
+
+def _vocab_parallel_nll(top: Transformer, cfg: ModelConfig, x: torch.Tensor,
+                        labels: torch.Tensor) -> torch.Tensor:
+    """(B, S_labels) f32 cross entropy of the rank's vocabulary columns'
+    logits, never gathered: the row max is taken over 'model' with no
+    gradient, the sum of exponentials is ``reduce``d, and the gold logit
+    is the rank's column that matches the label (the reference's
+    iota-compare-select), ``reduce``d (one rank holds it)."""
+    tp = top.tp
+    if bool((labels >= cfg.vocab_size).any()):
+        raise IndexError(f"a label outside the vocabulary of "
+                         f"{cfg.vocab_size}")
+    h = tp.enter(rmsnorm(x, top.final_norm, cfg.norm_eps))
+    lf = (h @ Q.cast(top.head(), h.dtype)).float()
+    if lf.shape[1] != labels.shape[1]:
+        lf = lf[:, lf.shape[1] - labels.shape[1]:]
+    m = tp.comm.all_reduce(lf.detach().amax(-1), tp.axes, op="max")
+    lse = torch.log(tp.reduce(torch.exp(lf - m[..., None]).sum(-1))) + m
+    cols = torch.arange(tp.start, tp.start + tp.size, device=lf.device)
+    gold = tp.reduce(torch.where(cols == labels[..., None], lf,
+                                 torch.zeros((), device=lf.device)).sum(-1))
+    return lse - gold
 
 
 def loss_fn(params: Transformer, cfg: ModelConfig, batch: dict, *,
@@ -316,24 +411,51 @@ def loss_fn(params: Transformer, cfg: ModelConfig, batch: dict, *,
     metrics {nll, moe_aux, tokens}), the metrics detached; ``aux_coef``
     weighs the MoE aux loss into the loss.  The reference takes the gold
     logit with an iota compare (a gather on a vocab-sharded dim would
-    all-gather the logits); on one device a gather is the same number."""
-    logits, aux = forward(params, cfg, batch, train=True,
-                          moe_groups=moe_groups)
+    all-gather the logits); on one device a gather is the same number.
+
+    On a mesh shard (``shard_params``) the batch holds the rank's rows: a
+    vocabulary cut over 'model' takes the vocabulary-parallel loss
+    (``_vocab_parallel_nll``: the logits are never gathered), the loss is
+    the rank's nll sum over the token count of the whole batch (summed over
+    the batch axes) plus its MoE aux (its groups' share of the mean,
+    ``moe.moe_block``), so that the losses' sum over the batch axes is the
+    one device's, and the metrics are the whole batch's."""
+    top = sh.gathered(params, children=False)
+    ids = batch.get("tokens")
+    if getattr(top, "tp", None) is not None and ids is not None and bool(
+            (ids >= cfg.vocab_size).any()):
+        # one device's lookup raises; a vocabulary-parallel one would read
+        # zeros
+        raise IndexError(f"a token outside the vocabulary of "
+                         f"{cfg.vocab_size}")
+    x, aux = run_layers(params.layers, embed_inputs(top, cfg, batch), cfg,
+                        train=True, moe_groups=moe_groups)
     labels = batch["labels"].long()
     mask = batch.get("loss_mask")
     if mask is None:
         mask = torch.ones(labels.shape, dtype=torch.float32,
                           device=labels.device)
-    if logits.shape[1] != labels.shape[1]:
-        logits = logits[:, logits.shape[1] - labels.shape[1]:]
-    lf = logits.float()
-    lse = torch.logsumexp(lf, dim=-1)
-    gold = lf.gather(-1, labels[..., None])[..., 0]
-    nll = (lse - gold) * mask
-    denom = mask.sum().clamp_min(1.0)
+    if getattr(top, "tp", None) is not None:
+        nll = _vocab_parallel_nll(top, cfg, x, labels) * mask
+    else:
+        logits = _logits(top, cfg, x)
+        if logits.shape[1] != labels.shape[1]:
+            logits = logits[:, logits.shape[1] - labels.shape[1]:]
+        lf = logits.float()
+        lse = torch.logsumexp(lf, dim=-1)
+        gold = lf.gather(-1, labels[..., None])[..., 0]
+        nll = (lse - gold) * mask
+    comm = getattr(params, "comm", None)
+    dp = () if comm is None else sh.batch_axes(comm.mesh)
+    tokens = mask.sum()
+    if comm is not None:
+        tokens = comm.all_reduce(tokens.detach(), dp)
+    denom = tokens.clamp_min(1.0)
     loss = nll.sum() / denom + aux_coef * aux
-    metrics = {"nll": (nll.sum() / denom).detach(), "moe_aux": aux.detach(),
-               "tokens": mask.sum()}
+    nll_s, aux_s = nll.sum().detach(), aux.detach()
+    if comm is not None and comm._live(dp):
+        nll_s, aux_s = comm.all_reduce(torch.stack([nll_s, aux_s]), dp)
+    metrics = {"nll": nll_s / denom, "moe_aux": aux_s, "tokens": tokens}
     return loss, metrics
 
 
@@ -705,22 +827,29 @@ def shard_params(model: Transformer, cfg: ModelConfig, mesh, comm=None,
     SSD heads are cut) with the rank's ``num_heads``, ``num_kv_heads``,
     ``d_ff``, RG-LRU ``rnn_width`` and SSD heads and groups (the vocabulary
     and the experts' count stay whole: the logits are gathered and the
-    routing runs whole).  ``SERVE_RULES`` puts the heads, KV heads, QKV
-    biases, d_ff, the recurrent width (``ssm_inner``), the experts and the
-    vocabulary over 'model' and replicates the rest; a tensor the spec does
-    not cut is shared with ``model``, so a (1, 1) mesh copies nothing.
-    Rules that cut any other dim (``DEFAULT_RULES`` and ``SP_RULES`` put
-    d_model over 'data': FSDP) raise ``NotImplementedError``.
+    routing runs whole).  ``SERVE_RULES`` (the engine's) puts the heads, KV
+    heads, QKV biases, d_ff, the recurrent width (``ssm_inner``), the
+    experts and the vocabulary over 'model' and replicates the rest; a
+    tensor the spec does not cut is shared with ``model``, so a (1, 1) mesh
+    copies nothing.  The training rules (``DEFAULT_RULES``, ``SP_RULES``)
+    also cut d_model (``embed``) over the batch axes (FSDP): such a leaf is
+    joined just before its layer runs (``sharding.gathered``, from
+    ``run_layers`` and ``forward``), and its gradient comes back summed over
+    the batch axes and cut again.
 
     Attention takes one of three placements, by the size m of the axes the
     heads go over:
 
     (a) m divides H and K: heads and KV heads are split, each rank's G
         unchanged;
-    (b) K divides m and m divides H: each rank holds its H/m query heads
-        and the one KV head they read (its wk/wv columns and biases, as
-        Megatron-LM places them), where the rules replicate the KV heads;
-        the cache is held by heads;
+    (b) K divides m and m divides H: each rank holds its H/m query heads,
+        which read one KV head.  Under ``SERVE_RULES`` the rank holds that
+        head only (its wk/wv columns and biases, as Megatron-LM places
+        them) and the cache is held by heads; under any other rules it
+        holds every KV head's wk/wv, as the spec replicates them, projects
+        them whole and keeps its head after the projection (``.kv_pick``),
+        so their gradient is whole on every rank and the optimizer state
+        matches ``training.train.opt_shardings``;
     (c) m divides neither: attention runs whole on every rank, and only the
         MLP and the vocabulary are split.
 
@@ -733,74 +862,89 @@ def shard_params(model: Transformer, cfg: ModelConfig, mesh, comm=None,
     (every ``ssm_inner`` column, w_out's rows); an SSD layer H/m heads, its
     in_proj and conv cut segment by segment (``ssm.rank_columns``), not
     contiguously as the spec would; an MoE E/m experts and their router
-    columns, its shared expert cut over d_ff as an MLP.  A dim the axes do
-    not divide stays whole (the module runs whole on every rank, as
-    attention's case (c)).  Each MoE of the shard refuses the full-sequence
-    dispatch (``moe.moe_block``: training on a mesh is not ported).
+    columns, its shared expert cut over d_ff as an MLP, and
+    ``.data_shards``, the batch axes' size, over which ``moe_block`` splits
+    its groups.  A dim the axes do not divide stays whole (the module runs
+    whole on every rank, as attention's case (c)).
 
     A quantized model (``quant.quantize_params`` of the whole model) is cut
     the same way: a ``QTensor``'s payload like its weight and its row
     scales like the weight minus its trailing dim
     (``quant.quantize_param_axes``), so each rank holds the slices of the
-    full quantized tree.
+    full quantized tree; rules that cut d_model refuse it (its weights are
+    served, not trained).
 
     Each module whose dim was cut gets a ``sharding.Split`` as ``.tp``
     (attention: wo's heads; the MLP and a shared expert: w_down's d_ff; an
     RG-LRU: its width; an SSD: its heads; an MoE: its experts), and the
-    model one when its vocabulary was cut; ``comm`` (a ``sharding.Comm`` of
-    the mesh, made when None) runs their collectives."""
+    model one when its vocabulary was cut; each module with a leaf cut over
+    the batch axes a ``sharding.FSDP`` as ``.fsdp``.  The shard carries
+    ``cuts`` ({leaf name: ``sharding.Cut``}: where each of its leaves lies
+    in the whole, which the training step and the checkpoints read),
+    ``comm`` (a ``sharding.Comm`` of the mesh, made when None, which runs
+    every collective) and ``rules``."""
     sh.check_mesh(mesh)
     comm = comm or sh.Comm(mesh)
     axes = Q.quantize_param_axes(param_axes(model), model)
     named = _leaves(model)
     specs = {n: sh.spec_for(p.shape, axes[n], mesh, rules.param_rules)
              for n, p in named.items()}
-    for n, spec in specs.items():
-        for d, part in enumerate(spec):
-            if part is not None and axes[n][d] not in _TP_AXES:
-                raise NotImplementedError(
-                    f"{n}: its {axes[n][d]!r} dim over {part!r} (an FSDP "
-                    "placement) is not ported; serve with SERVE_RULES, whose "
-                    "weights are replicated but for the tensor-parallel dims")
+    sizes = sh.axis_sizes(mesh)
+    batch = set(sh.BATCH_AXES)
     # an SSD layer's leaves are cut by its heads below, segment by segment
     ssd_pre = tuple(f"{n}." for n, m in model.named_modules()
                     if isinstance(m, ssm.SSD))
+    cuts = {}
+    for n, spec in specs.items():
+        tp, dp = ((), 0), ((), 0)
+        for d, p in enumerate(spec):
+            a = sh.axes_of(p)
+            if sh._axis_size(sizes, a) == 1:
+                continue
+            if set(a) <= batch:
+                dp = (a, d)
+            elif axes[n][d] not in _TP_AXES:
+                raise NotImplementedError(
+                    f"{n}: its {axes[n][d]!r} dim over {p!r}: only the "
+                    "tensor-parallel dims go over 'model'")
+            elif not n.startswith(ssd_pre):
+                tp = (a, d)
+        cuts[n] = sh.Cut(tp_axes=tp[0], tp_dim=tp[1], dp_axes=dp[0],
+                         dp_dim=dp[1])
+    if any(c.dp_axes for c in cuts.values()):
+        Q.refuse_quantized(model, "a shard whose rules cut d_model over the "
+                           "batch axes (FSDP)")
 
     def part(name: str, dim: int):
         spec = specs.get(name, specs.get(name + ".q"))
-        return spec[dim] if dim < len(spec) else None
+        p = spec[dim] if dim < len(spec) else None
+        return None if p is None or set(sh.axes_of(p)) <= batch else p
 
     def split(p, size: int) -> sh.Split:
         idx, _ = sh.shard_index(p, mesh)
         return sh.Split(comm, sh.axes_of(p), idx * size, size)
 
+    def cols_cut(name: str, p, dim: int, per_rank) -> None:
+        # a cut by columns (SSD segments, case (b)'s KV head): any FSDP cut
+        # of the spec stays
+        if name in cuts:
+            r, _ = sh.shard_index(p, mesh)
+            per_rank = tuple(tuple(c) for c in per_rank)
+            cuts[name] = dataclasses.replace(
+                cuts[name], tp_axes=sh.axes_of(p), tp_dim=dim, cols=per_rank,
+                shared=sh.shared_columns(per_rank, r))
+
     new = shallow_copy(model)
     mods = dict(new.named_modules())
-
-    def put(name: str, t: torch.Tensor) -> None:
-        # a parameter, or a QTensor's payload or scales (a buffer)
-        mname, _, leaf = name.rpartition(".")
-        mod = mods[mname]
-        if leaf in mod._parameters:
-            mod._parameters[leaf] = nn.Parameter(t, requires_grad=False)
-        else:
-            mod._buffers[leaf] = t
-
-    with torch.no_grad():
-        for name, p in named.items():
-            if name.startswith(ssd_pre):
-                continue
-            t = sh.shard(p, specs[name], mesh)
-            if t is not p:
-                put(name, t)
     local = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                  d_ff=cfg.d_ff)
+    serve = rules == sh.SERVE_RULES
     for i, (layer, (mixer, f)) in enumerate(zip(new.layers,
                                                 cfg.layer_plan())):
         pre = f"layers.{i}."
         if mixer in ATTN:
-            local.update(_shard_attention(layer.mixer, cfg, pre, named, part,
-                                          split, put, mesh))
+            local.update(_shard_attention(layer.mixer, cfg, pre, part, split,
+                                          cols_cut, mesh, serve))
         elif mixer == "rglru":
             wp = part(pre + "mixer.w_in", 1)
             _, m = sh.shard_index(wp, mesh)
@@ -809,8 +953,8 @@ def shard_params(model: Transformer, cfg: ModelConfig, mesh, comm=None,
                 layer.mixer.tp = split(wp, W // m)
                 local["rnn_width"] = W // m
         else:
-            local.update(_shard_ssd(layer.mixer, cfg, pre, named, part,
-                                    split, put, mesh))
+            local.update(_shard_ssd(layer.mixer, cfg, pre, part, split,
+                                    cols_cut, mesh))
         if f == "mlp":
             fp = part(pre + "ffn.w_up", 1)
             _, n = sh.shard_index(fp, mesh)
@@ -818,7 +962,8 @@ def shard_params(model: Transformer, cfg: ModelConfig, mesh, comm=None,
                 local["d_ff"] = cfg.d_ff // n
                 layer.ffn.tp = split(fp, cfg.d_ff // n)
         elif f == "moe":
-            layer.ffn.mesh = mesh
+            layer.ffn.data_shards = sh.shard_index(sh.batch_axes(mesh),
+                                                   mesh)[1]
             ep = part(pre + "ffn.w_up", 0)
             _, n = sh.shard_index(ep, mesh)
             if n > 1:
@@ -837,40 +982,57 @@ def shard_params(model: Transformer, cfg: ModelConfig, mesh, comm=None,
     _, n = sh.shard_index(vp, mesh)
     if n > 1:
         new.tp = split(vp, cfg.vocab_size // n)
+    with torch.no_grad():
+        for name, p in named.items():
+            c = cuts[name]
+            if not (c.tp_axes or c.dp_axes):
+                continue
+            mname, _, leaf = name.rpartition(".")
+            mod = mods[mname]
+            t = c.cut(p, mesh)
+            if leaf in mod._parameters:
+                mod._parameters[leaf] = nn.Parameter(t, requires_grad=False)
+            else:                       # a QTensor's payload or scales
+                mod._buffers[leaf] = t
+            if c.dp_axes:
+                if getattr(mod, "fsdp", None) is None:
+                    mod.fsdp = sh.FSDP(comm, {})
+                mod.fsdp.leaves[leaf] = (c.dp_dim, c.dp_axes)
     if local.get("ssm_shards", 1) > 1:
         new.cfg = RankConfig.of(cfg, **local)
     else:
         local.pop("ssm_shards", None)
         new.cfg = dataclasses.replace(cfg, **local)
+    new.cuts, new.comm, new.rules = cuts, comm, rules
     return new
 
 
-def _shard_attention(att, cfg: ModelConfig, pre: str, named: dict, part,
-                     split, put, mesh) -> dict:
+def _shard_attention(att, cfg: ModelConfig, pre: str, part, split, cols_cut,
+                     mesh, serve: bool) -> dict:
     """Attention's placement (a), (b) or (c) (``shard_params``): attaches
-    its ``Split`` and returns the rank's head counts."""
+    its ``Split`` (and in case (b) narrows its KV leaves or sets
+    ``.kv_pick``) and returns the rank's head counts."""
     H, K = cfg.num_heads, cfg.num_kv_heads
     hp, kp = part(pre + "mixer.wq", 1), part(pre + "mixer.wk", 1)
-    _, m = sh.shard_index(hp, mesh)
+    r, m = sh.shard_index(hp, mesh)
     if m == 1:
         return {}
     H_l = H // m
     if kp == hp:                                           # (a)
         K_l = K // m
     elif kp is None and m % K == 0:                        # (b)
-        r, _ = sh.shard_index(hp, mesh)
-        kv = r * H_l // (H // K)
         K_l = 1
-        # a quantized wk/wv: its payload and row scales narrowed alike
-        # (each scale row is one (d, KV head) row, whole)
-        with torch.no_grad():
+        kv = [s * H_l // (H // K) for s in range(m)]
+        if serve:
+            # the one KV head, a quantized wk/wv's payload and row scales
+            # narrowed alike (each scale row is one (d, KV head) row, whole)
             for leaf, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0),
                               ("wk.q", 1), ("wk.scale", 1), ("wv.q", 1),
                               ("wv.scale", 1)):
-                w = named.get(pre + "mixer." + leaf)
-                if w is not None:
-                    put(pre + "mixer." + leaf, w.narrow(dim, kv, 1).clone(
-                        memory_format=torch.contiguous_format))
+                cols_cut(pre + "mixer." + leaf, hp, dim,
+                         [[h] for h in kv])
+        else:
+            att.kv_pick = kv[r]
     else:
         raise NotImplementedError(
             f"{cfg.name}: {H} heads on {K} KV heads over a {m}-way model "
@@ -891,8 +1053,8 @@ _SSD_CUTS = (("A_log", 0, "heads"), ("dt_bias", 0, "heads"),
              ("conv_w", 1, "conv"), ("conv_b", 0, "conv"))
 
 
-def _shard_ssd(mix, cfg: ModelConfig, pre: str, named: dict, part, split,
-               put, mesh) -> dict:
+def _shard_ssd(mix, cfg: ModelConfig, pre: str, part, split, cols_cut,
+               mesh) -> dict:
     """An SSD layer's heads over the axes its ``A_log`` goes over
     (``"heads"``): every leaf but the norm cut by ``ssm.rank_columns``, or
     left whole when they do not divide H.  Returns the rank's SSD sizes."""
@@ -901,17 +1063,18 @@ def _shard_ssd(mix, cfg: ModelConfig, pre: str, named: dict, part, split,
     r, m = sh.shard_index(hp, mesh)
     if m == 1:
         return {}
-    rc = ssm.rank_columns(cfg, r, m)
     P = cfg.ssm_head_dim
-    inner = range(rc.h0 * P, (rc.h0 + rc.heads) * P)
-    cols = {"heads": range(rc.h0, rc.h0 + rc.heads), "inner": inner,
-            "proj": rc.in_proj, "conv": rc.conv}
-    with torch.no_grad():
-        for leaf, dim, how in _SSD_CUTS:
-            name = pre + "mixer." + leaf
-            put(name, sh.take_cols(named[name], dim, cols[how]))
+    per = []
+    for s in range(m):
+        rc = ssm.rank_columns(cfg, s, m)
+        per.append({"heads": range(rc.h0, rc.h0 + rc.heads),
+                    "inner": range(rc.h0 * P, (rc.h0 + rc.heads) * P),
+                    "proj": rc.in_proj, "conv": rc.conv})
+    for leaf, dim, how in _SSD_CUTS:
+        cols_cut(pre + "mixer." + leaf, hp, dim, [c[how] for c in per])
     mix.tp = split(hp, H // m)
-    return {"ssm_shards": m, "ssm_ngroups": rc.groups}
+    return {"ssm_shards": m,
+            "ssm_ngroups": ssm.rank_columns(cfg, r, m).groups}
 
 
 def state_columns(cfg: ModelConfig, mixer: str, m: int) -> dict:

@@ -78,9 +78,10 @@ On the (1, 1) mesh no collective is issued and the engine is the
 single-device one, CUDA graphs included; on a mesh of more than one rank
 it runs the eager route (``counters["mesh_eager"]`` counts those
 dispatches).  Still refused on a mesh, with ``NotImplementedError``: head
-counts that need the sequence-sharded cache and the FSDP rules
-(``transformer.shard_params``), MoE training (``moe.moe_block``), and
-graph capture over more than one rank.
+counts that need the sequence-sharded cache (``transformer.shard_params``)
+and graph capture over more than one rank.  The engine places its weights
+by ``SERVE_RULES``; training on a mesh takes ``shard_params`` under the
+training rules (``training/train.py``).
 ``weight_quant`` (``"int8"`` / ``"fp8"``, monolithic or paged) serves from
 ``quant.quantize_params``'s copy of the model: the attention, MLP and
 expert matmul weights and an untied head stored per-row quantized and
@@ -264,8 +265,8 @@ class InferenceEngine:
         if self.mesh is not None:
             # what the mesh path does not serve yet raises:
             # ``transformer.shard_params`` the head counts that need the
-            # sequence-sharded cache and the FSDP rules, ``_no_capture`` a
-            # captured dispatch over more than one rank
+            # sequence-sharded cache, ``_no_capture`` a captured dispatch
+            # over more than one rank
             sh.check_mesh(self.mesh)
         if not self.cfg.causal:
             raise NotImplementedError(

@@ -1,5 +1,5 @@
 """Atomic checkpoints of a model and its optimizer state (PyTorch port of
-``repro/training/checkpoint.py``, single process).
+``repro/training/checkpoint.py``).
 
 The reference's on-disk format: ``<dir>/step_<n>/manifest.json`` (step,
 extra, a description of the tree, every leaf's shape and dtype) and
@@ -15,6 +15,11 @@ A save writes ``<dir>/tmp_<n>``, publishes it with ``os.replace`` and only
 then rewrites ``LATEST``, so a crash mid-save never damages the state a
 restart recovers; the newest ``keep`` checkpoints are kept.  ``restore``
 fills the tensors of a live tree in place.
+
+On a mesh the files hold the whole tree all the same: ``save`` joins a
+shard's leaves over the mesh and rank 0 writes them, and ``restore`` cuts
+each rank's slice out of them, so the checkpoint does not depend on the
+mesh that wrote it (the reference's restore-time elasticity).
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from repro_torch.models import quant as Q
@@ -75,10 +81,50 @@ def step_path(ckpt_dir: str, step: int) -> str:
     return os.path.join(ckpt_dir, f"step_{step}")
 
 
+def _shard(tree: Any):
+    """The mesh shard among a tree's top-level nodes (a model that
+    ``transformer.shard_params`` cut: it carries ``cuts`` and ``comm``), or
+    None."""
+    for node in (_children(tree) or {}).values():
+        if isinstance(node, nn.Module) and getattr(node, "cuts", None) \
+                is not None:
+            return node
+    return None
+
+
+def _whole_leaves(tree: Any, shard) -> dict[str, Any]:
+    """``_flatten(tree)`` with every leaf of a parameter's cut (the
+    parameter, its master and moments: the leaf path ends in its name)
+    joined whole over the mesh (``sharding.Cut.join``; every rank calls
+    it)."""
+    out = {}
+    for path, leaf in _flatten(tree).items():
+        cut = shard.cuts.get(path.rsplit(SEP, 1)[-1])
+        if cut is not None and isinstance(leaf, torch.Tensor):
+            leaf = cut.join(leaf.detach(), shard.comm)
+        out[path] = leaf
+    return out
+
+
 def save(ckpt_dir: str, step: int, tree: Any, extra: dict | None = None,
          keep: int = 3) -> str:
     """Write one checkpoint atomically; prune old ones.  Returns the final
-    path."""
+    path.  A tree holding a mesh shard (``{"params": shard, "opt": its
+    OptState}``) is joined whole first, by every rank, and written by the
+    mesh's rank 0 in the one-device layout; every rank returns once it is
+    published (``Comm.barrier``)."""
+    shard = _shard(tree)
+    if shard is not None:
+        leaves = _whole_leaves(tree, shard)
+        if dist.get_rank() == 0:
+            _write(ckpt_dir, step, tree, leaves, extra, keep)
+        shard.comm.barrier()
+        return step_path(ckpt_dir, step)
+    return _write(ckpt_dir, step, tree, _flatten(tree), extra, keep)
+
+
+def _write(ckpt_dir: str, step: int, tree: Any, leaves: dict,
+           extra: dict | None, keep: int) -> str:
     tmp = os.path.join(ckpt_dir, f"tmp_{step}")
     final = step_path(ckpt_dir, step)
     os.makedirs(tmp, exist_ok=True)
@@ -87,7 +133,7 @@ def save(ckpt_dir: str, step: int, tree: Any, extra: dict | None = None,
                                 (_children(tree) or {}).items()}),
                 "leaves": {}}
     payload = {}
-    for path, leaf in _flatten(tree).items():
+    for path, leaf in leaves.items():
         arr, dtype = _to_numpy(leaf)
         manifest["leaves"][path] = {"shape": list(arr.shape), "dtype": dtype}
         payload[f"{path}@full"] = arr
@@ -150,10 +196,18 @@ def restore(ckpt_dir: str, step: int, like: Any) -> tuple[Any, dict]:
     """Fill the live tree ``like`` (the structure ``save`` was given, e.g.
     ``{"params": model, "opt": OptState}``) from checkpoint ``step``, in
     place: every tensor is copied into (its device and dtype kept, which
-    must match the manifest's), integer leaves are set.  Returns (like,
-    extra)."""
+    must match the manifest's), integer leaves are set.  A tree holding a
+    mesh shard takes each rank's slice of the whole leaves
+    (``sharding.Cut.cut``), so a checkpoint of one device or of any mesh
+    restores onto any other.  Returns (like, extra)."""
     leaves, extra = load_leaves(ckpt_dir, step)
     live = _flatten(like)
+    shard = _shard(like)
+    if shard is not None:
+        for path, val in leaves.items():
+            cut = shard.cuts.get(path.rsplit(SEP, 1)[-1])
+            if cut is not None and isinstance(val, torch.Tensor):
+                leaves[path] = cut.cut(val, shard.comm.mesh)
     if set(live) != set(leaves):
         raise ValueError(f"checkpoint step {step} holds other leaves than the "
                          f"tree: missing {sorted(set(live) - set(leaves))[:5]}"

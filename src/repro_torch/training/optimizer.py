@@ -15,6 +15,12 @@ with ``step`` counted from 1 and ``lr`` the schedule at the incremented
 step.  The state holds one f32 tensor per parameter, keyed by the model's
 parameter names, and ``apply`` updates model and state IN PLACE (the
 reference's jitted step donates both buffers instead).
+
+On a mesh the state is a rank's shard's (``init`` of the shard: ZeRO, the
+moments and master cut as the parameters are), and the training step
+prepares the shard's gradients first: ``sync_grads`` sums what the batch
+axes left partial, and ``global_norm`` of ``shard_pieces`` counts each
+element of the whole gradient once.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ import dataclasses
 import numpy as np
 import torch
 from torch import nn
+
+from repro_torch.distributed import sharding as sh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,23 +85,109 @@ def schedule(step: int, cfg: AdamWConfig) -> float:
                                       + f(1 - cfg.min_lr_ratio) * cos))
 
 
-def global_norm(tensors) -> torch.Tensor:
+def global_norm(tensors, once=None, comm=None) -> torch.Tensor:
     """sqrt of the sum of squares of every tensor of the sequence, each
-    up-cast to f32."""
+    up-cast to f32.  On a mesh the tensors are a rank's pieces of the
+    whole gradient: ``once`` (a 0/1 weight per tensor, ``shard_pieces``)
+    keeps out the copies another rank counts, and the sum is taken over
+    every rank of ``comm``'s mesh, so each element counts once and every
+    rank clips by the same scale."""
     norms = torch._foreach_norm([t.float() for t in tensors])
-    return torch.stack(norms).square().sum().sqrt()
+    sq = torch.stack(norms).square()
+    if once is not None and not all(once):
+        sq = sq * torch.tensor(once, dtype=sq.dtype, device=sq.device)
+    total = sq.sum()
+    if comm is not None:
+        total = comm.all_reduce(total, tuple(comm.sizes))
+    return total.sqrt()
 
 
-def apply(grads: dict, params: nn.Module, state: OptState, cfg: AdamWConfig
+def _first(cut, comm) -> bool:
+    """Whether this rank counts a leaf of ``cut`` in the norm: its
+    coordinate is 0 on every axis (of more than one rank) that holds copies
+    of it, the axes it is not cut over."""
+    mine = set(cut.tp_axes) | set(cut.dp_axes)
+    coord = sh.coordinates(comm.mesh)
+    return all(coord[a] == 0 for a, n in comm.sizes.items()
+               if n > 1 and a not in mine)
+
+
+def shard_pieces(grads: dict, cuts: dict, comm) -> tuple[list, list]:
+    """(tensors, once) for ``global_norm`` of a shard's gradients
+    (``transformer.shard_params``'s ``cuts``): each leaf whole, weighted 1
+    where this rank is its first holder, else 0; a leaf with columns other
+    ranks hold too (``sharding.Cut.shared``) split in two, those columns
+    counted by their first holder only."""
+    out, once = [], []
+    for n, g in grads.items():
+        c = cuts[n]
+        first = float(_first(c, comm))
+        if c.shared is None:
+            out.append(g)
+            once.append(first)
+            continue
+        local, _, _, counted = c.shared
+        rest = [j for j in range(g.shape[c.tp_dim]) if j not in set(local)]
+        out += [sh.take_cols(g, c.tp_dim, rest),
+                sh.take_cols(g, c.tp_dim, counted)]
+        once += [first, first]
+    return out, once
+
+
+def sync_grads(grads: dict, cuts: dict, comm) -> dict:
+    """Make a shard's gradients (keyed by leaf name, as ``cuts``) the whole
+    batch's, in place: a leaf the batch axes do not cut (FSDP gives the
+    others theirs summed already, ``sharding.fsdp_gather``) is summed over
+    those axes, in one all-reduce per set of axes; columns that other
+    ranks of 'model' hold too (``Cut.shared``) are summed over their
+    holders.  Nothing is summed over 'model' otherwise: the collectives'
+    convention (``sharding``) makes a replicated leaf's gradient whole on
+    every rank."""
+    batch = [a for a in sh.batch_axes(comm.mesh) if comm.sizes[a] > 1]
+    buckets: dict[tuple, list] = {}
+    for n, c in cuts.items():
+        if n in grads:
+            axes = tuple(a for a in batch if a not in c.dp_axes)
+            if axes:
+                buckets.setdefault(axes, []).append(n)
+    with torch.no_grad():
+        for axes, names in buckets.items():
+            flat = torch.cat([grads[n].float().reshape(-1) for n in names])
+            flat = comm.all_reduce(flat, axes)
+            for n, part in zip(names, flat.split(
+                    [grads[n].numel() for n in names])):
+                grads[n].copy_(part.view(grads[n].shape))
+        for n, c in cuts.items():
+            if c.shared is None or n not in grads:
+                continue
+            local, where, size, _ = c.shared
+            g, d = grads[n], c.tp_dim
+            li = torch.as_tensor(local, device=g.device)
+            wi = torch.as_tensor(where, device=g.device)
+            shape = list(g.shape)
+            shape[d] = size
+            buf = g.new_zeros(shape, dtype=torch.float32)
+            buf.index_add_(d, wi, g.index_select(d, li).float())
+            buf = comm.all_reduce(buf, c.tp_axes)
+            g.index_copy_(d, li, buf.index_select(d, wi).to(g.dtype))
+    return grads
+
+
+def apply(grads: dict, params: nn.Module, state: OptState, cfg: AdamWConfig,
+          *, gnorm: torch.Tensor | None = None
           ) -> tuple[nn.Module, OptState, dict]:
     """One AdamW update from ``grads`` (keyed like ``state.master``, any
     float dtype), in place: ``state`` advances one step and every parameter
-    of ``params`` receives its updated master.  Returns (params, state,
-    {grad_norm, lr}); no host sync (grad_norm stays on the device)."""
+    of ``params`` receives its updated master.  ``gnorm``: the global
+    gradient norm the clip reads (a shard's, from ``global_norm`` of
+    ``shard_pieces``), ``global_norm(grads)`` when None.  Returns (params,
+    state, {grad_norm, lr}); no host sync (grad_norm stays on the
+    device)."""
     names = list(state.master)
     with torch.no_grad():
         g = [grads[n].float() for n in names]
-        gnorm = global_norm(g)
+        if gnorm is None:
+            gnorm = global_norm(g)
         scale = (cfg.grad_clip / gnorm.clamp_min(1e-9)).clamp_max(1.0)
         state.step += 1
         lr = schedule(state.step, cfg)

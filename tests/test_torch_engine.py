@@ -183,14 +183,16 @@ class TestPortContracts:
             np.testing.assert_allclose(fin[i]["u"], tres["u"][i], atol=1e-4)
 
     def test_unported_paths_raise(self, engines):
-        """What the port does not serve yet raises: MoE training on a mesh
+        """A mesh that is not a ``DeviceMesh`` raises ``TypeError``
         (engines of every decoder on a mesh, paged and quantized too, are
         ported: test_torch_mesh_engine.py, test_torch_mesh_paged.py,
         test_torch_mesh_mixers.py; warm sessions, paged pools, fault
         injection and the deadline clock: tests/test_torch_continuation.py,
-        test_torch_paged.py, test_torch_faults.py), and a mesh that is not
-        a ``DeviceMesh`` raises ``TypeError``.  An empty fault plan and a
-        clock no request has a deadline on change nothing."""
+        test_torch_paged.py, test_torch_faults.py; MoE training on a mesh,
+        once refused here, gives the one device's loss on the engine's
+        (1, 1) shard: test_torch_mesh_training.py trains on meshes).  An
+        empty fault plan and a clock no request has a deadline on change
+        nothing."""
         _, te, _, tres = engines
         fin = te.serve([Request(rid=0, prompt=PROMPTS[0].tolist(),
                                 max_new=MAX_NEW)],
@@ -209,12 +211,14 @@ class TestPortContracts:
         assert rec.generate(PROMPTS, 2)["tokens"].shape == (len(PROMPTS), 2)
         mc = dataclasses.replace(TC.get_smoke("deepseek-moe-16b"),
                                  vocab_size=512)
-        moe = TEngine("x", mc, TT.Transformer(mc), device="cpu", paged=True,
-                      mesh=mesh)
+        w = TT.init_params(mc, torch.Generator().manual_seed(0),
+                           device="cpu")
+        moe = TEngine("x", mc, w, device="cpu", paged=True, mesh=mesh)
         tokens = torch.as_tensor(PROMPTS)
-        with pytest.raises(NotImplementedError, match="mesh"):
-            TT.loss_fn(moe.params, moe._mcfg, {"tokens": tokens,
-                                               "labels": tokens})
+        batch = {"tokens": tokens, "labels": tokens}
+        loss, _ = TT.loss_fn(moe.params, moe._mcfg, batch)
+        assert torch.isfinite(loss)
+        assert torch.equal(loss, TT.loss_fn(w, mc, batch)[0])
         with pytest.raises(TypeError, match="DeviceMesh"):
             TEngine("x", te.cfg, te.params, device="cpu", mesh=object())
 

@@ -145,22 +145,26 @@ def test_gateway_on_a_model_parallel_mesh():
     ids=["paged", "cache_quant", "weight_quant"])
 def test_unported_mesh_paths_raise(mesh11, kw):
     """Paged pools and quantized weights and pools are served on a mesh
-    (the engine builds and generates), an MoE model's too; what stays
-    unported beside them raises, naming it: MoE training on a mesh (the
-    full-sequence dispatch of the engine's shard)."""
+    (the engine builds and generates), an MoE model's too; the
+    full-sequence dispatch of the engine's MoE shard, once refused (MoE
+    training on a mesh), gives the one device's loss (``loss_fn`` on the
+    shard; quantized weights read as the engine serves them)."""
     tc = dataclasses.replace(TC.get_smoke("llama3-8b"), vocab_size=512)
     eng = TEngine("x", tc, TT.Transformer(tc), device="cpu", mesh=mesh11,
                   **kw)
     assert eng.generate(PROMPTS, 2)["tokens"].shape == (len(PROMPTS), 2)
     mc = dataclasses.replace(TC.get_smoke("deepseek-moe-16b"),
                              vocab_size=512)
-    moe = TEngine("x", mc, TT.init_params(mc, torch.Generator().manual_seed(
-        0), device="cpu"), device="cpu", mesh=mesh11, **kw)
+    w = TT.init_params(mc, torch.Generator().manual_seed(0), device="cpu")
+    moe = TEngine("x", mc, w, device="cpu", mesh=mesh11, **kw)
     assert moe.generate(PROMPTS, 2)["tokens"].shape == (len(PROMPTS), 2)
     tokens = torch.as_tensor(PROMPTS)
-    with pytest.raises(NotImplementedError, match="MoE training on a mesh"):
-        TT.loss_fn(moe.params, moe._mcfg, {"tokens": tokens,
-                                           "labels": tokens})
+    batch = {"tokens": tokens, "labels": tokens}
+    base = TEngine("x", mc, w, device="cpu", **kw)
+    loss, met = TT.loss_fn(moe.params, moe._mcfg, batch)
+    one, one_met = TT.loss_fn(base.params, base._mcfg, batch)
+    assert torch.isfinite(loss) and torch.equal(loss, one)
+    assert all(torch.equal(met[k], one_met[k]) for k in met)
 
 
 @pytest.mark.parametrize("arch,what", [

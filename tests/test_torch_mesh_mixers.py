@@ -43,6 +43,7 @@ from repro_torch.models import transformer as TT
 from repro_torch.serving import graphs
 from repro_torch.serving.engine import InferenceEngine as TEngine
 from repro_torch.serving.scheduler import Request
+from repro_torch.training import train as TTR
 
 from test_torch_engine import PROMPTS, assert_greedy_match_modulo_ties
 from test_torch_mesh_paged import _bitwise, _run
@@ -175,18 +176,23 @@ def test_degenerate_mesh_matches_jax_tie_aware(mesh11, jax_pairs, arch,
 
 
 def test_unported_layouts_on_a_mixer_raise(mesh11):
-    """A mesh shard of an MoE refuses the full-sequence dispatch (training
-    and ``forward`` on a mesh are not ported), even on the (1, 1) mesh; the
-    single-device model it was cut from does not."""
+    """A mesh shard of an MoE, which once refused the full-sequence
+    dispatch (training and ``forward`` on a mesh), runs it: on the (1, 1)
+    mesh its loss, metrics and gradients are the single-device model's,
+    bit for bit (tests/test_torch_mesh_training.py trains on meshes)."""
     cfg, m = mixer_model("deepseek-moe-16b", torch.float32, 0)
     eng = TEngine("x", cfg, m, device="cpu", mesh=mesh11)
     assert eng.generate(PROMPTS, 2)["tokens"].shape == (len(PROMPTS), 2)
     batch = {"tokens": torch.as_tensor(PROMPTS), "labels":
              torch.as_tensor(PROMPTS)}
-    with pytest.raises(NotImplementedError, match="MoE training on a mesh"):
-        TT.loss_fn(eng.params, eng._mcfg, batch)
-    loss, _ = TT.loss_fn(m, cfg, batch)
-    assert torch.isfinite(loss)
+    (loss, met), grads = TTR.value_and_grad(
+        lambda p, b: TT.loss_fn(p, eng._mcfg, b), eng.params, batch,
+        has_aux=True)
+    (one, one_met), one_grads = TTR.value_and_grad(
+        lambda p, b: TT.loss_fn(p, cfg, b), m, batch, has_aux=True)
+    assert torch.isfinite(loss) and torch.equal(loss, one)
+    assert all(torch.equal(met[k], one_met[k]) for k in met)
+    assert all(torch.equal(grads[n], one_grads[n]) for n in one_grads)
 
 
 def _ranks(job: str, *args, timeout: int = 300) -> str:

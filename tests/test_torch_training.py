@@ -362,8 +362,13 @@ def test_train_step_leaves_the_model_frozen():
                                                      model.parameters()))
     assert not any(q.requires_grad for q in model.parameters())
     TT.forward(model, tc, b)                        # the kernel route
-    with pytest.raises(NotImplementedError):
+    # a mesh is a DeviceMesh: anything else raises, the (1, 1) one builds
+    # (tests/test_torch_mesh_training.py trains on meshes)
+    with pytest.raises((TypeError, ValueError)):
         TR.build_train_step(tc, opt.AdamWConfig(), mesh=object())
+    from repro_torch.launch.mesh import serving_mesh
+    assert callable(TR.build_train_step(tc, opt.AdamWConfig(),
+                                        mesh=serving_mesh(device="cpu")))
 
 
 def test_pipeline_replays_the_reference_stream():

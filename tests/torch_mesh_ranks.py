@@ -663,11 +663,12 @@ def run_engines(rank: int, world: int, arg=None):
 def refusals(mesh):
     """On the (2, 2) mesh: heads that neither split with their KV heads nor
     share one per rank (H6/K3 over model=2) need the sequence-sharded
-    cache; the FSDP rules (DEFAULT_RULES cut d_model over 'data') are not
-    ported; a graph handed to an engine of more than one rank is not
-    captured.  Each raises NotImplementedError naming what is missing."""
+    cache; a graph handed to an engine of more than one rank is not
+    captured.  Each raises NotImplementedError naming what is missing.
+    The FSDP rules (DEFAULT_RULES cut d_model over 'data'), once refused
+    here, cut the training shard: its leaves are the spec slices of the
+    whole (``fsdp_slices``)."""
     from repro_torch import configs as C
-    from repro_torch.distributed import sharding as sh
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving import graphs
@@ -684,15 +685,14 @@ def refusals(mesh):
             (captured, "graph capture over more than one rank"),
             (lambda: InferenceEngine("x", odd, T.Transformer(odd),
                                      device="cpu", mesh=mesh),
-             "sequence-sharded"),
-            (lambda: T.shard_params(T.Transformer(llama), llama, mesh,
-                                    rules=sh.DEFAULT_RULES), "FSDP")):
+             "sequence-sharded")):
         try:
             build()
         except NotImplementedError as e:
             assert what in str(e), (what, str(e))
         else:
             raise AssertionError(f"no refusal: {what}")
+    fsdp_slices(mesh)
 
 
 def run_gateway(rank: int, world: int, arg=None, engine_kw=None,
@@ -947,12 +947,340 @@ def run_mixers_ckpt(rank: int, world: int, arg: str):
             print(f"{arch} ckpt ok", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Training on a mesh
+# ---------------------------------------------------------------------------
+
+#: (arch, mesh, microbatches, two-hop batches): dense case (b) (llama3-8b
+#: H4/K1 at model=2 and 4) and case (c) (smollm-135m H3/K1) on every 4-rank
+#: shape and a pod mesh; the recurrent and MoE families on (2, 2); two-hop
+#: batches (statements of 6 and 7 tokens) give the rows unequal loss-mask
+#: counts, so a microbatch of other rows than one device's has another
+#: token count and another loss
+TRAIN_PLAN = (("llama3-8b", (2, 2), 1, False),
+              ("smollm-135m", (2, 2), 1, False),
+              ("llama3-8b", (1, 4), 1, False),
+              ("smollm-135m", (1, 4), 1, False),
+              ("llama3-8b", (4, 1), 1, False),
+              ("smollm-135m", (4, 1), 1, False),
+              ("llama3-8b", (2, 2, 1), 1, False),
+              ("smollm-135m", (2, 2, 1), 1, False),
+              ("recurrentgemma-2b", (2, 2), 1, False),
+              ("mamba2-780m", (2, 2), 1, False),
+              ("deepseek-moe-16b", (2, 2), 1, False),
+              ("llama3-8b", (2, 2), 2, False),
+              ("deepseek-moe-16b", (2, 2), 2, False),
+              ("llama3-8b", (2, 2), 2, True),
+              ("deepseek-moe-16b", (4, 1), 2, True))
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 32, 2
+
+
+def train_mesh(shape: tuple):
+    """A (data, model) mesh of ``shape``, or (pod, data, model) for three
+    entries, over the whole world."""
+    from repro_torch.launch import mesh as M
+    names = ("pod", "data", "model")[-len(shape):]
+    return M._device_mesh(tuple(shape), names)
+
+
+def f32_attention(q, k, v, *, q_positions, kv_positions, causal, window,
+                  q_block, kv_block):
+    """``attention.chunked_attention``'s function in f32 throughout (it
+    rounds q, k, v and P to bf16, as the reference does): where a split
+    product's last bit differs from one device's, a bf16 rounding flips
+    now and then (~1e-3 of an element's gradient), so the mesh's algebra
+    is held at f32 rounding through this one."""
+    B, S, H, Dh = q.shape
+    K = k.shape[2]
+    qr = q.float().reshape(B, S, K, H // K, Dh)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qr, k.float()) * Dh ** -0.5
+    qp, kp = q_positions[:, None], kv_positions[None, :]
+    mask = (kp >= 0).expand(S, -1)
+    if causal:
+        mask = mask & (qp >= kp)
+    if window is not None:
+        mask = mask & (qp - kp < window)
+    p = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
+    return out.reshape(B, S, H, Dh).to(q.dtype)
+
+
+def train_case(mesh, arch: str, seed: int, microbatches: int = 1,
+               steps: int = TRAIN_STEPS, two_hop: bool = False):
+    """The f32 smoke of ``arch`` trained on ``mesh`` from the rank's shard
+    (``shard_params(..., DEFAULT_RULES)``) and its rows, against the one
+    device's steps on the whole batch, MoE groups = the data shards, twice.
+
+    With the training attention replaced by ``f32_attention`` (no bf16
+    rounding), the collectives' algebra at f32 rounding: the first step's gradients of every leaf (the rank's slice
+    of the whole, ``Cut.cut``) within 1e-5 of the leaf's largest
+    magnitude; each step's loss, nll, aux and grad norm within rtol 1e-5,
+    the same on every rank; the parameters and AdamW moments after the
+    steps within 5e-3.  Then with the port's own numerics, where a
+    last-bit difference of a split product flips a bf16 rounding of q, k,
+    v or P now and then (one bf16 ulp, 2^-8, of an element), one step:
+    its gradients within 1e-2 of the largest magnitude (~2e-3 seen), its
+    grad norm within rtol 2e-4 (~4e-5 seen), its loss as before, and the
+    parameters and moments after it within 5e-3 (later steps drift by
+    ~1e-5-5e-4 from one device's: Adam moves an element whose gradient is
+    near 0 by ~lr whatever its sign).  Returns the collective counts of
+    the first run's steps."""
+    from repro_torch.models import attention as A
+    chunked, A.chunked_attention = A.chunked_attention, f32_attention
+    try:
+        counts = _train_run(mesh, arch, seed, microbatches, steps, 1e-5,
+                            1e-5, two_hop)
+    finally:
+        A.chunked_attention = chunked
+    _train_run(mesh, arch, seed, microbatches, 1, 1e-2, 2e-4, two_hop)
+    return counts
+
+
+def _train_run(mesh, arch: str, seed: int, microbatches: int, steps: int,
+               grad_tol: float, norm_tol: float, two_hop: bool) -> dict:
+    import copy
+    from repro_torch.data.pipeline import (SyntheticLMPipeline,
+                                           device_put_batch)
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch.mesh import data_shards
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train as TR
+    cfg, whole = mixer_model(arch, torch.float32, seed)
+    groups = data_shards(mesh) if cfg.num_experts else 1
+    oc = opt.AdamWConfig(lr=1e-3, warmup_steps=1, total_steps=10)
+    pipe = SyntheticLMPipeline(TRAIN_B, TRAIN_S, two_hop=two_hop, seed=seed)
+    host = [pipe.get_batch(i) for i in range(steps)]
+    if two_hop:
+        rows = host[0]["loss_mask"].sum(1)
+        assert len(set(rows.tolist())) > 1, rows
+    ref = copy.deepcopy(whole)
+    rstate = opt.init(ref)
+    comm = sh.Comm(mesh)
+    shard = T.shard_params(copy.deepcopy(whole), cfg, mesh, comm,
+                           rules=sh.DEFAULT_RULES)
+    sstate = opt.init(shard)
+    what = (f"{arch} {tuple(mesh.shape)} mb={microbatches} two_hop={two_hop}"
+            f" tol={grad_tol}")
+
+    def loss(c):
+        return lambda m, b: T.loss_fn(m, c, b, moe_groups=groups)
+
+    (_, _), gw = TR.value_and_grad(loss(cfg), ref, device_put_batch(
+        host[0], "cpu"), has_aux=True)
+    (_, _), gs = TR.value_and_grad(loss(shard.cfg), shard, device_put_batch(
+        host[0], mesh, "cpu"), has_aux=True)
+    opt.sync_grads(gs, shard.cuts, comm)
+    for n, g in gs.items():
+        want = shard.cuts[n].cut(gw[n], mesh)
+        assert g.shape == want.shape, (what, n, g.shape, want.shape)
+        err = float((g - want).abs().max())
+        assert err <= grad_tol * float(gw[n].abs().max()) + 1e-30, (
+            what, n, err, float(gw[n].abs().max()))
+    comm.reset()
+    rstep = TR.build_train_step(cfg, oc, microbatches=microbatches,
+                                moe_groups=groups)
+    sstep = TR.build_train_step(cfg, oc, mesh, microbatches=microbatches,
+                                moe_groups=groups)
+    for i in range(steps):
+        _, _, mr = rstep(ref, rstate, device_put_batch(host[i], "cpu"))
+        _, _, ms = sstep(shard, sstate, device_put_batch(host[i], mesh,
+                                                         "cpu"))
+        for k in ("loss", "nll", "moe_aux", "grad_norm", "tokens"):
+            a, b = float(mr[k]), float(ms[k])
+            tol = norm_tol if k == "grad_norm" else 1e-5
+            assert abs(a - b) <= tol * abs(a) + 1e-9, (what, i, k, a, b)
+            assert _same_everywhere([b]) == [[b]] * dist.get_world_size(), k
+    counts = dict(comm.stats)
+    named = dict(ref.named_parameters())
+    for n, p in shard.named_parameters():
+        c = shard.cuts[n]
+        for got, want in ((p, named[n]), (sstate.m[n], rstate.m[n]),
+                          (sstate.v[n], rstate.v[n])):
+            err = float((got - c.cut(want, mesh)).abs().max())
+            assert err <= 5e-3, (what, n, err)
+    return counts
+
+
+def fsdp_slices(mesh):
+    """The training shard's leaves (``DEFAULT_RULES``: d_model over 'data',
+    FSDP) are the spec slices of the whole, bitwise, every leaf of the
+    dense smoke (case (b) keeps every KV head, as the spec replicates
+    them), and ``Cut.join`` gives the whole back."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import transformer as T
+    cfg, whole = model("llama3-8b", torch.float32, 3)
+    comm = sh.Comm(mesh)
+    shard = T.shard_params(whole, cfg, mesh, comm, rules=sh.DEFAULT_RULES)
+    axes = T.param_axes(whole)
+    local = dict(shard.named_parameters())
+    cut = 0
+    for n, p in whole.named_parameters():
+        spec = sh.spec_for(p.shape, axes[n], mesh,
+                           sh.DEFAULT_RULES.param_rules)
+        want = p[sh.local_slices(p.shape, spec, mesh)]
+        assert torch.equal(local[n], want), n
+        assert torch.equal(shard.cuts[n].join(local[n], comm), p), n
+        cut += local[n].numel() < p.numel()
+    assert cut > len(local) // 2, (cut, len(local))
+
+
+def run_train(rank: int, world: int, arg=None):
+    """Every ``TRAIN_PLAN`` case (``train_case``); ``arg`` picks the cases
+    by arch."""
+    for i, (arch, shape, mb, two_hop) in enumerate(TRAIN_PLAN):
+        if arg and arch not in arg.split(","):
+            continue
+        mesh = train_mesh(shape)
+        counts = train_case(mesh, arch, seed=i, microbatches=mb,
+                            two_hop=two_hop)
+        if rank == 0:
+            print(f"train {arch} {shape} mb={mb} two_hop={two_hop} ok: "
+                  f"{counts['all_reduce']} all-reduces, "
+                  f"{counts['all_gather']} all-gathers", flush=True)
+
+
+def run_train_jax(rank: int, world: int, arg: str):
+    """``arg``/weights.pt (the JAX package's smoke llama3-8b weights, f32,
+    converted; ``arg``/batches.npz its batches): 2 f32 AdamW steps on the
+    (2, 2) mesh; rank 0 writes the losses and the whole parameters after
+    the steps (``Cut.join``) to ``arg``/out.pt for the test to hold to the
+    JAX package's one-device steps."""
+    from repro_torch import configs as C
+    from repro_torch.data.pipeline import device_put_batch
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import transformer as T
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training import train as TR
+    cfg = dataclasses.replace(C.get_smoke("llama3-8b"), vocab_size=512,
+                              dtype=torch.float32)
+    whole = T.Transformer(cfg)
+    whole.load_state_dict(torch.load(os.path.join(arg, "weights.pt")))
+    mesh = train_mesh((2, 2))
+    comm = sh.Comm(mesh)
+    shard = T.shard_params(whole, cfg, mesh, comm, rules=sh.DEFAULT_RULES)
+    state = opt.init(shard)
+    step = TR.build_train_step(cfg, opt.AdamWConfig(lr=1e-3), mesh)
+    with np.load(os.path.join(arg, "batches.npz")) as z:
+        host = [{k[2:]: z[k] for k in z.files if k[0] == str(i)}
+                for i in range(2)]
+    losses = []
+    for b in host:
+        _, _, m = step(shard, state, device_put_batch(b, mesh, "cpu"))
+        losses.append(float(m["loss"]))
+    out = {n: shard.cuts[n].join(p, comm)
+           for n, p in shard.named_parameters()}
+    if rank == 0:
+        torch.save({"losses": losses, "params": out},
+                   os.path.join(arg, "out.pt"))
+        print(f"train_jax losses {losses}", flush=True)
+
+
+def run_train_cli(rank: int, world: int, arg: str):
+    """``launch.train.main([... "--mesh", "--device", "cpu"])`` on the two
+    ranks' (1, 2) mesh: 4 steps with a checkpoint every 2, then a run
+    resumed from that run's step 2 to 4, whose step_4 is bitwise the
+    straight run's; then the straight run's step_4 restored onto the
+    (2, 1) mesh (FSDP) and onto one device is the same whole tree, and
+    saved again from (2, 1) it writes the same files' leaves."""
+    import shutil
+    from repro_torch import configs as C
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import train as LT
+    from repro_torch.models import transformer as T
+    from repro_torch.training import checkpoint as ck
+    from repro_torch.training import optimizer as opt
+    # the smoke at vocabulary 512, which covers the fact world's tokens
+    # (the CLI reads configs.get_smoke)
+    smoke = C.get_smoke
+    C.get_smoke = lambda a: dataclasses.replace(smoke(a), vocab_size=512)
+    straight, resumed = os.path.join(arg, "a"), os.path.join(arg, "b")
+    base = ["--arch", "llama3-8b", "--smoke", "--batch", "4", "--seq", "32",
+            "--mesh", "--steps", "4", "--ckpt-every", "2", "--seed", "3",
+            "--device", "cpu"]
+    LT.main(base + ["--ckpt-dir", straight])
+    if rank == 0:
+        os.makedirs(resumed)
+        shutil.copytree(ck.step_path(straight, 2), ck.step_path(resumed, 2))
+        with open(os.path.join(resumed, "LATEST"), "w") as f:
+            f.write("2")
+    dist.barrier()
+    LT.main(base + ["--ckpt-dir", resumed, "--resume"])
+    a, _ = ck.load_leaves(straight, 4)
+    b, _ = ck.load_leaves(resumed, 4)
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert _bits_equal(a[k], b[k]), k
+    cfg = C.get_smoke("llama3-8b")
+    mesh = train_mesh((2, 1))
+    comm = sh.Comm(mesh)
+    shard = T.shard_params(T.Transformer(cfg), cfg, mesh, comm,
+                           rules=sh.DEFAULT_RULES)
+    tree = {"params": shard, "opt": opt.init(shard)}
+    ck.restore(straight, 4, tree)
+    assert tree["opt"].step == 4
+    whole = ck._whole_leaves(tree, shard)
+    for k in a:
+        assert _bits_equal(a[k], whole[k]), ("(2, 1)", k)
+    ck.save(os.path.join(arg, "c"), 4, tree, extra={"step": 4})
+    c, _ = ck.load_leaves(os.path.join(arg, "c"), 4)
+    for k in a:
+        assert _bits_equal(a[k], c[k]), ("(2, 1) saved", k)
+    if rank == 0:
+        one = T.Transformer(cfg)
+        tree1 = {"params": one, "opt": opt.init(one)}
+        ck.restore(straight, 4, tree1)
+        for k, v in ck._flatten(tree1).items():
+            assert _bits_equal(a[k], v), ("one device", k)
+        print("train cli ok", flush=True)
+
+
+def compress_inputs(rank: int):
+    """(g, err) of participant ``rank`` of the compression test, f32 numpy
+    from a seed: gradients of different scales per rank, a small residual
+    carried in."""
+    rng = np.random.default_rng(100 + rank)
+    g = rng.standard_normal((33, 17)).astype(np.float32) * (rank + 1)
+    err = rng.standard_normal((33, 17)).astype(np.float32) * 1e-2
+    return g, err
+
+
+def run_compress(rank: int, world: int, arg: str):
+    """``compression.compressed_psum`` over the two ranks' 'data' axis;
+    rank 0 writes every rank's reduced mean and new residual to
+    ``arg``/out.npz."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.training import compression as G
+    comm = sh.Comm(train_mesh((2, 1)))
+    g, err = compress_inputs(rank)
+    mean, new_err = G.compressed_psum(torch.from_numpy(g),
+                                      torch.from_numpy(err), comm, "data")
+    assert comm.stats["all_reduce"] == 3, comm.stats
+    outs = [None] * world
+    dist.all_gather_object(outs, (mean.numpy(), new_err.numpy()))
+    if rank == 0:
+        np.savez(os.path.join(arg, "out.npz"),
+                 **{f"mean{r}": m for r, (m, _) in enumerate(outs)},
+                 **{f"err{r}": e for r, (_, e) in enumerate(outs)})
+        print("compress ok", flush=True)
+
+
+def _bits_equal(x, y) -> bool:
+    if isinstance(x, int) or isinstance(y, int):
+        return x == y
+    return x.dtype == y.dtype and torch.equal(
+        x.view(torch.int16) if x.dtype == torch.bfloat16 else x,
+        y.view(torch.int16) if y.dtype == torch.bfloat16 else y)
+
+
 #: job -> (ranks, function); a function takes (rank, world, argument)
 JOBS = {"engines": (4, "run_engines"), "gateway": (2, "run_gateway"),
         "paged": (4, "run_paged"), "lockstep": (2, "run_lockstep"),
         "ckpt": (4, "run_ckpt"), "paged_gateway": (2, "run_paged_gateway"),
         "cli": (2, "run_cli"), "mixers": (4, "run_mixers"),
-        "mixers_ckpt": (2, "run_mixers_ckpt")}
+        "mixers_ckpt": (2, "run_mixers_ckpt"), "train": (4, "run_train"),
+        "train_jax": (4, "run_train_jax"), "train_cli": (2, "run_train_cli"),
+        "compress": (2, "run_compress")}
 
 
 def _rank(rank: int, job: str, world: int, store: str, arg):
