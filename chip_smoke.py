@@ -20,7 +20,9 @@ Phases (any failure exits nonzero; nothing is caught and turned into 0):
    vocabulary (row 2 also at the gateway's real fill: index 8-15 of the
    128 slots, the bucket's padding slots at -1), and the safety encoder's
    bidirectional attention — and at
-   the shapes of phases 4-5, with a fully masked padding row, duplicate top-k
+   the shapes of phases 4-5 and D4's ranks (rows 1 and 2 with ``lse``,
+   row 3's partials mode, each timed beside its existing mode), with a
+   fully masked padding row, duplicate top-k
    logits, tied maxima across a split boundary and likely chosen tokens
    (Eq. 2's term held at a relative tolerance), row 3 also at an odd
    vocabulary (50257), k = 1 and 16 and bf16 logits, every row of 32000
@@ -129,6 +131,23 @@ D3. the recurrent mixers and MoE expert parallelism on a mesh: beside
    mesh and restored on one device; per rank ms per ``generate``, weight
    and state bytes, the collectives' count, bytes and device share
    (``phase_d3``);
+D4. the sequence-sharded KV cache and the vocabulary-parallel probe on
+   gloo ranks of the one card (``D4_SMOLLM`` in D1's spawn, ``D4_JOBS``
+   after C1, ``phase_d4``), bf16 at published widths: the probe (30
+   layers) on (1, 2) at T = 256 (128 slots a rank, its vocabulary 24576 a
+   rank), ``recurrentgemma-2b`` (5 layers, D3's seed and scale) on (1, 4)
+   with its 2048-slot ring at 512 a rank, and ``command-r-plus-104b``
+   (C1's 2 layers, H96/K8: 32 query heads a rank, q gathered before
+   attention) on (1, 3) at 384 slots (route (s)) and 320 (route (w)), its
+   256000-token vocabulary whole; each a cold
+   ``generate`` (8 tokens, phase 4's prompts cut to 128 columns),
+   ``absorb`` and a warm continuation, a decode-only extension, held to
+   the one-device engine on the same weights: tokens tie-aware, ``u``
+   within the probe's budget, each rank's KV bytes the whole cache's over
+   m (route (s)) or whole (route (w)), rows 1-3 launched and no plain
+   version, the lse modes launched on route (s) only and row 3's partials
+   where the vocabulary is cut; per rank the collectives and their bytes
+   per decode step, ms per ``generate`` and per extension step;
 4f. ``serve()`` under a ``FaultPlan`` at the probe's full width on a paged
    probe: two famine rounds, a forced eviction of a warm handle (cold
    re-prefill from ``cold_prompt``), two slot failures (requeue) and a
@@ -796,6 +815,26 @@ T4_B, T4_S, T4_SEED = 8, 128, 40
 # elements of each leaf an f32 T4 job holds to one device, drawn from a
 # seed (the whole of a leaf of fewer); a rank holds the ones in its slice
 T4_SAMPLES = 8192
+# D4's: the sequence-sharded KV cache and the vocabulary-parallel probe,
+# (arch, layers or None, model parallelism, max_new, engine options, model
+# options with "d4": the engines' max_len each), each on (1, m) with
+# phase 4's prompts cut to their last D4_COLS columns (bucket 128) and a
+# D4_SPAN-token warm span: the probe (all 30 layers, H9/K3: heads whole,
+# the slots cut, T = 256 at 128 a rank; its vocabulary 24576 a rank) on
+# (1, 2) in D1's spawn; recurrentgemma-2b (R1's 5 layers as D3's f32 copy
+# scaled by 6, H10/K1: its 2048-slot ring at 512 a rank, vocabulary 64000
+# a rank) on (1, 4) and command-r-plus-104b (C1's 2 layers, H96/K8: 32
+# query heads a rank gathered before attention; 384 slots at 128 a rank,
+# route (s), and 320, route (w): 3 divides neither 320 nor the vocabulary
+# 256000, which stays whole) on (1, 3), spawned after C1
+D4_SMOLLM = ("smollm-135m", None, 2, 8, {}, {"d4": (256,)})
+D4_JOBS = (("recurrentgemma-2b", 5, 4, 8, {},
+            {"d4": (2048,), "seed": 50, "scale": 6.0}),
+           ("command-r-plus-104b", 2, 3, 8, {}, {"d4": (384, 320),
+                                                "seed": 110}))
+D4_COLS, D4_SPAN = 128, 12
+
+
 D1_COLLECTIVES = ("mesh.all_reduce", "mesh.all_gather")
 D1_SAMPLE_SEED = 5          # D1's sampled generate
 
@@ -1116,6 +1155,11 @@ def d1_rank(rank: int, world: int, store: str, out_dir: str, prompts,
                 gc.collect()
                 torch.cuda.empty_cache()
                 continue
+            if "d4" in opt:                        # a D4 job
+                out[str(i)] = d4_rank(i, (arch, layers, mp, max_new, kw,
+                                          opt), dev, out_dir, rank, world,
+                                      prompts)
+                continue
             cfg = configs.get_config(arch)
             if layers is not None:
                 cfg = dataclasses.replace(cfg, num_layers=layers)
@@ -1215,6 +1259,318 @@ def d1_rank(rank: int, world: int, store: str, out_dir: str, prompts,
         dist.barrier()
     finally:
         dist.destroy_process_group()
+
+
+def d4_inputs(prompts):
+    """D4's prompts (phase 4's cut to their last ``D4_COLS`` columns: a
+    128-column bucket, so a cold generate, an absorbed prompt's span and
+    an extension fit the probe's 256 slots) and its warm span."""
+    import numpy as np
+    span = np.random.default_rng(SEED + 4).integers(
+        1, int(prompts.max()) + 1, (len(prompts), D4_SPAN)).astype(np.int32)
+    return np.ascontiguousarray(prompts[:, -D4_COLS:]), span
+
+
+def d4_sequence(eng, prompts, span, mn: int, sync) -> tuple[dict, dict]:
+    """D4's sequence on one engine (a mesh rank's, or the one-device
+    reference): a cold ``generate`` of ``mn`` tokens keeping its session,
+    ``absorb`` then a warm continuation of ``span``, and a decode-only
+    extension of the cold session by ``mn`` tokens, then by 1.  Returns
+    (numbers, arrays): on a mesh the kernels' and the modes' launch and
+    plain counts over the first three (zeroed before), the session's KV
+    entries (bytes, slots, whether cut), ms per generate and per extension
+    step, and each decode step's collectives (the ``mn``-token extension's
+    less the 1-token one's, over ``mn`` - 1: a dispatch's own gathers at
+    its end cancel)."""
+    import torch
+    from repro_torch.kernels.decode_attention import ops as dops
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.swarm_uncertainty import ops as uops
+    from repro_torch.models.attention import KVCache, SeqKVCache
+    counts = dict(zip(KERNELS, (fops.counts, dops.counts, uops.counts,
+                                fops.grid_counts, dops.paged_counts)))
+    modes = {"decode lse": dops.lse_counts, "flash lse": fops.lse_counts,
+             "partials": uops.partial_counts}
+    for cn in (*counts.values(), *modes.values()):
+        cn.reset()
+    mesh = eng.comm is not None
+    if mesh:
+        eng.comm.reset()
+    sync()
+    t = time.perf_counter()
+    g = eng.generate(prompts, mn, return_state=True)
+    sync()
+    ms_g = (time.perf_counter() - t) * 1e3
+    st = g["state"]
+    kv = [c for c in st.cache if isinstance(c, KVCache)]
+    w = eng.generate(span, mn, state=eng.absorb(prompts))
+    out = {"ms_generate": ms_g, "T": int(st.max_len),
+           "kv_bytes": sum(x.nbytes for c in kv for x in c),
+           "kv_slots": [int(c.k.shape[1]) for c in kv],
+           "kv_cut": [isinstance(c, SeqKVCache) for c in kv],
+           "launches": {n: c.launches for n, c in counts.items()},
+           "plain": {n: c.plain for n, c in counts.items()},
+           "modes": {n: c.launches for n, c in modes.items()},
+           "modes_plain": {n: c.plain for n, c in modes.items()}}
+    stats = []
+    for n, state in ((mn, st), (1, None)):
+        if mesh:
+            eng.comm.reset()
+        sync()
+        t = time.perf_counter()
+        e = eng.generate(None, n, state=state or e["state"],
+                         return_state=n > 1)
+        sync()
+        if n > 1:
+            out["ms_per_step"] = (time.perf_counter() - t) * 1e3 / n
+            ext = e
+        if mesh:
+            stats.append(dict(eng.comm.stats))
+    if mesh:
+        out["per_step"] = {k: (stats[0][k] - stats[1][k]) / (mn - 1)
+                           for k in ("all_reduce", "all_gather", "bytes",
+                                     "staged_bytes")}
+        # of which the logits the caller gets, gathered at the dispatch's
+        # end: a rank's (B, V/m) f32 columns a step where the vocabulary
+        # is cut
+        v = eng._vocab
+        out["per_step"]["logits_bytes"] = (
+            0 if v is None else 4 * len(prompts) * v.size)
+        out["ext_collectives"] = stats[0]
+    arrays = {"g_tokens": g["tokens"], "g_u": g["u"], "g_h": g["h_mean"],
+              "g_v": g["v_mean"],
+              "g_logits": g["logits"].float().cpu().numpy(),
+              "w_tokens": w["tokens"],
+              "w_logits": w["logits"].float().cpu().numpy(),
+              "e_tokens": ext["tokens"],
+              "e_logits": ext["logits"].float().cpu().numpy()}
+    return out, arrays
+
+
+def d4_rank(i: int, job: tuple, dev, out_dir: str, rank: int, world: int,
+            prompts) -> dict:
+    """One of D4's jobs on a rank of the (1, m) mesh: the seeded whole
+    model (``job_model``: the parent's weights), built one rank after
+    another, its engines' shards parked in host memory until every rank
+    has built (command-r's whole model fits once on the card, not beside
+    the others' shards), an engine per ``opt["d4"]`` max_len, each run
+    through ``d4_sequence``.  Rank 0 writes the arrays of engine T to
+    ``out_dir/d4_<i>_<T>.npz``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.core.uncertainty import UncertaintyConfig
+    from repro_torch.launch.mesh import serving_mesh
+    from repro_torch.serving.engine import InferenceEngine
+    arch, layers, mp, mn, kw, opt = job
+    cfg = configs.get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    mesh = serving_mesh(model_parallel=mp)
+    ucfg = UncertaintyConfig(alpha=1.0, mode="distribution")
+    cuda = dev.type == "cuda"
+    engines = {}
+    for r in range(world):
+        if r == rank:
+            cfg, model = job_model(cfg, opt, dev)
+            engines = {T: InferenceEngine(f"{arch}-d4", cfg, model, ucfg,
+                                          device=dev, mesh=mesh, max_len=T,
+                                          **kw) for T in opt["d4"]}
+            del model
+            gc.collect()
+            if cuda:
+                # off the card while the next rank builds: a whole model's
+                # build peaks at ~2.3x its bf16 bytes (init_params' f32
+                # draws), command-r's at ~44 GB
+                for eng in engines.values():
+                    eng.params.cpu()
+                torch.cuda.empty_cache()
+        dist.barrier()
+    for eng in engines.values():
+        eng.params.to(dev)
+    pr, span = d4_inputs(prompts)
+    out = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+    for T, eng in engines.items():
+        res, arrays = d4_sequence(eng, pr, span, mn, torch.cuda.synchronize
+                                  if cuda else (lambda: None))
+        res.update(weight_bytes=eng.weight_bytes(),
+                   local_heads=[eng._mcfg.num_heads, eng._mcfg.num_kv_heads,
+                                eng._mcfg.d_ff],
+                   vocab_cut=eng._vocab is not None,
+                   mesh_eager=eng.counters["mesh_eager"])
+        out[str(T)] = res
+        if rank == 0:
+            np.savez(os.path.join(out_dir, f"d4_{i}_{T}.npz"), **arrays)
+    del engines
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def d4_hold(c, label: str, job: tuple, ranks_j: list, out_dir, i: int,
+            ref: dict) -> dict:
+    """A D4 job's ranks against the one-device engine's ``d4_sequence``
+    (``ref``: {max_len: arrays}) on the same weights: each engine's cold
+    generate, warm continuation and extension tie-aware (the extension on
+    the rows whose cold streams agree), ``u`` within the probe's budget on
+    those rows (1e-4 f32, 2e-2 bf16), each rank's KV bytes those of the
+    whole cache over m where its slots are cut (route (s)) and the whole
+    where not (route (w)), its kernels launched and no plain version, the
+    lse modes launched on route (s) only and the partials mode where the
+    vocabulary is cut.  Prints and returns the numbers."""
+    np = c.np
+    arch, layers, mp, mn, kw, opt = job
+    cfg = c.configs.get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    f32 = bool(opt.get("f32"))
+    elem = 4 if f32 else 2
+    rep = {}
+    for T in opt["d4"]:
+        got = np.load(out_dir / f"d4_{i}_{T}.npz")
+        want = ref[T]
+        where = f"D4 {label} T={T} on {ranks_j[0]['mesh']}"
+        g = tie_aware(where + " generate", got["g_tokens"], want["g_tokens"],
+                      want["g_logits"], got["g_logits"])
+        w = tie_aware(where + " warm continuation", got["w_tokens"],
+                      want["w_tokens"], want["w_logits"], got["w_logits"])
+        same = [b for b in range(len(want["g_tokens"]))
+                if np.array_equal(got["g_tokens"][b], want["g_tokens"][b])]
+        check(len(same) > 0, f"{where}: every row flipped")
+        e = tie_aware(where + " extension", got["e_tokens"][same],
+                      want["e_tokens"][same], want["e_logits"][same],
+                      got["e_logits"][same])
+        du = float(np.abs(got["g_u"][same] - want["g_u"][same]).max())
+        u_tol = 1e-4 if f32 else 2e-2
+        check(du <= u_tol, f"{where}: u {du} from one device's (tol "
+                           f"{u_tol})")
+        # the whole cache's KV bytes: k and v (B, T_ring, K, D), pos int32
+        whole = 0
+        for mixer, _ in cfg.layer_plan():
+            if mixer in ("attn", "attn_local"):
+                Tw = min(T, cfg.window) if (mixer == "attn_local"
+                                            and cfg.window) else T
+                whole += len(got["g_tokens"]) * Tw * (
+                    2 * cfg.num_kv_heads * cfg.head_dim * elem + 4)
+        for r, x in enumerate(ranks_j):
+            xr = x[str(T)]
+            cut = all(xr["kv_cut"])
+            check(cut or not any(xr["kv_cut"]),
+                  f"{where} rank {r}: some layers cut, some not")
+            check(cut == (max(min(T, cfg.window or T), 1) % mp == 0),
+                  f"{where} rank {r}: route {'(s)' if cut else '(w)'} where "
+                  "the spec gives the other")
+            check(xr["kv_bytes"] * (mp if cut else 1) == whole,
+                  f"{where} rank {r}: KV {xr['kv_bytes']} bytes, the whole "
+                  f"cache {whole}")
+            for k in SERVE_KERNELS:
+                check(xr["launches"][k] > 0,
+                      f"{where} rank {r}: {k} was never launched")
+            check(sum(xr["plain"].values()) == 0
+                  and sum(xr["modes_plain"].values()) == 0,
+                  f"{where} rank {r}: plain versions ran: {xr['plain']}")
+            for mode, want_on in (("decode lse", cut), ("flash lse", cut),
+                                  ("partials", xr["vocab_cut"])):
+                check((xr["modes"][mode] > 0) == want_on,
+                      f"{where} rank {r}: {mode} launched "
+                      f"{xr['modes'][mode]} times")
+            check(xr["mesh_eager"] > 0, f"{where} rank {r}: no dispatch on "
+                                        "the eager route")
+            ps = xr["per_step"]
+            print(f"[D4] {label} T={T} rank {r} on {x['mesh']}: route "
+                  f"{'(s)' if cut else '(w)'}, KV {xr['kv_bytes'] / 1e6:.3f}"
+                  f" MB ({xr['kv_slots'][0]} slots a layer; whole "
+                  f"{whole / 1e6:.3f} MB), weights "
+                  f"{xr['weight_bytes'] / 1e9:.3f} GB (heads/KV heads/d_ff "
+                  f"{xr['local_heads']}), vocabulary "
+                  f"{'cut' if xr['vocab_cut'] else 'whole'}; launches "
+                  f"{ {k: v for k, v in xr['launches'].items() if v} }, "
+                  f"modes {xr['modes']}; {xr['ms_generate']:.1f} ms per "
+                  f"generate, {xr['ms_per_step']:.2f} ms per extension step"
+                  f" (eager); a decode step {ps['all_reduce']:.1f} all-reduce"
+                  f" + {ps['all_gather']:.1f} all-gather, "
+                  f"{ps['bytes'] / 1e3:.1f} KB given (of which "
+                  f"{ps['logits_bytes'] / 1e3:.1f} KB the returned logits' "
+                  f"end-of-dispatch gather), "
+                  f"{ps['staged_bytes'] / 1e3:.1f} KB staged")
+        print(f"[D4] {where}: tie-aware equal to one device (generate "
+              f"{g[0]} rows diverged at a tie, reading {g[1]:.3f}, logits "
+              f"{g[2]:.2e}; warm {w[0]} / {w[1]:.3f}; extension {e[0]} / "
+              f"{e[1]:.3f}); u {du:.2e} (tol {u_tol:g})")
+        rep[T] = {"per_rank": [x[str(T)] for x in ranks_j],
+                  "whole_kv_bytes": whole, "generate": list(g),
+                  "warm": list(w), "extension": list(e), "max_du": du}
+    return rep
+
+
+def d4_reference(c, cfg, model, job) -> dict:
+    """{max_len: arrays} of ``d4_sequence`` on one-device engines over
+    ``model`` (the eager route, the ranks' route: a mesh of more than one
+    rank captures no graph)."""
+    arch, layers, mp, mn, kw, opt = job
+    pr, span = d4_inputs(c.prompts)
+    out = {}
+    for T in opt["d4"]:
+        eng = c.InferenceEngine(f"{arch}-d4-ref", cfg, model, c.ucfg,
+                                max_len=T, **kw)
+        eng._graphs = None
+        out[T] = d4_sequence(eng, pr, span, mn, c.torch.cuda.synchronize)[1]
+        del eng
+    return out
+
+
+def phase_d4(c):
+    """D4 (after C1). The sequence-sharded KV cache and the
+    vocabulary-parallel probe on gloo ranks of the one card, each job held
+    to the one-device engine on the same weights (``d4_hold``): the
+    recurrentgemma ranks (``D4_JOBS``, (1, 4)) run while the parent takes
+    the references of command-r (C1's 2-layer model, handed over in
+    ``c.holder`` and freed after) and of recurrentgemma (D3's seed and
+    scale, bf16); then command-r's ranks on (1, 3), its two engines
+    (routes (s) and (w)) built from one whole model a rank, one rank after
+    another.  The probe's
+    job rides D1's spawn (``phase_d1``)."""
+    torch = c.torch
+    t_ph = time.perf_counter()
+    print(f"[D4] {torch.cuda.memory_allocated() / 1e9:.2f} GB held on the "
+          "card before D4's ranks")
+    rg_job, cr_job = D4_JOBS
+    h_rg = spawn_ranks(c, (rg_job,), "d4rg", world=rg_job[2], wait=False)
+    crm = c.holder.pop()
+    ccfg = dataclasses.replace(c.configs.get_config(cr_job[0]),
+                               num_layers=cr_job[1])
+    ref_cr = d4_reference(c, ccfg, crm, cr_job)
+    del crm
+    gc.collect()
+    torch.cuda.empty_cache()
+    rcfg = dataclasses.replace(c.configs.get_config(rg_job[0]),
+                               num_layers=rg_job[1])
+    rcfg, rm = job_model(rcfg, rg_job[5], c.dev)
+    ref_rg = d4_reference(c, rcfg, rm, rg_job)
+    del rm
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_ph
+    rep = {"references_s": t_ref}
+    for job, handle in ((rg_job, h_rg), (cr_job, None)):
+        if handle is None:
+            print(f"[D4] {torch.cuda.memory_allocated() / 1e9:.2f} GB held "
+                  f"on the card before {job[0]}'s ranks")
+            ranks, secs, out_dir = spawn_ranks(c, (job,), "d4cr",
+                                               world=job[2])
+        else:
+            ranks, secs, out_dir = join_ranks(handle)
+        rep[job[0]] = d4_hold(c, job[0], job, [rr["0"] for rr in ranks],
+                              out_dir, 0, ref_rg if handle else ref_cr)
+        rep[job[0]]["ranks_s"] = secs
+        shutil.rmtree(out_dir, ignore_errors=True)
+        print(f"[D4] {job[0]}: {job[2]} ranks {secs:.1f} s")
+    rep["phase_s"] = time.perf_counter() - t_ph
+    print(f"[D4] references {t_ref:.1f} s (the recurrentgemma ranks ran "
+          f"beside them); phase {rep['phase_s']:.1f} s")
+    c.report.setdefault("mesh_d4", {}).update(rep)
 
 
 def local_row2(eng, st, dops, dref, dev, seed: int) -> dict:
@@ -1358,24 +1714,34 @@ def mesh11_generate(c, phase: str, label: str, base, me, mn: int, needs,
             "kernel_launches_host": calls["kernel_launches_all"]}
 
 
-def spawn_ranks(c, jobs, name: str, limit: float = 400):
-    """``d1_rank`` on two ranks of the one card for ``jobs``, spawned after
-    the build, their numbers and arrays under ``build/<name>``; a failed or
-    late rank fails the script.  Returns (each rank's numbers, seconds,
-    the directory)."""
+def spawn_ranks(c, jobs, name: str, limit: float = 400, world: int = 2,
+                wait: bool = True):
+    """``d1_rank`` on ``world`` ranks of the one card for ``jobs``, spawned
+    after the build, their numbers and arrays under ``build/<name>``; a
+    failed or late rank fails the script.  Returns (each rank's numbers,
+    seconds, the directory); with ``wait=False`` a handle that
+    ``join_ranks`` waits for."""
     out_dir = ROOT / "build" / name
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
     t0 = time.perf_counter()
     ctx = c.torch.multiprocessing.start_processes(
-        d1_rank, args=(2, str(out_dir / "store"), str(out_dir), c.prompts,
-                       jobs, c.dev.type),
-        nprocs=2, join=False, start_method="spawn")
+        d1_rank, args=(world, str(out_dir / "store"), str(out_dir),
+                       c.prompts, jobs, c.dev.type),
+        nprocs=world, join=False, start_method="spawn")
+    handle = (ctx, t0, out_dir, name, limit, world)
+    return join_ranks(handle) if wait else handle
+
+
+def join_ranks(handle):
+    """Wait for ``spawn_ranks``'s ranks: (each rank's numbers, seconds
+    since the spawn, the directory)."""
+    ctx, t0, out_dir, name, limit, world = handle
     tag = name.upper()
     try:
         while not ctx.join(timeout=5):
             if time.perf_counter() - t0 > limit:
-                fail(f"{tag}: the two ranks did not finish in {limit} s")
+                fail(f"{tag}: the {world} ranks did not finish in {limit} s")
     except Exception as e:          # a rank raised or died: fail the script
         fail(f"{tag}: a rank failed: {e}")
     finally:
@@ -1384,7 +1750,7 @@ def spawn_ranks(c, jobs, name: str, limit: float = 400):
                 p.terminate()
             p.join(10)
     ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
-             for r in range(2)]
+             for r in range(world)]
     return ranks, time.perf_counter() - t0, out_dir
 
 
@@ -1611,7 +1977,7 @@ def phase_d1(c):
     t4_jobs = tuple((a, l, mp, n, {}, {"train": dt})
                     for a, l, mp, n, dt in T4_JOBS)
     ranks, t_ranks, out_dir = spawn_ranks(
-        c, D1_JOBS + D2_JOBS + D3_JOBS + t4_jobs, "d1")
+        c, D1_JOBS + D2_JOBS + D3_JOBS + t4_jobs + (D4_SMOLLM,), "d1")
     c.d2_ranks = ranks, out_dir
     c.t4 = {"ranks": phase_t4_ranks(
         c, ranks, len(D1_JOBS + D2_JOBS + D3_JOBS), t4_refs, out_dir)}
@@ -1669,11 +2035,19 @@ def phase_d1(c):
                               "max_dlogit": dlog, "sampled_flips": s_flips,
                               "sampled_reading": s_reading,
                               "sampled_max_dlogit": s_dlog}
+    # D4's probe job: the sequence-sharded cache and the vocabulary-parallel
+    # probe on (1, 2), held to the one-device engine on the probe's weights
+    t4 = time.perf_counter()
+    i4 = len(D1_JOBS + D2_JOBS + D3_JOBS + T4_JOBS)
+    c.report["mesh_d4"] = {"smollm-135m": d4_hold(
+        c, "smollm-135m", D4_SMOLLM, [rr[str(i4)] for rr in ranks], out_dir,
+        i4, d4_reference(c, c.cfg, c.probe.params, D4_SMOLLM))}
+    print(f"[D4] smollm-135m held in {time.perf_counter() - t4:.1f} s (its "
+          "ranks ran in D1's spawn)")
     rep["ranks_s"] = t_ranks
     rep["phase_s"] = time.perf_counter() - t_ph
-    print(f"[D1] two ranks (D1's, D2's, D3's and T4's jobs) {t_ranks:.1f} s; "
-          "phase "
-          f"{rep['phase_s']:.1f} s")
+    print(f"[D1] two ranks (D1's, D2's, D3's, T4's jobs and D4's probe) "
+          f"{t_ranks:.1f} s; phase {rep['phase_s']:.1f} s")
     c.report["mesh"] = rep
 
 
@@ -2592,6 +2966,157 @@ def main():
                         *args, **kw)),
                     library_ms=time_ms(sdpa), bound_ms=b_ms, bound_by=b_by)
 
+    def lse_decode_case(label, B, T, K, G, D, window=None,
+                        dtype=torch.bfloat16):
+        """Row 2 with ``lse`` at a D4 rank's cache (``decode_case``'s data:
+        row 0 sees no slot, so its lse is -inf and its o 0): o and lse
+        against the plain version, the existing mode's o unchanged on the
+        other rows; timed beside the existing mode on the same inputs."""
+        q, k, v = (randn(B, K, G, D, dtype=dtype), randn(B, T, K, D,
+                                                        dtype=dtype),
+                   randn(B, T, K, D, dtype=dtype))
+        idx = torch.randint(T // 2, T, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        ar = torch.arange(T, device=dev, dtype=torch.int32)
+        pos = torch.where(ar[None] <= idx[:, None], ar[None], -1).to(
+            torch.int32).contiguous()
+        pos[0] = -1
+        kw = dict(window=window)
+        o, lse = dops.decode_attention(q, k, v, pos, idx, lse=True, **kw)
+        ro, rl = dref.decode_attention_ref(q, k, v, pos, idx, lse=True, **kw)
+        base = dops.decode_attention(q, k, v, pos, idx, **kw)
+        torch.cuda.synchronize()
+        lse_tol = 1e-4 if dtype == torch.float32 else 1e-2
+        err = float((o.float() - ro.float()).abs().max())
+        lse_err = float((lse[1:] - rl[1:]).abs().max())
+        check(bool(torch.isinf(lse[0]).all()) and bool((o[0] == 0).all())
+              and bool(torch.isfinite(lse[1:]).all()),
+              f"{label}: the row with no slot is not (0, -inf)")
+        check(lse_err <= lse_tol, f"{label}: lse error {lse_err} > "
+                                  f"{lse_tol}")
+        check(o.dtype == torch.float32
+              and torch.equal(base[1:], o[1:].to(dtype)),
+              f"{label}: the lse mode moved the existing mode's output")
+        n_valid = int(((pos >= 0) & (pos <= idx[:, None])).sum())
+        el = q.element_size()
+        # o is written in f32 in the lse mode
+        nbytes = (el * (B * K * G * D + 2 * n_valid * K * D)
+                  + 4 * B * K * G * D + 4 * (B * T + B) + 4 * B * K * G)
+        b_ms, b_by = bound(nbytes, 4 * D * n_valid * K * G,
+                           BF16_FLOPS if dtype == torch.bfloat16
+                           else F32_FLOPS)
+        return dict(name="decode_attention", mode="lse", label=label,
+                    main=False, max_abs_err=err, lse_err=lse_err,
+                    tol=2e-2 if dtype == torch.bfloat16 else 2e-5,
+                    lse_tol=lse_tol,
+                    ms=time_ms(lambda: dops.decode_attention(
+                        q, k, v, pos, idx, lse=True, **kw)),
+                    base_ms=time_ms(lambda: dops.decode_attention(
+                        q, k, v, pos, idx, **kw)),
+                    plain_ms=time_ms(lambda: dref.decode_attention_ref(
+                        q, k, v, pos, idx, lse=True, **kw)),
+                    library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+    def lse_continuation_case(label, B, S, T, H, K, D, dtype=torch.bfloat16):
+        """Row 1 with ``lse`` at a D4 rank's warm continuation: S - 2 span
+        queries at positions T/2.. over a T-slot run holding 0..T/2+S-3,
+        and 2 padding queries (no key: lse -inf, o 0); o and lse against
+        the plain version, the existing mode's o unchanged on the real
+        queries; timed beside the existing mode."""
+        q = randn(B, S, H, D, dtype=dtype)
+        k, v = randn(B, T, K, D, dtype=dtype), randn(B, T, K, D, dtype=dtype)
+        p0 = T // 2
+        qpos = torch.cat([torch.arange(p0, p0 + S - 2, device=dev),
+                          torch.tensor([-2, -1], device=dev)]).to(torch.int32)
+        ar = torch.arange(T, device=dev)
+        kvpos = torch.where(ar < p0 + S - 2, ar, -1).to(torch.int32)
+        kw = dict(q_positions=qpos, kv_positions=kvpos)
+        o, lse = fops.flash_attention_positions(q, k, v, lse=True, **kw)
+        ro, rl = fref.flash_attention_positions_ref(q, k, v, lse=True, **kw)
+        base = fops.flash_attention_positions(q, k, v, **kw)
+        torch.cuda.synchronize()
+        lse_tol = 1e-4 if dtype == torch.float32 else 1e-2
+        err = float((o.float() - ro.float()).abs().max())
+        lse_err = float((lse[:, :-2] - rl[:, :-2]).abs().max())
+        check(bool(torch.isinf(lse[:, -2:]).all())
+              and bool((o[:, -2:] == 0).all()),
+              f"{label}: the padding queries are not (0, -inf)")
+        check(lse_err <= lse_tol, f"{label}: lse error {lse_err} > "
+                                  f"{lse_tol}")
+        check(o.dtype == torch.float32
+              and torch.equal(base[:, :-2], o[:, :-2].to(dtype)),
+              f"{label}: the lse mode moved the existing mode's output")
+        mask = (kvpos[None] >= 0) & (qpos[:, None] >= kvpos[None])
+        el = q.element_size()
+        nbytes = (el * (B * S * H * D + 2 * B * T * K * D)
+                  + 4 * B * S * H * D + 4 * (S + T) + 4 * B * S * H)
+        b_ms, b_by = bound(nbytes, 4 * D * int(mask.sum()) * H * B,
+                           BF16_FLOPS if dtype == torch.bfloat16
+                           else F32_FLOPS)
+        return dict(name="flash_attention_positions", mode="lse",
+                    label=label, main=False, max_abs_err=err,
+                    lse_err=lse_err,
+                    tol=2e-2 if dtype == torch.bfloat16 else 2e-5,
+                    lse_tol=lse_tol,
+                    ms=time_ms(lambda: fops.flash_attention_positions(
+                        q, k, v, lse=True, **kw)),
+                    base_ms=time_ms(lambda: fops.flash_attention_positions(
+                        q, k, v, **kw)),
+                    plain_ms=time_ms(
+                        lambda: fref.flash_attention_positions_ref(
+                            q, k, v, lse=True, **kw)),
+                    library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+    def partials_case(label, B, V, m, k=10):
+        """Row 3's partials mode on each of m vocabulary cuts of (B, V) f32
+        logits (a D4 rank's columns), against its plain version (m, the
+        chosen logit and the top-k bitwise, l and s relative 1e-4), merged
+        over the cuts against the whole rows' plain ``uncertainty`` (h
+        1e-4, v 5e-3); rank 0's cut timed beside the existing mode on the
+        same columns."""
+        n = V // m
+        lg = randn(B, V, dtype=torch.float32, scale=3.0)
+        tok = torch.randint(0, V, (B,), generator=gen, device=dev,
+                            dtype=torch.int32)
+        top = torch.topk(lg, 3, -1).indices
+        tok[:3] = top[:3, 0].to(torch.int32)
+        tok[3], tok[4] = n - 1, n                  # either side of a cut
+        parts, worst = [], 0.0
+        for cut in range(m):
+            x = lg[:, cut * n:(cut + 1) * n].contiguous()
+            got = uops.uncertainty_partials(x, tok, k=k, col0=cut * n)
+            want = uref.uncertainty_partials_ref(x, tok, k=k, col0=cut * n)
+            torch.cuda.synchronize()
+            check(torch.equal(got[:, [0, 3]], want[:, [0, 3]])
+                  and torch.equal(got[:, 4:], want[:, 4:]),
+                  f"{label}: cut {cut}'s max, chosen logit or top-k differ")
+            # l relative, s against l times the cut's largest |logit| (a
+            # sum of signed terms may be near 0)
+            scale = want[:, 1] * x.abs().amax(-1)
+            rel = torch.stack([(got[:, 1] - want[:, 1]).abs() / want[:, 1],
+                               (got[:, 2] - want[:, 2]).abs() / scale])
+            worst = max(worst, float(rel.max()))
+            parts.append(got)
+        check(worst <= 1e-4, f"{label}: l or s relative error {worst}")
+        h, v, hd = uops.merge_partials(torch.stack(parts), k=k, V=V)
+        h0, v0, hd0 = uref.uncertainty_ref(lg, tok, k=k)
+        errs = [float((a - b).abs().max()) for a, b in
+                ((h, h0), (hd, hd0), (v, v0))]
+        check(errs[0] <= 1e-4 and errs[1] <= 1e-4,
+              f"{label}: merged h {errs[0]} / h_dist {errs[1]} > 1e-4")
+        x0, t0 = lg[:, :n].contiguous(), tok.clamp(max=n - 1)
+        nbytes = 4 * B * n + 4 * B + 4 * B * (k + 4)
+        b_ms, b_by = bound(nbytes, 6 * B * n, F32_FLOPS)
+        return dict(name="swarm_uncertainty", mode="partials", label=label,
+                    main=False, max_abs_err=errs[2], lse_err=worst,
+                    tol=5e-3, lse_tol=1e-4,
+                    ms=time_ms(lambda: uops.uncertainty_partials(
+                        x0, tok, k=k)),
+                    base_ms=time_ms(lambda: uops.uncertainty(x0, t0, k=k)),
+                    plain_ms=time_ms(lambda: uref.uncertainty_partials_ref(
+                        x0, tok, k=k)),
+                    library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
     # the gateway's shapes, those of phase 7's counted run (the main path):
     # every tier at its own widths, the 50 study prompts of 4-6 tokens
     # bucketed to S_GW (2 padding columns), decode over the engine's
@@ -2720,6 +3245,28 @@ def main():
                    10, 256, nb=5, p0=248),
         uncertainty_case("R0 recurrentgemma B8 V256000", 8, 256000),
         uncertainty_case("R0 mamba2 B8 V50280", 8, 50280),
+        # the new modes at D4's ranks' shapes: the probe's 256 slots over 2
+        # ranks, command-r's 384 over 3 (G=12), recurrentgemma's 2048-slot
+        # ring over 4 (D=256, G=10, bf16 as its D4 ranks run, and the f32
+        # body at the same shape), the warm
+        # continuation's 12-token span (bucket 16), the vocabularies over 2
+        # and 4 ranks
+        lse_decode_case("D4 probe rank decode lse B8 T128 K3 G3 D64", 8, 128,
+                        3, 3, 64),
+        lse_decode_case("D4 command-r rank decode lse B8 T128 K8 G12 D128",
+                        8, 128, 8, 12, 128),
+        lse_decode_case("D4 recurrentgemma rank decode lse B8 ring T512 K1 "
+                        "G10 D256", 8, 512, 1, 10, 256, window=2048),
+        lse_decode_case("D4 recurrentgemma rank decode lse B8 ring T512 K1 "
+                        "G10 D256 f32", 8, 512, 1, 10, 256, window=2048,
+                        dtype=torch.float32),
+        lse_continuation_case("D4 probe rank continuation lse B8 S16 T128 H9 "
+                              "K3 D64", 8, 16, 128, 9, 3, 64),
+        lse_continuation_case("D4 command-r rank continuation lse B8 S16 T128"
+                              " H96 K8 D128", 8, 16, 128, 96, 8, 128),
+        partials_case("D4 probe rank partials B8 V49152 over 2", 8, 49152, 2),
+        partials_case("D4 recurrentgemma rank partials B8 V256000 over 4", 8,
+                      256000, 4),
     ]
     def hold_cases(tag, cases):
         """Each case within its tolerance of the plain version; printed
@@ -2736,10 +3283,14 @@ def main():
                     else "")
             split = (f", {c['splits']} splits of {c['chunk']}"
                      if "splits" in c else "")
+            mode = (f" {c['mode']} mode: lse/partials err {c['lse_err']:.2e}"
+                    f" (tol {c['lse_tol']:g}), existing mode "
+                    f"{c['base_ms']:.4f} ms ({c['ms'] / c['base_ms']:.3f}x)"
+                    if "mode" in c else "")
             print(f"[{tag}] {c['label']}: err {c['max_abs_err']:.2e} (tol "
                   f"{c['tol']:g}{rel}) kernel {c['ms']:.4f} ms{rate} plain "
                   f"{c['plain_ms']:.4f} ms library {lib} ms bound "
-                  f"{c['bound_ms']:.5f} ms ({c['bound_by']}){split}")
+                  f"{c['bound_ms']:.5f} ms ({c['bound_by']}){split}{mode}")
             checks.append(c)
 
     hold_cases("3", cases)
@@ -3360,7 +3911,8 @@ def main():
         the PV product (the JAX model path's rounding site), f32 otherwise."""
         orig = attention.decode_attention
 
-        def attend(q, k, v, pos, index, *, window=None):
+        def attend(q, k, v, pos, index, *, window=None, lse=False):
+            check(not lse, "phase 6: a wrong path's engine cuts its cache")
             s = torch.einsum("bkgd,btkd->bkgt", q.float(),
                              k.float()) * q.shape[-1] ** -0.5
             valid = (pos >= 0) & (pos <= index[:, None])
@@ -4681,9 +5233,16 @@ def main():
           f"{b_ms:.3f} ms ({b_bytes / 1e9:.2f} GB a step); prefill "
           f"{c1_rep['prefill_ms']:.1f} ms; phase {c1_rep['phase_s']:.1f} s")
     new_rep["command-r-plus-104b"] = c1_rep
-    del c1m, c1mf, c1, pc1, c1f, pc1f
+    del c1mf, c1, pc1, c1f, pc1f
     gc.collect()
     torch.cuda.empty_cache()
+    # ---- D4 (ranks). the sequence-sharded cache on (1, 4) and (1, 3) ------
+    holder = [c1m]                  # phase_d4 frees C1's model after use
+    del c1m
+    phase_d4(SimpleNamespace(np=np, torch=torch, dev=dev, ucfg=ucfg,
+                             prompts=prompts, InferenceEngine=InferenceEngine,
+                             configs=configs, report=report, holder=holder))
+    del holder
 
     # ---- V1. llava-next-mistral-7b at published widths, 16 of 32 layers --
     # the token backbone served through C1's paths (the engine reads
@@ -5370,6 +5929,16 @@ def main():
                               if p.startswith("mesh11 D3 ")),
                 "ranks": sum(x["launches"][name] for j in report[
                     "mesh_d3"]["ranks"].values() for x in j["per_rank"])},
+            # D4's ranks, each engine's cold generate and warm continuation
+            "launches_d4": sum(x["launches"][name] for j in report[
+                "mesh_d4"].values() if isinstance(j, dict)
+                for T in j.values() if isinstance(T, dict) and "per_rank" in T
+                for x in T["per_rank"]),
+            # the lse / partials mode against the existing mode (phase 3)
+            "modes": [{k: m[k] for k in ("label", "mode", "ms", "base_ms",
+                                         "plain_ms", "bound_ms",
+                                         "max_abs_err", "lse_err")}
+                      for m in checks if m["name"] == name and "mode" in m],
             "max_abs_err": max(c["max_abs_err"] for c in checks
                                if c["name"] == name),
             "ms": first["ms"], "plain_ms": first["plain_ms"],

@@ -78,10 +78,23 @@ def normalise_variance(v, v_scale: float):
 
 
 def uncertainty_terms(logits: torch.Tensor, tokens: torch.Tensor,
-                      cfg: UncertaintyConfig):
+                      cfg: UncertaintyConfig, vocab=None):
     """Per-position (entropy, variance) terms of Eq. 2-3, (..., N) each, from
-    one fused pass over the logits."""
-    return kops.uncertainty_terms(logits, tokens, k=cfg.top_k, mode=cfg.mode)
+    one fused pass over the logits.  ``vocab`` (a ``sharding.Split``): the
+    logits are this rank's columns of a vocabulary cut over its axes, and
+    ``tokens`` index the whole; the fused op's partials mode runs on the
+    rank's columns, and one all-gather of each row's k + 4 floats over the
+    axes merges them (``kops.merge_partials``), h_dist normalised by log V
+    of the whole vocabulary."""
+    if vocab is None or vocab.shards == 1:
+        return kops.uncertainty_terms(logits, tokens, k=cfg.top_k,
+                                      mode=cfg.mode)
+    parts = kops.uncertainty_partials(logits, tokens, k=cfg.top_k,
+                                      col0=vocab.start)
+    every = vocab.comm.all_gather(parts[None], vocab.axes, 0)
+    h, v, hd = kops.merge_partials(every, k=cfg.top_k,
+                                   V=vocab.size * vocab.shards)
+    return (h if cfg.mode == "token" else hd), v
 
 
 def combine_terms(h_mean, v_mean, cfg: UncertaintyConfig):

@@ -224,22 +224,29 @@ __device__ __forceinline__ void load_q(const float* __restrict__ q,
   for (int e = threadIdx.x; e < G * D; e += THREADS) qs[e] = q[q_off + e];
 }
 
+// The normalised rows; lse non-null also writes each row's log-sum-exp at
+// lse[q_off / D + g], and a row that saw no valid slot (its max still
+// -1e30) gets lse -inf and o 0.
 template <int NDL>
 __device__ __forceinline__ void emit(const SoftmaxState<NDL>& st,
                                      float* __restrict__ out, long long q_off,
-                                     int G, int D) {
+                                     int G, int D, float* __restrict__ lse) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
   for (int i = 0; i < GPW_MAX; ++i) {
     const int g = warp + WARPS * i;
     if (g >= G) break;
-    const float inv = 1.f / fmaxf(st.l[i], 1e-30f);
+    const bool none = lse != nullptr && st.m[i] < 0.5f * NEG;
+    const float inv = none ? 0.f : 1.f / fmaxf(st.l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NDL; ++j) {
       const int d = lane + 32 * j;
       if (d < D) out[q_off + g * D + d] = st.acc[i][j] * inv;
     }
+    if (lse != nullptr && lane == 0)
+      lse[q_off / D + g] = none ? -CUDART_INF_F
+                                : st.m[i] + logf(fmaxf(st.l[i], 1e-30f));
   }
 }
 
@@ -248,7 +255,8 @@ __global__ void __launch_bounds__(THREADS)
 decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const int* __restrict__ pos,
               const int* __restrict__ index, float* __restrict__ out,
-              int Tlen, int K, int G, int D, int window, float scale) {
+              float* __restrict__ lse, int Tlen, int K, int G, int D,
+              int window, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;                          // (G, D)
   float* ks = qs + G * D;                    // (TILE, D + 1)
@@ -277,7 +285,7 @@ decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
                           min(TILE, Tlen - t0), valid, 1.f, 1.f, qs, ks, vs,
                           G, D, scale, st);
   }
-  emit<NDL>(st, out, q_off, G, D);
+  emit<NDL>(st, out, q_off, G, D, lse);
 }
 
 // TP: pool element type (f32, or int8 / fp8 with f32 scales); q, delta and
@@ -357,7 +365,7 @@ paged_decode_kernel(const float* __restrict__ q, const TP* __restrict__ kp,
                           row_stride, min(TILE, S - s0), valid, 1.f, 1.f, qs,
                           ks, vs, G, D, scale, st);
   }
-  emit<NDL>(st, out, q_off, G, D);
+  emit<NDL>(st, out, q_off, G, D, nullptr);
 }
 
 size_t smem_bytes(int G, int D) {
@@ -367,8 +375,8 @@ size_t smem_bytes(int G, int D) {
 
 template <int NDL>
 int launch(const void* q, const void* k, const void* v, const void* pos,
-           const void* index, void* out, int B, int Tlen, int K, int G, int D,
-           int window, float scale, cudaStream_t st) {
+           const void* index, void* out, void* lse, int B, int Tlen, int K,
+           int G, int D, int window, float scale, cudaStream_t st) {
   const size_t smem = smem_bytes(G, D);
   cudaError_t err = cudaFuncSetAttribute(
       decode_kernel<NDL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -378,22 +386,26 @@ int launch(const void* q, const void* k, const void* v, const void* pos,
   decode_kernel<NDL><<<grid, THREADS, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const int*>(pos),
-      static_cast<const int*>(index), static_cast<float*>(out), Tlen, K, G,
-      D, window, scale);
+      static_cast<const int*>(index), static_cast<float*>(out),
+      static_cast<float*>(lse), Tlen, K, G, D, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch(const void* q, const void* k, const void* v, const void* pos,
-             const void* index, void* out, int B, int Tlen, int K, int G,
-             int D, int window, float scale, cudaStream_t st) {
+             const void* index, void* out, void* lse, int B, int Tlen, int K,
+             int G, int D, int window, float scale, cudaStream_t st) {
   if (G > WARPS * GPW_MAX) return cudaErrorInvalidValue;
   if (D <= 32)
-    return launch<1>(q, k, v, pos, index, out, B, Tlen, K, G, D, window, scale, st);
+    return launch<1>(q, k, v, pos, index, out, lse, B, Tlen, K, G, D, window,
+                     scale, st);
   if (D <= 64)
-    return launch<2>(q, k, v, pos, index, out, B, Tlen, K, G, D, window, scale, st);
+    return launch<2>(q, k, v, pos, index, out, lse, B, Tlen, K, G, D, window,
+                     scale, st);
   if (D <= 128)
-    return launch<4>(q, k, v, pos, index, out, B, Tlen, K, G, D, window, scale, st);
-  return launch<8>(q, k, v, pos, index, out, B, Tlen, K, G, D, window, scale, st);
+    return launch<4>(q, k, v, pos, index, out, lse, B, Tlen, K, G, D, window,
+                     scale, st);
+  return launch<8>(q, k, v, pos, index, out, lse, B, Tlen, K, G, D, window,
+                   scale, st);
 }
 
 struct PagedArgs {
@@ -452,6 +464,7 @@ constexpr int MAX_WARPS = 4;       // tile rows <= 64, 16 keys per warp
 constexpr int MAX_SPLIT = 8;       // the portable cluster size
 constexpr int MAX_STAGES = 4;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <typename T>
 struct Scaled { static constexpr bool value = true; };
@@ -460,7 +473,9 @@ struct Scaled<__nv_bfloat16> { static constexpr bool value = false; };
 
 struct Params {
   const __nv_bfloat16* q;    // (B, K, G, D)
-  __nv_bfloat16* out;        // (B, K, G, D)
+  __nv_bfloat16* out;        // (B, K, G, D), or null where out32 is set
+  float* out32;              // row 2 with lse: (B, K, G, D) f32, unrounded
+  float* lse;                // row 2: (B, K, G) log-sum-exp, or null
   const void* k;             // row 2: cache (B, T, K, D); row 5: pool
   const void* v;             //   (N, L, K, D) in the pool's type
   const float* ksc;          // row 5 int8/fp8 pools: (N, L, K), else null
@@ -1124,25 +1139,39 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) decode_tc(const Params p) {
       acc[4] += y.x; acc[5] += y.y; acc[6] += y.z; acc[7] += y.w;
     }
   };
-  __nv_bfloat16* out =
-      p.out + (static_cast<long long>(b) * K + kh) * G * D;
-  auto store8 = [&](int t, const float (&acc)[8], float Lsum) {
+  const long long out0 = (static_cast<long long>(b) * K + kh) * G * D;
+  // with lse: a row that saw no valid slot (M still -1e30) is written 0,
+  // and its log-sum-exp -inf, by the thread of its first chunk; out32
+  // takes the rows in f32, so a merge over ranks rounds once
+  auto store8 = [&](int t, const float (&acc)[8], float M, float Lsum) {
     const int g = t / NC;
     const int c = t - g * NC;
-    const float inv = 1.f / fmaxf(Lsum, 1e-30f);
+    const bool none = p.lse != nullptr && M < 0.5f * NEG;
+    const float inv = none ? 0.f : 1.f / fmaxf(Lsum, 1e-30f);
+    if (p.lse != nullptr && c == 0)
+      p.lse[(static_cast<long long>(b) * K + kh) * G + g] =
+          none ? -CUDART_INF_F : M * LN2 + logf(fmaxf(Lsum, 1e-30f));
+    if (p.out32 != nullptr) {
+      float4* dst = reinterpret_cast<float4*>(p.out32 + out0 + g * D + 8 * c);
+      dst[0] = make_float4(acc[0] * inv, acc[1] * inv, acc[2] * inv,
+                           acc[3] * inv);
+      dst[1] = make_float4(acc[4] * inv, acc[5] * inv, acc[6] * inv,
+                           acc[7] * inv);
+      return;
+    }
     uint4 v;
     v.x = pack_bf16(acc[0] * inv, acc[1] * inv);
     v.y = pack_bf16(acc[2] * inv, acc[3] * inv);
     v.z = pack_bf16(acc[4] * inv, acc[5] * inv);
     v.w = pack_bf16(acc[6] * inv, acc[7] * inv);
-    *reinterpret_cast<uint4*>(out + g * D + 8 * c) = v;
+    *reinterpret_cast<uint4*>(p.out + out0 + g * D + 8 * c) = v;
   };
   if (p.n_split == 1) {
     for (int t = tid; t < G * NC; t += nthr) {
       if (t % NC >= dc) continue;
       float acc[8];
       warp_sum8(t, acc);
-      store8(t, acc, mb[QROWS + t / NC]);
+      store8(t, acc, mb[t / NC], mb[QROWS + t / NC]);
     }
     TRACE(6);
     TRACE(7);
@@ -1190,7 +1219,7 @@ __global__ void __launch_bounds__(MAX_WARPS * 32) decode_tc(const Params p) {
         acc[3] += f * x.w; acc[4] += f * y.x; acc[5] += f * y.y;
         acc[6] += f * y.z; acc[7] += f * y.w;
       }
-      store8(t, acc, Lsum);
+      store8(t, acc, M, Lsum);
     }
   }
   TRACE(7);                                  // its share is written
@@ -1266,28 +1295,36 @@ extern "C" int decode_trace_read(void* dst, int n) {
 #endif
 
 // q (B, K, G, D); k, v (B, T, K, D); pos (B, T) int32; index (B,) int32;
-// out (B, K, G, D) in q's type: f32 (dtype 0) or bf16 (dtype 1).
-// window <= 0 means no window.  n_split, bk, stages are the wrapper's plan
-// for the bf16 body (blocks per (b, kv-head), key rows per tile, ring
-// stages); the f32 body ignores them.  Returns cudaGetLastError().
+// out (B, K, G, D) in q's type: f32 (dtype 0) or bf16 (dtype 1); lse
+// (B, K, G) f32 or null: each row's log-sum-exp over its valid slots (-inf,
+// and the row's out 0, where it has none), for a merge over the slots
+// other ranks hold.  With lse, out is f32 in either type: the rows are not
+// rounded before the merge.  window <= 0 means no window.  n_split, bk, stages
+// are the wrapper's plan for the bf16 body (blocks per (b, kv-head), key
+// rows per tile, ring stages); the f32 body ignores them.  Returns
+// cudaGetLastError().
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const void* pos, const void* index, void* out,
-                                int B, int Tlen, int K, int G, int D,
-                                int window, float scale, int dtype,
+                                void* lse, int B, int Tlen, int K, int G,
+                                int D, int window, float scale, int dtype,
                                 int n_split, int bk, int stages,
                                 void* stream) {
   if (B < 1 || Tlen < 1 || K < 1 || G < 1 || D < 1 || D > 256)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return simt::dispatch(q, k, v, pos, index, out, B, Tlen, K, G, D, window,
-                          scale, st);
+    return simt::dispatch(q, k, v, pos, index, out, lse, B, Tlen, K, G, D,
+                          window, scale, st);
   if (dtype != 1 ||
       !tc::plan_ok(B, K, G, D, n_split, bk, stages, {q, k, v, out}))
     return cudaErrorInvalidValue;
   tc::Params p = {};
   p.q = static_cast<const __nv_bfloat16*>(q);
-  p.out = static_cast<__nv_bfloat16*>(out);
+  if (lse != nullptr)
+    p.out32 = static_cast<float*>(out);
+  else
+    p.out = static_cast<__nv_bfloat16*>(out);
+  p.lse = static_cast<float*>(lse);
   p.k = k;
   p.v = v;
   p.pos = static_cast<const int*>(pos);

@@ -119,9 +119,9 @@ template <typename T, int NDL, bool GRID>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, const int* __restrict__ qpos,
-             const int* __restrict__ kvpos, T* __restrict__ out, int S,
-             int Tlen, int H, int K, int D, int causal, int window,
-             float scale) {
+             const int* __restrict__ kvpos, T* __restrict__ out,
+             float* __restrict__ lse, int S, int Tlen, int H, int K, int D,
+             int causal, int window, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;                          // (BQ, D)
   float* acc = qs + BQ * D;                  // (BQ, D)
@@ -236,19 +236,30 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   __syncthreads();
+  // with lse: a row that saw no valid key (its max still -1e30) is written
+  // 0 and its log-sum-exp -inf
   for (int e = tid; e < BQ * D; e += THREADS) {
     const int r = e / D;
     const int d = e - r * D;
     const int s = q0 + r;
+    const bool none = lse != nullptr && ms[r] < 0.5f * NEG;
     if (s < S)
-      store(out + q_base + s * q_row + d, acc[e] / fmaxf(ls[r], 1e-30f));
+      store(out + q_base + s * q_row + d,
+            none ? 0.f : acc[e] / fmaxf(ls[r], 1e-30f));
   }
+  if (lse != nullptr)
+    for (int r = tid; r < BQ; r += THREADS)
+      if (q0 + r < S)
+        lse[(static_cast<long long>(b) * S + q0 + r) * H + h] =
+            ms[r] < 0.5f * NEG ? -CUDART_INF_F
+                               : ms[r] + logf(fmaxf(ls[r], 1e-30f));
 }
 
 template <typename T, int NDL, bool GRID>
 int launch(const void* q, const void* k, const void* v, const void* qpos,
-           const void* kvpos, void* out, int B, int S, int Tlen, int H, int K,
-           int D, int causal, int window, float scale, cudaStream_t st) {
+           const void* kvpos, void* out, void* lse, int B, int S, int Tlen,
+           int H, int K, int D, int causal, int window, float scale,
+           cudaStream_t st) {
   const size_t smem = sizeof(float) * (2 * static_cast<size_t>(BQ) * D +
                                        BK * (D + 1) + BK * D + 2 * BQ);
   cudaError_t err = cudaFuncSetAttribute(
@@ -259,27 +270,27 @@ int launch(const void* q, const void* k, const void* v, const void* qpos,
   flash_kernel<T, NDL, GRID><<<grid, THREADS, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(qpos),
-      static_cast<const int*>(kvpos), static_cast<T*>(out), S, Tlen, H, K, D,
-      causal, window, scale);
+      static_cast<const int*>(kvpos), static_cast<T*>(out),
+      static_cast<float*>(lse), S, Tlen, H, K, D, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, bool GRID>
 int dispatch_d(const void* q, const void* k, const void* v, const void* qpos,
-               const void* kvpos, void* out, int B, int S, int Tlen, int H,
-               int K, int D, int causal, int window, float scale,
-               cudaStream_t st) {
+               const void* kvpos, void* out, void* lse, int B, int S,
+               int Tlen, int H, int K, int D, int causal, int window,
+               float scale, cudaStream_t st) {
   if (D <= 32)
-    return launch<T, 1, GRID>(q, k, v, qpos, kvpos, out, B, S, Tlen, H, K, D,
-                              causal, window, scale, st);
+    return launch<T, 1, GRID>(q, k, v, qpos, kvpos, out, lse, B, S, Tlen, H,
+                              K, D, causal, window, scale, st);
   if (D <= 64)
-    return launch<T, 2, GRID>(q, k, v, qpos, kvpos, out, B, S, Tlen, H, K, D,
-                              causal, window, scale, st);
+    return launch<T, 2, GRID>(q, k, v, qpos, kvpos, out, lse, B, S, Tlen, H,
+                              K, D, causal, window, scale, st);
   if (D <= 128)
-    return launch<T, 4, GRID>(q, k, v, qpos, kvpos, out, B, S, Tlen, H, K, D,
-                              causal, window, scale, st);
-  return launch<T, 8, GRID>(q, k, v, qpos, kvpos, out, B, S, Tlen, H, K, D,
-                            causal, window, scale, st);
+    return launch<T, 4, GRID>(q, k, v, qpos, kvpos, out, lse, B, S, Tlen, H,
+                              K, D, causal, window, scale, st);
+  return launch<T, 8, GRID>(q, k, v, qpos, kvpos, out, lse, B, S, Tlen, H, K,
+                            D, causal, window, scale, st);
 }
 
 }  // namespace simt
@@ -296,6 +307,7 @@ constexpr int ROW_BYTES = 128;      // one 64-column bf16 row: the swizzle span
 constexpr int ATOM_BYTES = 8 * ROW_BYTES;   // the 8-row swizzle atom
 constexpr float NEG = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 template <int DP>
 struct Tile {
@@ -310,7 +322,9 @@ struct Params {
   const __nv_bfloat16* q;
   const int* qpos;
   const int* kvpos;
-  __nv_bfloat16* out;
+  __nv_bfloat16* out;   // or null where out32 is set
+  float* out32;     // positions mode with lse: (B, S, H, D) f32, unrounded
+  float* lse;       // positions mode: (B, S, H) log-sum-exp, or null
   int B, S, T, H, D, G;
   int gp;           // query heads per row group: G (packed) or 1 (per head)
   int rows;         // rows of one (batch, head group): S * gp
@@ -802,20 +816,41 @@ flash_tc(const __grid_constant__ CUtensorMap kmap,
   la += __shfl_xor_sync(0xffffffffu, la, 2);
   lb += __shfl_xor_sync(0xffffffffu, lb, 1);
   lb += __shfl_xor_sync(0xffffffffu, lb, 2);
-  const float ia = 1.f / fmaxf(la, 1e-30f), ib = 1.f / fmaxf(lb, 1e-30f);
+  // with lse: a row that saw no valid key (its max still -1e30) is written
+  // 0, and its log-sum-exp -inf, by its quad's first thread
+  const bool none_a = p.lse != nullptr && ma < 0.5f * NEG;
+  const bool none_b = p.lse != nullptr && mb < 0.5f * NEG;
+  const float ia = none_a ? 0.f : 1.f / fmaxf(la, 1e-30f);
+  const float ib = none_b ? 0.f : 1.f / fmaxf(lb, 1e-30f);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int R = half ? Rb : Ra;
     if (R >= p.rows) continue;
     const float inv = half ? ib : ia;
     const long long s = R / p.gp, h = head0 + R % p.gp;
-    __nv_bfloat16* dst =
-        p.out + ((b * static_cast<long long>(p.S) + s) * p.H + h) * p.D;
+    if (p.lse != nullptr && q2 == 0) {
+      const float m = half ? mb : ma, l = half ? lb : la;
+      p.lse[(b * static_cast<long long>(p.S) + s) * p.H + h] =
+          (half ? none_b : none_a) ? -CUDART_INF_F
+                                   : m * LN2 + logf(fmaxf(l, 1e-30f));
+    }
+    const long long row = ((b * static_cast<long long>(p.S) + s) * p.H + h) *
+                          p.D;
+    if (p.out32 != nullptr) {              // f32: a merge rounds once
+#pragma unroll
+      for (int j = 0; j < DP / 8; ++j) {
+        const int col = 8 * j + q2;
+        if (col < p.D)
+          *reinterpret_cast<float2*>(p.out32 + row + col) = make_float2(
+              o[4 * j + 2 * half] * inv, o[4 * j + 2 * half + 1] * inv);
+      }
+      continue;
+    }
 #pragma unroll
     for (int j = 0; j < DP / 8; ++j) {
       const int col = 8 * j + q2;
       if (col < p.D)
-        *reinterpret_cast<uint32_t*>(dst + col) = pack_bf16(
+        *reinterpret_cast<uint32_t*>(p.out + row + col) = pack_bf16(
             o[4 * j + 2 * half] * inv, o[4 * j + 2 * half + 1] * inv);
     }
   }
@@ -871,9 +906,9 @@ int kv_map(CUtensorMap* map, const void* ptr, int B, int T, int K, int D,
 
 template <int DP, bool GRID>
 int launch(const void* q, const void* k, const void* v, const void* qpos,
-           const void* kvpos, void* out, int B, int S, int Tlen, int H, int K,
-           int D, int causal, int window, float scale, int gp, int nwg,
-           int nst, cudaStream_t st) {
+           const void* kvpos, void* out, void* lse, int B, int S, int Tlen,
+           int H, int K, int D, int causal, int window, float scale, int gp,
+           int nwg, int nst, cudaStream_t st) {
   using TL = Tile<DP>;
   const int G = H / K;
   const uintptr_t addr = reinterpret_cast<uintptr_t>(q) |
@@ -892,7 +927,9 @@ int launch(const void* q, const void* k, const void* v, const void* qpos,
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.qpos = static_cast<const int*>(qpos);
   p.kvpos = static_cast<const int*>(kvpos);
-  p.out = static_cast<__nv_bfloat16*>(out);
+  p.out = lse == nullptr ? static_cast<__nv_bfloat16*>(out) : nullptr;
+  p.out32 = lse == nullptr ? nullptr : static_cast<float*>(out);
+  p.lse = static_cast<float*>(lse);
   p.B = B; p.S = S; p.T = Tlen; p.H = H; p.D = D; p.G = G;
   p.gp = gp;
   p.rows = S * gp;
@@ -925,38 +962,39 @@ int launch(const void* q, const void* k, const void* v, const void* qpos,
 
 template <bool GRID>
 int dispatch_d(const void* q, const void* k, const void* v, const void* qpos,
-               const void* kvpos, void* out, int B, int S, int Tlen, int H,
-               int K, int D, int causal, int window, float scale, int gp,
-               int nwg, int nst, cudaStream_t st) {
+               const void* kvpos, void* out, void* lse, int B, int S,
+               int Tlen, int H, int K, int D, int causal, int window,
+               float scale, int gp, int nwg, int nst, cudaStream_t st) {
   if (D <= 64)
-    return launch<64, GRID>(q, k, v, qpos, kvpos, out, B, S, Tlen, H, K, D,
-                            causal, window, scale, gp, nwg, nst, st);
+    return launch<64, GRID>(q, k, v, qpos, kvpos, out, lse, B, S, Tlen, H, K,
+                            D, causal, window, scale, gp, nwg, nst, st);
   if (D <= 128)
-    return launch<128, GRID>(q, k, v, qpos, kvpos, out, B, S, Tlen, H, K, D,
-                             causal, window, scale, gp, nwg, nst, st);
-  return launch<256, GRID>(q, k, v, qpos, kvpos, out, B, S, Tlen, H, K, D,
-                           causal, window, scale, gp, nwg, nst, st);
+    return launch<128, GRID>(q, k, v, qpos, kvpos, out, lse, B, S, Tlen, H,
+                             K, D, causal, window, scale, gp, nwg, nst, st);
+  return launch<256, GRID>(q, k, v, qpos, kvpos, out, lse, B, S, Tlen, H, K,
+                           D, causal, window, scale, gp, nwg, nst, st);
 }
 
 }  // namespace tc
 
 template <bool GRID>
 int dispatch(const void* q, const void* k, const void* v, const void* qpos,
-             const void* kvpos, void* out, int B, int S, int Tlen, int H,
-             int K, int D, int causal, int window, float scale, int dtype,
-             int gp, int nwg, int nst, void* stream) {
+             const void* kvpos, void* out, void* lse, int B, int S, int Tlen,
+             int H, int K, int D, int causal, int window, float scale,
+             int dtype, int gp, int nwg, int nst, void* stream) {
   if (B < 1 || S < 1 || Tlen < 1 || K < 1 || H % K != 0 || D < 1 || D > 256)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     if (H > 65535 || B > 65535) return cudaErrorInvalidValue;
-    return simt::dispatch_d<float, GRID>(q, k, v, qpos, kvpos, out, B, S,
-                                         Tlen, H, K, D, causal, window, scale,
-                                         st);
+    return simt::dispatch_d<float, GRID>(q, k, v, qpos, kvpos, out, lse, B,
+                                         S, Tlen, H, K, D, causal, window,
+                                         scale, st);
   }
   if (dtype == 1)
-    return tc::dispatch_d<GRID>(q, k, v, qpos, kvpos, out, B, S, Tlen, H, K,
-                                D, causal, window, scale, gp, nwg, nst, st);
+    return tc::dispatch_d<GRID>(q, k, v, qpos, kvpos, out, lse, B, S, Tlen, H,
+                                K, D, causal, window, scale, gp, nwg, nst,
+                                st);
   return cudaErrorInvalidValue;
 }
 
@@ -964,19 +1002,23 @@ int dispatch(const void* q, const void* k, const void* v, const void* qpos,
 
 // q (B, S, H, D); k, v (B, T, K, D) with H % K == 0; q_positions (S,) and
 // kv_positions (T,) int32; out (B, S, H, D) in q's type: f32 (dtype 0) or
-// bf16 (dtype 1).  window <= 0 means no window.  gp, nwg, nst are the
-// wrapper's launch plan for the bf16 body (query heads per row group, G or
-// 1; consumer warpgroups per block; ring stages); the f32 body ignores
-// them.  Returns cudaGetLastError(), or 1999 / 2000 + CUresult when the
-// K/V tensor map cannot be made.
+// bf16 (dtype 1); lse (B, S, H) f32 or null: each row's log-sum-exp over
+// its valid keys (-inf, and the row's out 0, where it has none), for a
+// merge over the slots other ranks hold; with lse, out is f32 in either
+// type (not rounded before the merge).  window <= 0 means no window.
+// gp, nwg, nst are the wrapper's launch plan for the bf16 body (query heads
+// per row group, G or 1; consumer warpgroups per block; ring stages); the
+// f32 body ignores them.  Returns cudaGetLastError(), or 1999 / 2000 +
+// CUresult when the K/V tensor map cannot be made.
 extern "C" int flash_attention_positions(const void* q, const void* k,
                                          const void* v, const void* qpos,
-                                         const void* kvpos, void* out, int B,
-                                         int S, int Tlen, int H, int K, int D,
-                                         int causal, int window, float scale,
-                                         int dtype, int gp, int nwg, int nst,
+                                         const void* kvpos, void* out,
+                                         void* lse, int B, int S, int Tlen,
+                                         int H, int K, int D, int causal,
+                                         int window, float scale, int dtype,
+                                         int gp, int nwg, int nst,
                                          void* stream) {
-  return dispatch<false>(q, k, v, qpos, kvpos, out, B, S, Tlen, H, K, D,
+  return dispatch<false>(q, k, v, qpos, kvpos, out, lse, B, S, Tlen, H, K, D,
                          causal, window, scale, dtype, gp, nwg, nst, stream);
 }
 
@@ -987,6 +1029,7 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                int D, int causal, int window, float scale,
                                int dtype, int gp, int nwg, int nst,
                                void* stream) {
-  return dispatch<true>(q, k, v, nullptr, nullptr, out, B, S, Tlen, H, K, D,
-                        causal, window, scale, dtype, gp, nwg, nst, stream);
+  return dispatch<true>(q, k, v, nullptr, nullptr, out, nullptr, B, S, Tlen,
+                        H, K, D, causal, window, scale, dtype, gp, nwg, nst,
+                        stream);
 }

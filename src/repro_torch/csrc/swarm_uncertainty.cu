@@ -321,8 +321,9 @@ template <typename T, int LK>
 __global__ void __launch_bounds__(THREADS, 4)   // 4 blocks an SM: 64 registers
 uncertainty_kernel(const T* __restrict__ logits, const int* __restrict__ tokens,
                    float* __restrict__ h_tok, float* __restrict__ v_topk,
-                   float* __restrict__ h_dist, int V, int k, int splits,
-                   int chunk, float log_v) {
+                   float* __restrict__ h_dist, float* __restrict__ parts,
+                   int V, int k, int splits, int chunk, int col0,
+                   float log_v) {
   using VT = typename Vec<T>::type;
   constexpr int W = Vec<T>::W;
   constexpr int BUF = CAP_TRIGGER + UNROLL * 32 * W;   // room for a round
@@ -352,10 +353,11 @@ uncertainty_kernel(const T* __restrict__ logits, const int* __restrict__ tokens,
   const int b1 = b0 + nvec * W;
   const VT* xv = reinterpret_cast<const VT*>(x + b0);
 
-  // rank 0 reads the chosen logit now; it is used in the epilogue
+  // rank 0 reads the chosen logit now; it is used in the epilogue (the
+  // row holds columns [col0, col0 + V) of the whole vocabulary)
   float chosen = NEG;
   if (rank == 0 && tid == 0) {
-    const int tok = tokens[row];
+    const int tok = tokens[row] - col0;
     if (tok >= 0 && tok < V) chosen = to_f32(x[tok]);
   }
 
@@ -454,7 +456,17 @@ uncertainty_kernel(const T* __restrict__ logits, const int* __restrict__ tokens,
     ct = warp_topk<LK>(t, kk, lane);
   }
   TRACE(6);                                  // the splits are merged
-  if (rank == 0 && warp == 0) {
+  if (parts != nullptr && rank == 0 && warp == 0) {
+    // partials mode: the row's merged state, for a merge across ranks
+    float* pr = parts + row * (kk + 4);
+    if (lane == 0) {
+      pr[0] = c.m;
+      pr[1] = c.l;
+      pr[2] = c.s;
+      pr[3] = chosen;
+    }
+    if (lane < kk) pr[4 + lane] = ct;
+  } else if (rank == 0 && warp == 0) {
     const float inv_k = 1.f / static_cast<float>(kk);
     const float mean = warp_sum(lane < kk ? ct : 0.f) * inv_k;
     const float d = lane < kk ? ct - mean : 0.f;
@@ -475,8 +487,8 @@ uncertainty_kernel(const T* __restrict__ logits, const int* __restrict__ tokens,
 
 template <typename T, int LK>
 int launch(const void* logits, const int* tk, float* h, float* v, float* hd,
-           int R, int V, int k, int splits, int chunk, float log_v,
-           cudaStream_t st) {
+           float* parts, int R, int V, int k, int splits, int chunk, int col0,
+           float log_v, cudaStream_t st) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(splits) * R);
   cfg.blockDim = dim3(THREADS);
@@ -490,20 +502,21 @@ int launch(const void* logits, const int* tk, float* h, float* v, float* hd,
   cfg.numAttrs = splits > 1 ? 1 : 0;
   cudaError_t e = cudaLaunchKernelEx(&cfg, uncertainty_kernel<T, LK>,
                                      static_cast<const T*>(logits), tk, h, v,
-                                     hd, V, k, splits, chunk, log_v);
+                                     hd, parts, V, k, splits, chunk, col0,
+                                     log_v);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch_k(const void* logits, const int* tk, float* h, float* v,
-               float* hd, int R, int V, int k, int splits, int chunk,
-               float log_v, cudaStream_t st) {
+               float* hd, float* parts, int R, int V, int k, int splits,
+               int chunk, int col0, float log_v, cudaStream_t st) {
   if (k == 10)
-    return launch<T, 10>(logits, tk, h, v, hd, R, V, k, splits, chunk, log_v,
-                         st);
-  return launch<T, KMAX>(logits, tk, h, v, hd, R, V, k, splits, chunk, log_v,
-                         st);
+    return launch<T, 10>(logits, tk, h, v, hd, parts, R, V, k, splits, chunk,
+                         col0, log_v, st);
+  return launch<T, KMAX>(logits, tk, h, v, hd, parts, R, V, k, splits, chunk,
+                         col0, log_v, st);
 }
 
 }  // namespace
@@ -520,28 +533,37 @@ extern "C" int uncertainty_trace_read(void* dst, int n) {
 // logits (R, V) f32 (dtype 0) or bf16 (dtype 1), element-aligned, tokens
 // (R,) int32; outputs h_token, v_topk, h_dist (R,) f32.  splits and chunk
 // are the wrapper's plan: splits blocks per row (one cluster), each over
-// chunk logits (a multiple of 8), together covering V.  Returns
+// chunk logits (a multiple of 8), together covering V.  parts non-null is
+// the partials mode, for a vocabulary cut over ranks: the rows hold
+// columns [col0, col0 + V) of the whole vocabulary and tokens index the
+// whole; each row's merged state goes to parts (R, k + 4) f32 as (m, l, s,
+// the chosen logit or -1e30, its k largest logits, descending) in place of
+// h_token, v_topk and h_dist (which may then be null).  Returns
 // cudaGetLastError() after the launch.
 extern "C" int swarm_uncertainty(const void* logits, const void* tokens,
                                  void* h_tok, void* v_topk, void* h_dist,
-                                 int R, int V, int k, int splits, int chunk,
-                                 int dtype, float log_v, void* stream) {
+                                 void* parts, int R, int V, int k, int splits,
+                                 int chunk, int dtype, int col0, float log_v,
+                                 void* stream) {
   if (k < 1 || k > KMAX || V < k || R < 1 || splits < 1 ||
       splits > MAX_SPLITS || chunk < 1 || chunk % CHUNK_ALIGN != 0 ||
       static_cast<long long>(splits) * chunk < V ||
       static_cast<long long>(splits - 1) * chunk >= V ||
-      static_cast<long long>(splits) * R > 0x7fffffffLL)
+      static_cast<long long>(splits) * R > 0x7fffffffLL ||
+      (parts == nullptr &&
+       (h_tok == nullptr || v_topk == nullptr || h_dist == nullptr)))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* tk = static_cast<const int*>(tokens);
   float* h = static_cast<float*>(h_tok);
   float* v = static_cast<float*>(v_topk);
   float* hd = static_cast<float*>(h_dist);
+  float* pt = static_cast<float*>(parts);
   if (dtype == 0)
-    return dispatch_k<float>(logits, tk, h, v, hd, R, V, k, splits, chunk,
-                             log_v, st);
+    return dispatch_k<float>(logits, tk, h, v, hd, pt, R, V, k, splits, chunk,
+                             col0, log_v, st);
   if (dtype == 1)
-    return dispatch_k<__nv_bfloat16>(logits, tk, h, v, hd, R, V, k, splits,
-                                     chunk, log_v, st);
+    return dispatch_k<__nv_bfloat16>(logits, tk, h, v, hd, pt, R, V, k,
+                                     splits, chunk, col0, log_v, st);
   return cudaErrorInvalidValue;
 }

@@ -43,6 +43,11 @@ placement and the collectives are explicit:
   one contiguous shard (the SSD's ``[z | x | B | C | dt]`` projection cut
   segment by segment, the KV heads case (b) repeats) and the whole dim
   joined back from every rank's columns, each column once;
+* ``SeqCut``: an attention layer whose KV heads 'model' cannot take, its
+  cache's slots cut over the model axes (``act_kv_seq``);
+  ``merge_attention`` joins the ranks' attention over their slots from
+  each row's partial output and log-sum-exp, and ``vocab_argmax`` takes
+  the argmax of logits whose vocabulary is cut over 'model';
 * training: ``reduce`` / ``enter`` / ``gather`` / ``fsdp_gather``,
   collectives that autograd differentiates under one convention (a tensor
   every rank of some axes holds whole has its whole gradient on each of
@@ -134,8 +139,8 @@ ACT_RULES: dict[str, Chain] = {
     "act_ssm_inner": _chain("model"),
     "act_state": _chain(),
     # KV-cache seq: the reference's fallback when kv_heads does not divide
-    # the model axis (a sequence-sharded cache; the port does not take it:
-    # transformer.shard_params)
+    # the model axis (a sequence-sharded cache: the rank holds a contiguous
+    # run of slots; transformer.shard_params, attention.attn_decode)
     "act_kv_seq": _chain("model"),
     "act_pool": _chain(("pod", "data"), "data"),         # paged pool blocks
     "act_pool_scale": _chain(("pod", "data"), "data"),   # their scales
@@ -847,6 +852,82 @@ def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                else torch.mm(a2, w, out_dtype=torch.float32))
         return out.unflatten(0, a.shape[:-1])
     return a.float() @ w.float()
+
+
+def kv_seq_axes(mesh, rules: ShardingRules) -> MeshAxes:
+    """The axes a KV cache's slots go over (``act_kv_seq``'s first entry
+    the mesh has: 'model'), () where it has none."""
+    sizes = axis_sizes(mesh)
+    for axes in rules.act_rules.get("act_kv_seq", ()):
+        if all(a in sizes for a in axes):
+            return axes
+    return ()
+
+
+@dataclasses.dataclass(eq=False)
+class SeqCut:
+    """An attention layer whose KV heads the model axes ``axes`` cannot
+    take (``transformer.shard_params``): its KV cache's slots go over them
+    where their count divides the slots (rank r of m holds the contiguous
+    run [r T/m, (r + 1) T/m) of every KV head), and stay whole on every
+    rank where it does not, as the reference's ``act_kv_seq`` places them.
+    Which of the two a cache is shows in its type
+    (``attention.SeqKVCache``)."""
+    comm: Comm
+    axes: MeshAxes
+
+    @property
+    def shards(self) -> int:
+        return _axis_size(self.comm.sizes, self.axes)
+
+    @property
+    def index(self) -> int:
+        return shard_index(self.axes, self.comm.mesh)[0]
+
+
+def combine_attention(o: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """Attention over the union of m disjoint sets of keys, from each
+    set's normalised output ``o`` (m, ..., D) and each row's log-sum-exp
+    ``lse`` (m, ...) f32 over it (-inf: the set holds no key the row sees,
+    and its ``o`` is ignored): with M = max_r lse_r and w_r =
+    exp(lse_r - M), o = sum_r w_r o_r / sum_r w_r, in f32, summed over r
+    in order.  A row that no set sees comes out 0."""
+    M = lse.amax(0)
+    M = torch.where(torch.isfinite(M), M, torch.zeros_like(M))
+    w = torch.exp(lse - M)
+    num = (w[..., None] * o.float()).sum(0)
+    return num / w.sum(0).clamp_min(1e-30)[..., None]
+
+
+def merge_attention(o: torch.Tensor, lse: torch.Tensor, comm: Comm,
+                    axes, dtype: torch.dtype) -> torch.Tensor:
+    """The attention of every rank's keys from this rank's ``o`` (..., D)
+    and ``lse`` (...) f32 over its own slots (``SeqCut``): one all-gather
+    of both over ``axes``, merged by ``combine_attention`` in rank order, so
+    every rank computes the same floats.  ``o`` comes unrounded in f32
+    (rows 1 and 2 with ``lse``), and the merge is rounded once to
+    ``dtype``, as one device's kernel rounds its f32 accumulator once."""
+    if not comm._live(axes):
+        return o.to(dtype)
+    D = o.shape[-1]
+    every = comm.all_gather(torch.cat([o.float(), lse[..., None]], -1)[None],
+                            axes, 0)
+    return combine_attention(every[..., :D], every[..., D]).to(dtype)
+
+
+def vocab_argmax(x: torch.Tensor, split: Split) -> torch.Tensor:
+    """The argmax over the whole vocabulary of logits ``x`` (..., V/m) cut
+    over ``split``'s axes (the rank holding columns [start, start +
+    size)): each rank's maximum and its first index, gathered over the
+    axes in one all-gather; the first rank holding the largest maximum
+    wins, so a tie goes to the lowest index of the whole row, as
+    ``argmax`` over it does.  int64, on every rank."""
+    i = x.argmax(-1)
+    v = x.gather(-1, i[..., None])[..., 0]
+    pair = torch.stack([v.double(), (i + split.start).double()], -1)
+    every = split.comm.all_gather(pair[None], split.axes, 0)
+    r = every[..., 0].argmax(0)
+    return every[..., 1].gather(0, r[None])[0].long()
 
 
 def row_parallel(module, a: torch.Tensor, w) -> torch.Tensor:

@@ -38,17 +38,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "flash_attention_positions": ("flash_attention",
-                                  [_P] * 6 + [_I] * 8 + [_F] + [_I] * 4
+                                  [_P] * 7 + [_I] * 8 + [_F] + [_I] * 4
                                   + [_P]),
     "flash_attention": ("flash_attention",
                         [_P] * 4 + [_I] * 8 + [_F] + [_I] * 4 + [_P]),
     "decode_attention": ("decode_attention",
-                         [_P] * 6 + [_I] * 6 + [_F] + [_I] * 4 + [_P]),
+                         [_P] * 7 + [_I] * 6 + [_F] + [_I] * 4 + [_P]),
     "paged_decode_attention": ("decode_attention",
                                [_P] * 13 + [_I] * 10 + [_F] + [_I] * 5
                                + [_P]),
     "swarm_uncertainty": ("swarm_uncertainty",
-                          [_P] * 5 + [_I] * 5 + [_I, _F, _P]),
+                          [_P] * 6 + [_I] * 7 + [_F, _P]),
 }
 LIBRARIES = tuple(dict.fromkeys(lib for lib, _ in SIGNATURES.values()))
 

@@ -5,7 +5,8 @@ versions (``ref.py``) for CPU tensors.  No fallback: a CUDA tensor the
 kernels cannot take raises.
 
 Each entry point keeps its own launch count: ``counts`` for
-``decode_attention``, ``paged_counts`` for ``paged_decode_attention``.
+``decode_attention``, ``paged_counts`` for ``paged_decode_attention``;
+``lse_counts`` counts ``decode_attention``'s calls with ``lse`` once more.
 
 ``decode_plan`` and ``paged_decode_plan`` decide, for a CUDA call, which
 body of ``csrc/decode_attention.cu`` runs, its tile rows, ring depth and
@@ -27,6 +28,8 @@ from repro_torch.kernels.decode_attention import ref as R
 
 counts = build.LaunchCounts()          # decode_attention
 paged_counts = build.LaunchCounts()    # paged_decode_attention
+lse_counts = build.LaunchCounts()      # decode_attention with lse (also in
+                                       # ``counts``)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_GROUP = 16          # query heads per KV head: mma's 16-row A tile
@@ -303,10 +306,14 @@ def kernel_slot_valid(plan: DecodePlan, valid, sentinel, index, p0):
     return out
 
 
-def decode_attention(q, k, v, pos, index, *, window=None):
+def decode_attention(q, k, v, pos, index, *, window=None, lse=False):
     """q (B,K,G,D); k,v (B,T,K,D); pos (B,T) int32 absolute positions of the
     cached keys (-1 = empty); index (B,) int32 current position.
-    Returns (B,K,G,D) in q's dtype."""
+    Returns (B,K,G,D) in q's dtype; with ``lse=True`` (o, lse): o in f32,
+    not rounded, and lse (B,K,G) f32 each row's log-sum-exp over its valid
+    slots, -inf (and o 0) for a row with none
+    (``ref.decode_attention_ref``), for a merge over the slots other ranks
+    hold that rounds once (``sharding.merge_attention``)."""
     B, K, G, D = q.shape
     T = k.shape[1]
     if k.shape != (B, T, K, D) or v.shape != k.shape:
@@ -325,21 +332,27 @@ def decode_attention(q, k, v, pos, index, *, window=None):
     build.refuse_autograd("decode_attention", q, k, v)
     if q.device.type == "cpu":
         counts.plain += 1
-        return R.decode_attention_ref(q, k, v, pos, index, window=window)
+        lse_counts.plain += lse
+        return R.decode_attention_ref(q, k, v, pos, index, window=window,
+                                      lse=lse)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("operands must be contiguous")
     plan = decode_plan(B, T, K, G, D, q.dtype)
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=torch.float32 if lse else q.dtype)
+    lse_t = (torch.empty((B, K, G), dtype=torch.float32, device=q.device)
+             if lse else None)
     fn = build.kernel("decode_attention")
     build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-                   index.data_ptr(), out.data_ptr(), B, T, K, G, D,
+                   index.data_ptr(), out.data_ptr(),
+                   None if lse_t is None else lse_t.data_ptr(), B, T, K, G, D,
                    int(window or 0), float(D ** -0.5), build.dtype_code(q),
                    plan.n_split, plan.bk, plan.stages, build.stream_ptr(q)),
                 "decode_attention")
     counts.launches += 1
-    return out
+    lse_counts.launches += lse
+    return (out, lse_t) if lse else out
 
 
 _QUANT = (torch.int8, torch.float8_e4m3fn)

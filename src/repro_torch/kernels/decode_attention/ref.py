@@ -8,11 +8,15 @@ import torch
 NEG_INF = -1e30
 
 
-def decode_attention_ref(q, k, v, pos, index, *, window=None):
+def decode_attention_ref(q, k, v, pos, index, *, window=None, lse=False):
     """q (B,K,G,D); k,v (B,T,K,D); pos (B,T); index (B,) -> (B,K,G,D).
 
     A slot is valid when 0 <= pos <= index (and index - pos < window for
-    windowed layers); invalid slots take the finite -1e30."""
+    windowed layers); invalid slots take the finite -1e30.  ``lse=True``
+    returns (o, lse): o in f32 (not rounded to q's dtype) and lse (B,K,G)
+    f32 the log-sum-exp of each row's scores over its valid slots, and a
+    row with no valid slot gets lse -inf and o 0 (it contributes nothing
+    to a merge over slot sets, ``sharding.merge_attention``)."""
     D = q.shape[-1]
     s = torch.einsum("bkgd,btkd->bkgt", q.float(), k.float()) * D ** -0.5
     valid = (pos >= 0) & (pos <= index[:, None])
@@ -21,7 +25,11 @@ def decode_attention_ref(q, k, v, pos, index, *, window=None):
     s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgt,btkd->bkgd", p, v.float())
-    return o.to(q.dtype)
+    if not lse:
+        return o.to(q.dtype)
+    seen = valid.any(-1)[:, None, None]
+    out = torch.where(seen, torch.logsumexp(s, -1), float("-inf"))
+    return torch.where(seen[..., None], o, 0.0), out
 
 
 def paged_gathered_view(k_pool, v_pool, pos_pool, table, index, *,

@@ -84,7 +84,7 @@ def decode_case(gen, B, T, K, G, D, fill=None):
     out = torch.empty_like(q)
     plan = ops.decode_plan(B, T, K, G, D, torch.bfloat16)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
-            idx.data_ptr(), out.data_ptr(), B, T, K, G, D, 0,
+            idx.data_ptr(), out.data_ptr(), None, B, T, K, G, D, 0,
             float(D ** -0.5), 1, plan.n_split, plan.bk, plan.stages,
             torch.cuda.current_stream().cuda_stream)
     keep = (q, k, v, pos, idx, out)

@@ -5,7 +5,8 @@ CUDA tensor the kernels cannot take raises.
 
 Each entry point keeps its own launch count, so a run can tell them apart:
 ``counts`` for ``flash_attention_positions``, ``grid_counts`` for
-``flash_attention``.
+``flash_attention``; ``lse_counts`` counts the positions mode's calls with
+``lse`` once more.
 
 ``launch_plan`` decides, for a CUDA call, which body of
 ``csrc/flash_attention.cu`` runs, how its blocks map to output rows and its
@@ -24,6 +25,8 @@ from repro_torch.kernels.flash_attention import ref as R
 
 counts = build.LaunchCounts()          # flash_attention_positions
 grid_counts = build.LaunchCounts()     # flash_attention
+lse_counts = build.LaunchCounts()      # flash_attention_positions with lse
+                                       # (also in ``counts``)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -141,10 +144,14 @@ def _check_launch(tensors, D: int):
 
 
 def flash_attention_positions(q, k, v, *, q_positions, kv_positions,
-                              causal=True, window=None):
+                              causal=True, window=None, lse=False):
     """q (B,S,H,D); k,v (B,T,K,D), H a multiple of K; q_positions (S,) and
     kv_positions (T,) int32 shared across the batch (negative = padding /
-    empty slot).  Returns (B,S,H,D) in q's dtype."""
+    empty slot).  Returns (B,S,H,D) in q's dtype; with ``lse=True`` (o,
+    lse): o in f32, not rounded, and lse (B,S,H) f32 each row's
+    log-sum-exp over its valid keys, -inf (and o 0) for a row with none
+    (``ref.flash_attention_positions_ref``), for a merge over the slots
+    other ranks hold that rounds once (``sharding.merge_attention``)."""
     B, S, H, D = q.shape
     T, K = k.shape[1], k.shape[2]
     _check_qkv(q, k, v)
@@ -158,22 +165,27 @@ def flash_attention_positions(q, k, v, *, q_positions, kv_positions,
     build.refuse_autograd("flash_attention_positions", q, k, v)
     if q.device.type == "cpu":
         counts.plain += 1
+        lse_counts.plain += lse
         return R.flash_attention_positions_ref(
             q, k, v, q_positions=q_positions, kv_positions=kv_positions,
-            causal=causal, window=window)
+            causal=causal, window=window, lse=lse)
     _check_launch(tensors, D)
     plan = launch_plan(B, S, T, H, K, D, q.dtype, grid_mode=False,
                        causal=causal)
-    out = torch.empty_like(q)
+    out = torch.empty_like(q, dtype=torch.float32 if lse else q.dtype)
+    lse_t = (torch.empty((B, S, H), dtype=torch.float32, device=q.device)
+             if lse else None)
     fn = build.kernel("flash_attention_positions")
     build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    q_positions.data_ptr(), kv_positions.data_ptr(),
-                   out.data_ptr(), B, S, T, H, K, D, int(causal),
+                   out.data_ptr(), None if lse_t is None else lse_t.data_ptr(),
+                   B, S, T, H, K, D, int(causal),
                    int(window or 0), float(D ** -0.5), build.dtype_code(q),
                    plan.gp, plan.warpgroups, plan.stages,
                    build.stream_ptr(q)), "flash_attention_positions")
     counts.launches += 1
-    return out
+    lse_counts.launches += lse
+    return (out, lse_t) if lse else out
 
 
 def flash_attention(q, k, v, *, causal=True, window=None):

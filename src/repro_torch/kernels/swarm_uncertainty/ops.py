@@ -22,6 +22,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.swarm_uncertainty import ref as R
 
 counts = build.LaunchCounts()
+partial_counts = build.LaunchCounts()   # the partials mode (also in counts)
 
 _DTYPES = (torch.float32, torch.bfloat16)
 MAX_K = 16              # largest top-k the kernel keeps in registers
@@ -130,6 +131,16 @@ def uncertainty(logits, tokens, *, k: int = 10):
     f32: Eq. 2's chosen-token -p log p, Eq. 3's top-k logit variance and the
     full-distribution entropy normalised by log V."""
     V = logits.shape[-1]
+    _check(logits, tokens, k)
+    if logits.device.type == "cpu":
+        counts.plain += 1
+        return R.uncertainty_ref(logits, tokens, k=k)
+    return _launch(logits, tokens, k,
+                   uncertainty_plan(tokens.numel(), V, k, logits.dtype))
+
+
+def _check(logits, tokens, k: int):
+    V = logits.shape[-1]
     if tokens.shape != logits.shape[:-1]:
         raise ValueError(f"tokens {tuple(tokens.shape)} must match logits "
                          f"{tuple(logits.shape)} without the vocab dim")
@@ -140,30 +151,75 @@ def uncertainty(logits, tokens, *, k: int = 10):
     if logits.device != tokens.device:
         raise ValueError("logits and tokens must be on one device")
     build.refuse_autograd("swarm_uncertainty", logits)
-    if logits.device.type == "cpu":
-        counts.plain += 1
-        return R.uncertainty_ref(logits, tokens, k=k)
-    if logits.device.type != "cuda":
+    if logits.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {logits.device}")
-    if not (logits.is_contiguous() and tokens.is_contiguous()):
+    if logits.device.type == "cuda" and not (logits.is_contiguous()
+                                             and tokens.is_contiguous()):
         raise ValueError("operands must be contiguous")
-    return _launch(logits, tokens, k,
-                   uncertainty_plan(tokens.numel(), V, k, logits.dtype))
 
 
-def _launch(logits, tokens, k: int, plan: UncertaintyPlan):
+def _launch(logits, tokens, k: int, plan: UncertaintyPlan, *,
+            partials: bool = False, col0: int = 0):
     """One launch of the kernel on contiguous CUDA operands, with ``plan``
-    (the tests give it other plans than ``uncertainty_plan``'s)."""
+    (the tests give it other plans than ``uncertainty_plan``'s): (h, v,
+    hd), or with ``partials`` the (rows..., k + 4) states of
+    ``uncertainty_partials``."""
     V = logits.shape[-1]
     _check_plan(plan, tokens.numel(), V, logits.dtype)
-    h, v, hd = (torch.empty(tokens.shape, dtype=torch.float32,
-                            device=logits.device) for _ in range(3))
+    dev = logits.device
+    if partials:
+        parts = torch.empty(tokens.shape + (k + 4,), dtype=torch.float32,
+                            device=dev)
+        outs = (None, None, None)
+    else:
+        parts = None
+        outs = tuple(torch.empty(tokens.shape, dtype=torch.float32,
+                                 device=dev) for _ in range(3))
     fn = build.kernel("swarm_uncertainty")
-    build.check(fn(logits.data_ptr(), tokens.data_ptr(), h.data_ptr(),
-                   v.data_ptr(), hd.data_ptr(), plan.rows, V, k, plan.splits,
-                   plan.chunk, build.dtype_code(logits), math.log(V),
-                   build.stream_ptr(logits)), "swarm_uncertainty")
+    build.check(fn(logits.data_ptr(), tokens.data_ptr(),
+                   *(None if o is None else o.data_ptr() for o in outs),
+                   None if parts is None else parts.data_ptr(), plan.rows, V,
+                   k, plan.splits, plan.chunk, build.dtype_code(logits), col0,
+                   math.log(V), build.stream_ptr(logits)),
+                "swarm_uncertainty")
     counts.launches += 1
+    return parts if partials else outs
+
+
+def uncertainty_partials(logits, tokens, *, k: int = 10, col0: int = 0):
+    """Row 3's partials mode, for logits whose vocabulary is cut over
+    ranks: logits (..., V) columns [col0, col0 + V) of the whole rows,
+    tokens (...) indices into the whole vocabulary -> (..., k + 4) f32,
+    each row's (m, l, s, the chosen token's logit or NEG, its k largest
+    logits) (``ref.uncertainty_partials_ref``), which ``merge_partials``
+    joins over the cuts into ``uncertainty``'s outputs."""
+    _check(logits, tokens, k)
+    if logits.device.type == "cpu":
+        counts.plain += 1
+        partial_counts.plain += 1
+        return R.uncertainty_partials_ref(logits, tokens, k=k, col0=col0)
+    out = _launch(logits, tokens, k,
+                  uncertainty_plan(tokens.numel(), logits.shape[-1], k,
+                                   logits.dtype), partials=True, col0=col0)
+    partial_counts.launches += 1
+    return out
+
+
+def merge_partials(parts: torch.Tensor, *, k: int, V: int):
+    """(h_token, v_topk, h_dist) of whole rows from the partials of every
+    cut of their vocabulary, ``parts`` (n, ..., k + 4) f32
+    (``uncertainty_partials``), merged as the kernel merges its splits
+    (``_merge``): the largest m, l and s rescaled to it, the k largest of
+    the cuts' top-k, the chosen logit from the cut that holds it; h_dist
+    normalised by log V of the whole vocabulary ``V``."""
+    m, l, s = (parts[..., i].movedim(0, -1) for i in range(3))
+    M, L, Ssum, top = _merge(m, l, s, parts[..., 4:].movedim(0, -2), k)
+    chosen = parts[..., 3].amax(0)
+    log_l = torch.log(L.clamp(min=1e-30))
+    logp = chosen - M - log_l
+    h = -logp.exp() * logp
+    hd = (log_l + M - Ssum / L.clamp(min=1e-30)) / math.log(V)
+    v = ((top - top.mean(-1, keepdim=True)) ** 2).mean(-1)
     return h, v, hd
 
 
@@ -204,36 +260,43 @@ def _merge(m, l, s, top, k: int):
 
 
 def split_merge(logits: torch.Tensor, tokens: torch.Tensor, *, k: int = 10,
-                plan: UncertaintyPlan | None = None):
+                plan: UncertaintyPlan | None = None, cuts: int = 1):
     """(h_token, v_topk, h_dist) as the kernel computes them, in f32 on the
     CPU: each thread's partial state over the logits ``plan.owned`` gives
     it, merged per warp, then the row's warps of every block of the
     cluster merged by rank 0, and its epilogue.  The kernel takes a warp's
     top-k through a candidate buffer filtered against a lower bound of its
     k-th value: the same values as the k largest of its threads' lists,
-    which the mirror merges.  ``plan`` defaults to ``uncertainty_plan``'s."""
+    which the mirror merges.  ``cuts`` > 1 cuts each row's vocabulary into
+    that many equal runs, as the ranks of a vocabulary cut over 'model'
+    hold it: each run's state is the partials mode's over it (a plan of
+    its own width, ``plan`` when given), and ``merge_partials`` joins
+    them.  ``plan`` defaults to ``uncertainty_plan``'s."""
     V = logits.shape[-1]
+    if V % cuts:
+        raise ValueError(f"{cuts} cuts do not divide V={V}")
+    Vl = V // cuts
     lf = logits.detach().float().cpu().reshape(-1, V)
     tok = tokens.detach().cpu().reshape(-1).long()
     rows = lf.shape[0]
     if plan is None:
-        plan = uncertainty_plan(rows, V, k, logits.dtype)
-    _check_plan(plan, rows, V, logits.dtype)
-    h, v, hd = (torch.empty(rows) for _ in range(3))
-    for r in range(rows):
-        warps = []
-        for sp in range(plan.splits):
-            idx = plan.owned(r, sp)
-            mask = idx >= 0
-            st = _partial(lf[r][idx.clamp(min=0)], mask, k)     # threads
-            warps.append(_merge(*(t.reshape(WARPS, 32, *t.shape[1:])
-                                  for t in st), k))              # warps
-        m, l, s, top = _merge(*(torch.cat(t) for t in zip(*warps)), k)
-        chosen = lf[r, tok[r]] if 0 <= tok[r] < V else torch.tensor(NEG)
-        log_l = torch.log(l.clamp(min=1e-30))
-        logp = chosen - m - log_l
-        h[r] = -logp.exp() * logp
-        hd[r] = (log_l + m - s / l.clamp(min=1e-30)) / math.log(V)
-        v[r] = ((top - top.mean()) ** 2).mean()
+        plan = uncertainty_plan(rows, Vl, k, logits.dtype)
+    _check_plan(plan, rows, Vl, logits.dtype)
+    parts = torch.empty(cuts, rows, k + 4)
+    for c in range(cuts):
+        for r in range(rows):
+            z = lf[r, c * Vl:(c + 1) * Vl]
+            warps = []
+            for sp in range(plan.splits):
+                idx = plan.owned(r, sp)
+                mask = idx >= 0
+                st = _partial(z[idx.clamp(min=0)], mask, k)      # threads
+                warps.append(_merge(*(t.reshape(WARPS, 32, *t.shape[1:])
+                                      for t in st), k))          # warps
+            m, l, s, top = _merge(*(torch.cat(t) for t in zip(*warps)), k)
+            loc = int(tok[r]) - c * Vl
+            chosen = z[loc] if 0 <= loc < Vl else torch.tensor(NEG)
+            parts[c, r] = torch.cat([torch.stack([m, l, s, chosen]), top])
+    h, v, hd = merge_partials(parts, k=k, V=V)
     lead = tokens.shape
     return h.reshape(lead), v.reshape(lead), hd.reshape(lead)

@@ -77,9 +77,9 @@ def case(gen, B, V, dtype=torch.float32, k=10):
                         dtype=torch.int32)
     out = [torch.empty(B, device=dev) for _ in range(3)]
     plan = ops.uncertainty_plan(B, V, k, dtype)
-    args = (lg.data_ptr(), tok.data_ptr(), *(o.data_ptr() for o in out), B,
-            V, k, plan.splits, plan.chunk, build.dtype_code(lg), math.log(V),
-            torch.cuda.current_stream().cuda_stream)
+    args = (lg.data_ptr(), tok.data_ptr(), *(o.data_ptr() for o in out),
+            None, B, V, k, plan.splits, plan.chunk, build.dtype_code(lg), 0,
+            math.log(V), torch.cuda.current_stream().cuda_stream)
     return plan, args, (lg, tok, out)
 
 

@@ -31,6 +31,22 @@ Masked scores use the finite -1e30 of the reference, never -inf: a
 bucket-padding query (negative position, nothing to attend) then comes out
 as the mean of v instead of NaN, and no NaN can reach real rows through a
 0 * NaN in the next layer's products.
+
+**Sequence-sharded caches on a mesh.**  A layer whose KV heads the model
+axes cannot take (``transformer.shard_params`` attaches a
+``sharding.SeqCut`` as ``.seq``) keeps every KV head on every rank, and
+its cache's slots as the reference's ``act_kv_seq`` places them: a
+``SeqKVCache`` holds rank r's run [r T/m, (r + 1) T/m) of a T-slot cache
+where m divides T (route (s)), a ``KVCache`` all T slots where it does not
+(route (w)).  Each rank writes the new K/V into its own slots only.  Where
+its query heads are cut too (``.tp``), decode and the warm continuation
+gather q over the model axes and attend every head, and the rank keeps its
+heads' output for the row-parallel ``wo``; a cold prefill attends the
+span's own K/V, which every rank holds, with its own heads only.  Over a
+``SeqKVCache`` the decode and positions-mode kernels also return each
+row's log-sum-exp, and the ranks merge their partial outputs
+(``sharding.merge_attention``).  The paged pool has no sequence axis
+(the reference's ``PAGED_KV_AXES``): such a layer attends the whole pool.
 """
 
 from __future__ import annotations
@@ -40,7 +56,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from repro_torch.distributed.sharding import row_parallel
+from repro_torch.distributed.sharding import merge_attention, row_parallel
 from repro_torch.kernels.decode_attention.ops import (decode_attention,
                                                       paged_decode_attention)
 from repro_torch.kernels.flash_attention.ops import (flash_attention,
@@ -83,12 +99,29 @@ class KVCache(NamedTuple):
     pos: torch.Tensor        # (B, T) int32 absolute positions, -1 = empty
 
 
+class SeqKVCache(KVCache):
+    """A rank's run of a sequence-sharded KV cache (module docstring): rank
+    r of the m ranks of its layer's ``.seq`` holds slots [r T_l, (r + 1)
+    T_l) of a cache of T = m T_l slots (a ring's window slots for a local
+    layer), of every KV head."""
+    __slots__ = ()
+
+
 def init_kv_cache(cfg: ModelConfig, batch: int, length: int, local: bool,
                   device=None) -> KVCache:
+    """k/v zeros and pos -1 over ``length`` slots (a local layer's ring: at
+    most ``cfg.window``).  A rank config whose attention cuts its cache's
+    slots (``kv_seq_shards`` m > 1, ``transformer.shard_params``) gives
+    the rank's ``SeqKVCache`` of length / m slots where m divides the
+    length, and the whole cache where it does not."""
     if local and cfg.window is not None:
         length = min(length, cfg.window)
+    m = getattr(cfg, "kv_seq_shards", 1)
+    kind = KVCache
+    if m > 1 and length % m == 0:
+        length, kind = length // m, SeqKVCache
     K, Dh = cfg.num_kv_heads, cfg.head_dim
-    return KVCache(
+    return kind(
         k=torch.zeros((batch, length, K, Dh), dtype=cfg.dtype, device=device),
         v=torch.zeros((batch, length, K, Dh), dtype=cfg.dtype, device=device),
         pos=torch.full((batch, length), -1, dtype=torch.int32, device=device),
@@ -132,34 +165,46 @@ def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     return q, k, v.contiguous()
 
 
+def _slots(p: Attention, cache: KVCache) -> tuple[int, int]:
+    """(the first slot ``cache`` holds, the whole cache's slot count T): a
+    ``SeqKVCache`` is the rank's run of T / m slots (``p.seq``), any other
+    cache all of them."""
+    T = cache.k.shape[1]
+    if not isinstance(cache, SeqKVCache):
+        return 0, T
+    return p.seq.index * T, p.seq.shards * T
+
+
 def _scatter_kv(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
-                positions: torch.Tensor, cfg: ModelConfig,
-                local: bool) -> KVCache:
+                positions: torch.Tensor, cfg: ModelConfig, local: bool,
+                first: int = 0, T: int | None = None) -> KVCache:
     """Write roped span K/V into the cache at slot = position (ring slot =
     position % T for windowed layers), in place.  Negative positions (and,
     like JAX's dropped out-of-bounds scatter, positions past the cache) are
-    not written.
+    not written.  ``first`` / ``T`` (``_slots``): the cache holds slots
+    [first, first + its length) of a T-slot cache, and writes no other.
 
     No host sync, so a captured prefill can run it: every column writes,
     and a dropped column repeats the write of its row's last kept column
     (the same value to the same slot, so the duplicate is harmless).  A row
     with no kept column rewrites one slot with the value already there."""
     B, S = positions.shape
-    T = cache.k.shape[1]
+    Tl = cache.k.shape[1]
+    T = Tl if T is None else T
     ring = local and cfg.window is not None
     if ring and S > T:
         # only the last T positions survive a stepwise ring fill
         pmax = positions.max(dim=1, keepdim=True).values
         positions = torch.where(positions > pmax - T, positions, -1)
     slot = positions % T if ring else positions
-    keep = (positions >= 0) & (slot < T)
+    keep = (positions >= 0) & (slot >= first) & (slot < first + Tl)
     # each row's kept column with the highest position (column 0 if none)
     rep = torch.where(keep, positions, torch.iinfo(positions.dtype).min
                       ).argmax(dim=1, keepdim=True)
     col = torch.where(keep, torch.arange(S, device=positions.device), rep)
     any_keep = keep.any(dim=1)[:, None]
     b = torch.arange(B, device=positions.device)[:, None].expand(B, S)
-    sl = slot.gather(1, col).clamp(0, T - 1)
+    sl = (slot.gather(1, col) - first).clamp(0, Tl - 1)
     for t, val in ((cache.k, k), (cache.v, v), (cache.pos, positions)):
         new = val[b, col].to(t.dtype)
         old = t[b, sl]
@@ -244,16 +289,59 @@ def _attn_forward(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     if prefill:
         pos0 = positions[0].contiguous()
         out = flash_attention_positions(
-            q, k, v, q_positions=pos0, kv_positions=pos0, causal=cfg.causal,
-            window=window)
+            q, *_kv_of_heads(p, k, v), q_positions=pos0, kv_positions=pos0,
+            causal=cfg.causal, window=window)
     elif train:
         out = chunked_attention(
             q, k, v, q_positions=positions[0], kv_positions=positions[0],
             causal=cfg.causal, window=window, q_block=cfg.attn_q_block,
             kv_block=cfg.attn_kv_block)
     else:
-        out = flash_attention(q, k, v, causal=cfg.causal, window=window)
+        out = flash_attention(q, *_kv_of_heads(p, k, v), causal=cfg.causal,
+                              window=window)
     return x + _attn_out(p, out), k, v
+
+
+def _cut_heads(p: Attention):
+    """The ``Split`` of a layer's query heads where they are cut over the
+    model axes while its KV heads stay whole (``p.seq`` and ``p.tp``),
+    else None."""
+    return getattr(p, "tp", None) if getattr(p, "seq", None) else None
+
+
+def _kv_of_heads(p: Attention, k: torch.Tensor, v: torch.Tensor):
+    """k, v (B,T,K,Dh) for the rank's query heads: where they are cut
+    (``_cut_heads``) the KV head each of them reads, (B,T,H/m,Dh) with one
+    query head per KV head; k, v themselves otherwise."""
+    tp = _cut_heads(p)
+    if tp is None:
+        return k, v
+    G = tp.size * tp.shards // k.shape[2]
+    idx = torch.arange(tp.start, tp.start + tp.size, device=k.device) // G
+    return k.index_select(2, idx), v.index_select(2, idx)
+
+
+def _heads_whole(p: Attention, q: torch.Tensor) -> torch.Tensor:
+    """q (B,S,H/m,Dh) of the rank's cut query heads gathered into every
+    head's (B,S,H,Dh) (``_cut_heads``); q itself otherwise."""
+    tp = _cut_heads(p)
+    return q if tp is None else tp.gather(q.contiguous(), 2)
+
+
+def _heads_mine(p: Attention, out: torch.Tensor) -> torch.Tensor:
+    """The rank's query heads of every head's attention output (B,S,H,Dh)
+    (``_cut_heads``); ``out`` itself otherwise."""
+    tp = _cut_heads(p)
+    return out if tp is None else out.narrow(2, tp.start, tp.size)
+
+
+def _merged(p: Attention, cache: KVCache, res):
+    """A kernel's result over ``cache``: over a ``SeqKVCache`` its (o, lse)
+    merged with the other ranks' over their slots, in the cache's dtype;
+    else o."""
+    if not isinstance(cache, SeqKVCache):
+        return res
+    return merge_attention(*res, p.seq.comm, p.seq.axes, cache.k.dtype)
 
 
 def attn_block(p: Attention, x: torch.Tensor, cfg: ModelConfig, *,
@@ -289,16 +377,18 @@ def attn_prefill(p: Attention, x: torch.Tensor, cache: KVCache,
     span sees the cached context, itself, and no empty slot."""
     if not continuation:
         x, k, v = _attn_forward(p, x, cfg, positions, local, prefill=True)
-        _scatter_kv(cache, k, v, positions, cfg, local)
+        _scatter_kv(cache, k, v, positions, cfg, local, *_slots(p, cache))
         return x, cache
     h = rmsnorm(x, p.norm, cfg.norm_eps)
     q, k, v = _project_qkv(p, h, cfg, positions)
-    _scatter_kv(cache, k, v, positions, cfg, local)
-    out = flash_attention_positions(
-        q, cache.k, cache.v, q_positions=positions[0].contiguous(),
+    _scatter_kv(cache, k, v, positions, cfg, local, *_slots(p, cache))
+    out = _merged(p, cache, flash_attention_positions(
+        _heads_whole(p, q), cache.k, cache.v,
+        q_positions=positions[0].contiguous(),
         kv_positions=cache.pos[0].contiguous(), causal=cfg.causal,
-        window=cfg.window if local else None)
-    return x + _attn_out(p, out), cache
+        window=cfg.window if local else None,
+        lse=isinstance(cache, SeqKVCache)))
+    return x + _attn_out(p, _heads_mine(p, out)), cache
 
 
 def _write_slot(t: torch.Tensor, b: torch.Tensor, slot: torch.Tensor,
@@ -317,24 +407,28 @@ def attn_decode(p: Attention, x: torch.Tensor, cache: KVCache,
     """One-token decode.  x (B,1,D); index (B,) int32 absolute position of
     the new token.  The new K/V go into slot ``index`` BEFORE attending, so
     the token sees itself.  A slot past the cache (an idle serve slot that
-    kept decoding) is not written, as JAX drops the out-of-bounds scatter."""
+    kept decoding) is not written, as JAX drops the out-of-bounds scatter;
+    nor is one outside a ``SeqKVCache``'s run (another rank holds it)."""
     B = x.shape[0]
-    T = cache.k.shape[1]
+    Tl = cache.k.shape[1]
+    first, T = _slots(p, cache)
     K, Dh = cfg.num_kv_heads, cfg.head_dim
-    G = cfg.num_heads // K
     h = rmsnorm(x, p.norm, cfg.norm_eps)
     q, k_new, v_new = _project_qkv(p, h, cfg, index[:, None])
     ring = local and cfg.window is not None
-    slot = index % T if ring else index
+    slot = (index % T if ring else index) - first
     b = torch.arange(B, device=x.device)
-    keep = (slot >= 0) & (slot < T)
+    keep = (slot >= 0) & (slot < Tl)
     _write_slot(cache.k, b, slot, k_new[:, 0], keep)
     _write_slot(cache.v, b, slot, v_new[:, 0], keep)
     _write_slot(cache.pos, b, slot, index.to(torch.int32), keep)
-    out = decode_attention(q.reshape(B, K, G, Dh), cache.k, cache.v,
-                           cache.pos, index,
-                           window=cfg.window if ring else None)
-    out = out.reshape(B, 1, cfg.num_heads, Dh).to(x.dtype)
+    q = _heads_whole(p, q)
+    H = q.shape[2]
+    out = _merged(p, cache, decode_attention(
+        q.reshape(B, K, H // K, Dh), cache.k, cache.v, cache.pos, index,
+        window=cfg.window if ring else None,
+        lse=isinstance(cache, SeqKVCache)))
+    out = _heads_mine(p, out.reshape(B, 1, H, Dh)).to(x.dtype)
     return x + _attn_out(p, out), cache
 
 
@@ -530,17 +624,18 @@ def attn_decode_paged(p: Attention, x: torch.Tensor, pool: KVPool,
     quantized pool's scales are folded into the kernel's softmax."""
     B = x.shape[0]
     K, Dh = cfg.num_kv_heads, cfg.head_dim
-    G = cfg.num_heads // K
     h = rmsnorm(x, p.norm, cfg.norm_eps)
     q, k_new, v_new = _project_qkv(p, h, cfg, index[:, None])
     delta.k[:, t] = k_new[:, 0].to(delta.k.dtype)
     delta.v[:, t] = v_new[:, 0].to(delta.v.dtype)
     delta.pos[:, t] = index
     sv = pool.served()
+    q = _heads_whole(p, q)
+    H = q.shape[2]
     out = paged_decode_attention(
-        q.reshape(B, K, G, Dh).to(delta.k.dtype), sv.k, sv.v, sv.pos, table,
-        index, window=cfg.window if local else None, k_scale=sv.k_scale,
-        v_scale=sv.v_scale, delta_k=delta.k, delta_v=delta.v,
-        delta_pos=delta.pos, p0=p0)
-    out = out.reshape(B, 1, cfg.num_heads, Dh).to(x.dtype)
+        q.reshape(B, K, H // K, Dh).to(delta.k.dtype), sv.k, sv.v, sv.pos,
+        table, index, window=cfg.window if local else None,
+        k_scale=sv.k_scale, v_scale=sv.v_scale, delta_k=delta.k,
+        delta_v=delta.v, delta_pos=delta.pos, p0=p0)
+    out = _heads_mine(p, out.reshape(B, 1, H, Dh)).to(x.dtype)
     return x + _attn_out(p, out), delta

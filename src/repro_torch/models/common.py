@@ -164,10 +164,13 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class RankConfig(ModelConfig):
     """A mesh rank's config (``transformer.shard_params``): the model's,
-    with the rank's own heads, widths and SSD groups, and ``ssm_shards``,
-    the ways its SSD heads are cut (``ModelConfig`` derives the SSD's
-    d_inner and heads from ``d_model``, which stays whole)."""
+    with the rank's own heads, widths and SSD groups, ``ssm_shards``, the
+    ways its SSD heads are cut (``ModelConfig`` derives the SSD's d_inner
+    and heads from ``d_model``, which stays whole), and ``kv_seq_shards``,
+    the ways its attention's KV caches cut their slots where they divide
+    them (``attention.init_kv_cache``)."""
     ssm_shards: int = 1
+    kv_seq_shards: int = 1
 
     @property
     def ssm_d_inner(self) -> int:

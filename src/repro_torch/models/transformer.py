@@ -33,8 +33,13 @@ whose dim was cut (attention's heads, the MLP's d_ff, the RG-LRU's width,
 the SSD's heads, the MoE's experts) carries a ``sharding.Split`` as
 ``.tp`` and sums its row-parallel product, gathers its operand or joins
 its experts' rows over the mesh axes, and a model whose vocabulary was
-cut looks its tokens up vocabulary-parallel and gathers its logits
-(``_embed``, ``_logits``).
+cut looks its tokens up vocabulary-parallel and gathers its logits in
+``forward`` and the loss (``_embed``, ``_logits``); the serving steps
+``prefill``, ``decode_step`` and ``paged_decode_step`` return the rank's
+vocabulary columns, which the engine samples and probes
+vocabulary-parallel.  An attention layer whose KV heads
+'model' cannot take keeps them whole and cuts its cache's slots
+(``models/attention.py``, "Sequence-sharded caches").
 Without a ``.tp`` nothing crosses a mesh: a (1, 1) mesh, and every model
 off a mesh, computes as one device does.
 
@@ -54,6 +59,7 @@ hold their addresses.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import torch
 from torch import nn
@@ -202,6 +208,10 @@ def grow_cache(cfg: ModelConfig, cache: list, batch: int, new_len: int,
     out = []
     for tmpl, c in zip(init_cache(cfg, batch, new_len, device=device),
                        cache):
+        if isinstance(tmpl, attention.SeqKVCache) or isinstance(
+                c, attention.SeqKVCache):
+            raise ValueError("a sequence-sharded cache grows through its "
+                             "whole view (its slots move between ranks)")
         if isinstance(c, STATE_TYPES) or tmpl.k.shape == c.k.shape:
             out.append(c)
             continue
@@ -242,13 +252,19 @@ def _embed(params: Transformer, tokens: torch.Tensor) -> torch.Tensor:
     return tp.reduce(rows * mine[..., None].to(rows.dtype))
 
 
+def _head(params: Transformer, cfg: ModelConfig,
+          x: torch.Tensor) -> torch.Tensor:
+    """Final norm and head: on a vocabulary-parallel shard, the logits of
+    the rank's vocabulary range only."""
+    x = rmsnorm(x, params.final_norm, cfg.norm_eps)
+    return x @ Q.cast(params.head(), x.dtype)
+
+
 def _logits(params: Transformer, cfg: ModelConfig,
             x: torch.Tensor) -> torch.Tensor:
-    """Final norm and head.  On a vocabulary-parallel shard the logits of
-    the rank's vocabulary range are gathered along the last dim, so
-    sampling and the probe read whole rows."""
-    x = rmsnorm(x, params.final_norm, cfg.norm_eps)
-    out = x @ Q.cast(params.head(), x.dtype)
+    """``_head`` with a vocabulary-parallel shard's columns gathered along
+    the last dim into whole rows (``forward`` and the loss)."""
+    out = _head(params, cfg, x)
     tp = getattr(params, "tp", None)
     return out if tp is None else tp.gather(out, -1)
 
@@ -478,8 +494,9 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
     a captured prefill cannot do); attention then reads the whole cache.
     Returns (logits (B,S,V), cache); with ``logits_at`` (k,) int, the logits
     of those columns only (B,k,V): the head multiplies k columns, not all
-    S (the engine's prefill reads its last one), and a vocabulary-parallel
-    shard gathers those only."""
+    S (the engine's prefill reads its last one).  On a vocabulary-parallel
+    shard the logits are the rank's vocabulary columns (B,·,V/m), not
+    gathered (``_head``)."""
     if continuation and check:
         check_positions(positions)
     x = embed_inputs(params, cfg, {"tokens": tokens})
@@ -495,7 +512,7 @@ def prefill(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
         x = _ffn(layer, x, cfg, positions)
     if logits_at is not None:
         x = x.index_select(1, logits_at)
-    return _logits(params, cfg, x), cache
+    return _head(params, cfg, x), cache
 
 
 def check_positions(positions: torch.Tensor) -> None:
@@ -516,9 +533,11 @@ def _state_decode(layer: Block, x: torch.Tensor, state, cfg: ModelConfig,
 
 
 def decode_step(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
-                cache: list, index: torch.Tensor) -> tuple[torch.Tensor, list]:
+                cache: list, index: torch.Tensor
+                ) -> tuple[torch.Tensor, list]:
     """tokens (B,1); index (B,) int32 positions -> (logits (B,1,V), cache),
-    the cache updated in place."""
+    the cache updated in place; a vocabulary-parallel shard's logits are
+    its columns (B,1,V/m) (``_head``)."""
     x = embed_inputs(params, cfg, {"tokens": tokens})
     for layer, c, (mixer, _) in zip(params.layers, cache, cfg.layer_plan()):
         if mixer in ATTN:
@@ -527,7 +546,7 @@ def decode_step(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
         else:
             x = _state_decode(layer, x, c, cfg, mixer)
         x = _ffn(layer, x, cfg)
-    return _logits(params, cfg, x), cache
+    return _head(params, cfg, x), cache
 
 
 # ---------------------------------------------------------------------------
@@ -719,13 +738,13 @@ def paged_decode_carry(cfg: ModelConfig, cache: dict, steps: int) -> list:
 
 def paged_decode_step(params: Transformer, cfg: ModelConfig,
                       tokens: torch.Tensor, cache: dict, delta: list,
-                      index: torch.Tensor, t: int,
-                      p0: torch.Tensor) -> tuple[torch.Tensor, list]:
+                      index: torch.Tensor, t: int, p0: torch.Tensor
+                      ) -> tuple[torch.Tensor, list]:
     """Block-table ``decode_step``: tokens (B,1), index (B,) -> (logits
-    (B,1,V), delta).  Attention reads each pool in place through the table
-    (``attention.attn_decode_paged``) and writes the step's K/V into delta
-    row ``t``; a recurrent layer runs the monolithic decode on its carried
-    state rows; both in place."""
+    (B,1,V), delta; a vocabulary-parallel shard's are its columns).  Attention reads each
+    pool in place through the table (``attention.attn_decode_paged``) and
+    writes the step's K/V into delta row ``t``; a recurrent layer runs the
+    monolithic decode on its carried state rows; both in place."""
     x = embed_inputs(params, cfg, {"tokens": tokens})
     for layer, pool, d, (mixer, _) in zip(params.layers, cache["layers"],
                                           delta, cfg.layer_plan()):
@@ -736,7 +755,7 @@ def paged_decode_step(params: Transformer, cfg: ModelConfig,
         else:
             x = _state_decode(layer, x, d, cfg, mixer)
         x = _ffn(layer, x, cfg)
-    return _logits(params, cfg, x), delta
+    return _head(params, cfg, x), delta
 
 
 def paged_scatter_decode(cfg: ModelConfig, cache: dict, delta: list,
@@ -788,7 +807,9 @@ def cache_axes(cfg: ModelConfig) -> list:
     ``act_ssm_inner`` dim holds the rank's x channels and its groups' B/C
     columns (``state_columns``) where the spec would take a contiguous
     cut; a KV cache in case (b) holds the one KV head the rank's query
-    heads read (``shard_params``)."""
+    heads read (``shard_params``).  A KV cache whose heads the model axes
+    cannot take cuts its slots (``act_kv_seq``) as the spec does
+    (``attention.init_kv_cache``)."""
     kv = attention.KVCache(
         k=("act_batch", "act_kv_seq", "act_kv_heads", None),
         v=("act_batch", "act_kv_seq", "act_kv_heads", None),
@@ -837,8 +858,8 @@ def shard_params(model: Transformer, cfg: ModelConfig, mesh, comm=None,
     ``run_layers`` and ``forward``), and its gradient comes back summed over
     the batch axes and cut again.
 
-    Attention takes one of three placements, by the size m of the axes the
-    heads go over:
+    Attention takes one of three placements, by the size m of the model
+    axes (``attention_placement``):
 
     (a) m divides H and K: heads and KV heads are split, each rank's G
         unchanged;
@@ -850,12 +871,17 @@ def shard_params(model: Transformer, cfg: ModelConfig, mesh, comm=None,
         them whole and keeps its head after the projection (``.kv_pick``),
         so their gradient is whole on every rank and the optimizer state
         matches ``training.train.opt_shardings``;
-    (c) m divides neither: attention runs whole on every rank, and only the
-        MLP and the vocabulary are split.
+    (s) any other shape, under ``SERVE_RULES``: the reference's spec.  The
+        KV heads (wk, wv and their biases) stay whole on every rank, and
+        the KV cache cuts its slots over the model axes where m divides
+        them (``attention.SeqKVCache``; the layer gets a
+        ``sharding.SeqCut`` as ``.seq``, the config ``kv_seq_shards`` m);
+        where m divides H, wq, bq and wo are cut by heads too (``.tp``).
 
-    Any other shape raises ``NotImplementedError``: the reference serves it
-    from a sequence-sharded cache (``act_kv_seq``), which needs the decode
-    kernels to return each row's log-sum-exp.
+    Under the training rules a shape that is neither (a) nor (b) runs
+    attention whole on every rank where m does not divide H, and raises
+    ``NotImplementedError`` where it does: the sequence-sharded cache is
+    a serving placement.
 
     The recurrent mixers and the MoE (``models/rglru.py``,
     ``models/ssm.py``, ``models/moe.py``): an RG-LRU holds W/m of its width
@@ -865,7 +891,7 @@ def shard_params(model: Transformer, cfg: ModelConfig, mesh, comm=None,
     columns, its shared expert cut over d_ff as an MLP, and
     ``.data_shards``, the batch axes' size, over which ``moe_block`` splits
     its groups.  A dim the axes do not divide stays whole (the module runs
-    whole on every rank, as attention's case (c)).
+    whole on every rank).
 
     A quantized model (``quant.quantize_params`` of the whole model) is cut
     the same way: a ``QTensor``'s payload like its weight and its row
@@ -938,13 +964,12 @@ def shard_params(model: Transformer, cfg: ModelConfig, mesh, comm=None,
     mods = dict(new.named_modules())
     local = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                  d_ff=cfg.d_ff)
-    serve = rules == sh.SERVE_RULES
     for i, (layer, (mixer, f)) in enumerate(zip(new.layers,
                                                 cfg.layer_plan())):
         pre = f"layers.{i}."
         if mixer in ATTN:
             local.update(_shard_attention(layer.mixer, cfg, pre, part, split,
-                                          cols_cut, mesh, serve))
+                                          cols_cut, mesh, comm, rules))
         elif mixer == "rglru":
             wp = part(pre + "mixer.w_in", 1)
             _, m = sh.shard_index(wp, mesh)
@@ -998,32 +1023,66 @@ def shard_params(model: Transformer, cfg: ModelConfig, mesh, comm=None,
                 if getattr(mod, "fsdp", None) is None:
                     mod.fsdp = sh.FSDP(comm, {})
                 mod.fsdp.leaves[leaf] = (c.dp_dim, c.dp_axes)
-    if local.get("ssm_shards", 1) > 1:
+    if local.get("ssm_shards", 1) > 1 or local.get("kv_seq_shards", 1) > 1:
         new.cfg = RankConfig.of(cfg, **local)
     else:
         local.pop("ssm_shards", None)
+        local.pop("kv_seq_shards", None)
         new.cfg = dataclasses.replace(cfg, **local)
     new.cuts, new.comm, new.rules = cuts, comm, rules
     return new
 
 
-def _shard_attention(att, cfg: ModelConfig, pre: str, part, split, cols_cut,
-                     mesh, serve: bool) -> dict:
-    """Attention's placement (a), (b) or (c) (``shard_params``): attaches
-    its ``Split`` (and in case (b) narrows its KV leaves or sets
-    ``.kv_pick``) and returns the rank's head counts."""
-    H, K = cfg.num_heads, cfg.num_kv_heads
-    hp, kp = part(pre + "mixer.wq", 1), part(pre + "mixer.wk", 1)
-    r, m = sh.shard_index(hp, mesh)
+class Placement(NamedTuple):
+    """Attention's placement over model axes of size m
+    (``attention_placement``): ``kind`` "" (nothing cut, m = 1), "a", "b",
+    "s" (the sequence-sharded cache) or "whole" (training: attention
+    whole on every rank), and the rank's query heads, KV heads and
+    ``kv_seq_shards`` (``common.RankConfig``)."""
+    kind: str
+    heads: int
+    kv_heads: int
+    kv_seq_shards: int = 1
+
+
+def attention_placement(H: int, K: int, m: int,
+                        serve: bool = True) -> Placement:
+    """Where ``shard_params`` puts H query heads on K KV heads over model
+    axes of size m, under the serving rules or (``serve=False``) the
+    training rules; raises ``NotImplementedError`` for the shapes only
+    serving places."""
     if m == 1:
+        return Placement("", H, K)
+    if H % m == 0 and K % m == 0:
+        return Placement("a", H // m, K // m)
+    if H % m == 0 and m % K == 0:
+        return Placement("b", H // m, 1)
+    if serve:
+        return Placement("s", H // m if H % m == 0 else H, K, m)
+    if H % m:
+        return Placement("whole", H, K)
+    raise NotImplementedError(
+        f"{H} heads on {K} KV heads over a {m}-way model axis: training on "
+        "a mesh does not take this shape (serving places it with the "
+        "sequence-sharded KV cache; the training rules have no such cut)")
+
+
+def _shard_attention(att, cfg: ModelConfig, pre: str, part, split, cols_cut,
+                     mesh, comm, rules) -> dict:
+    """Attention's placement (a), (b) or (s) (``shard_params``,
+    ``attention_placement``): attaches its ``Split`` (in case (b) narrows
+    its KV leaves or sets ``.kv_pick``; in case (s) attaches a ``SeqCut``)
+    and returns the rank's head counts and ``kv_seq_shards``."""
+    H, K = cfg.num_heads, cfg.num_kv_heads
+    hp = part(pre + "mixer.wq", 1)
+    seq_axes = sh.kv_seq_axes(mesh, rules)
+    m = sh._axis_size(sh.axis_sizes(mesh), seq_axes)
+    pl = attention_placement(H, K, m, serve=rules == sh.SERVE_RULES)
+    if pl.kind in ("", "whole"):
         return {}
-    H_l = H // m
-    if kp == hp:                                           # (a)
-        K_l = K // m
-    elif kp is None and m % K == 0:                        # (b)
-        K_l = 1
-        kv = [s * H_l // (H // K) for s in range(m)]
-        if serve:
+    if pl.kind == "b":
+        kv = [s * pl.heads // (H // K) for s in range(m)]
+        if rules == sh.SERVE_RULES:
             # the one KV head, a quantized wk/wv's payload and row scales
             # narrowed alike (each scale row is one (d, KV head) row, whole)
             for leaf, dim in (("wk", 1), ("wv", 1), ("bk", 0), ("bv", 0),
@@ -1032,16 +1091,15 @@ def _shard_attention(att, cfg: ModelConfig, pre: str, part, split, cols_cut,
                 cols_cut(pre + "mixer." + leaf, hp, dim,
                          [[h] for h in kv])
         else:
-            att.kv_pick = kv[r]
-    else:
-        raise NotImplementedError(
-            f"{cfg.name}: {H} heads on {K} KV heads over a {m}-way model "
-            "axis need the sequence-sharded KV cache (the reference's "
-            "act_kv_seq fallback), which is not ported: rows 2 and 5 would "
-            "have to return each row's log-sum-exp for a merge over "
-            "'model'")
-    att.tp = split(hp, H_l)
-    return {"num_heads": H_l, "num_kv_heads": K_l}
+            att.kv_pick = kv[sh.shard_index(hp, mesh)[0]]
+    elif pl.kind == "s":
+        att.seq = sh.SeqCut(comm, seq_axes)
+    if hp is not None:                  # the query heads are cut
+        att.tp = split(hp, pl.heads)
+    out = {"num_heads": pl.heads, "num_kv_heads": pl.kv_heads}
+    if pl.kind == "s":
+        out["kv_seq_shards"] = m
+    return out
 
 
 #: an SSD layer's leaves cut by its heads: (leaf, dim, how) — "heads" a

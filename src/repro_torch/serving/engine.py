@@ -55,13 +55,21 @@ The engine runs on CUDA unless the caller passes ``device="cpu"``; with
 ``transformer.shard_params`` places the weights as
 ``sharding.SERVE_RULES`` does (heads, KV heads, d_ff and the vocabulary
 over 'model', the rest replicated), and the model sums its row-parallel
-products and gathers its vocabulary over 'model' (``distributed/
-sharding.py``).  A batch of B is split over 'data' when the data axes
+products over 'model' (``distributed/sharding.py``).  Where the KV heads
+cannot go over 'model', they stay whole on every rank and a monolithic
+cache cuts its slots over it where their count divides them, as the
+reference's ``act_kv_seq`` does: the ranks attend their own slots and
+merge (``models/attention.py``).  Where the vocabulary is cut, a
+dispatch keeps the logits cut: the greedy and sampled tokens and the
+probe (row 3's partials mode) are merged over 'model' each step, and the
+logits, a session's ``last`` and a checkpoint's are gathered once, at the
+end of the dispatch.  A batch of B is split over 'data' when the data axes
 divide B and replicated otherwise (``serve()``'s batch-1 admissions
 replicate); tokens, logits, the probe terms and a session's ``pos`` /
 ``cur`` / ``last`` are gathered, so every rank and the caller see the
 whole result, while a ``SessionState``'s cache holds the rank's own rows
-(``state_select`` gathers the rows it picks and re-splits them).  A paged
+and slots (``state_select`` gathers the rows it picks and re-splits
+them).  A paged
 engine on a mesh keeps a pool of its own on every rank: its share of the
 blocks and state rows over the batch axes and its own KV heads, the rows
 it computes in it (``serving/cache_manager.py``; its data ranks agree on
@@ -77,11 +85,11 @@ Session checkpoints gather the whole view and restore onto any layout.
 On the (1, 1) mesh no collective is issued and the engine is the
 single-device one, CUDA graphs included; on a mesh of more than one rank
 it runs the eager route (``counters["mesh_eager"]`` counts those
-dispatches).  Still refused on a mesh, with ``NotImplementedError``: head
-counts that need the sequence-sharded cache (``transformer.shard_params``)
-and graph capture over more than one rank.  The engine places its weights
-by ``SERVE_RULES``; training on a mesh takes ``shard_params`` under the
-training rules (``training/train.py``).
+dispatches).  Still refused on a mesh, with ``NotImplementedError``: graph
+capture over more than one rank.  The engine places its weights by
+``SERVE_RULES``; training on a mesh takes ``shard_params`` under the
+training rules (``training/train.py``), which refuse the head counts only
+the sequence-sharded cache serves.
 ``weight_quant`` (``"int8"`` / ``"fp8"``, monolithic or paged) serves from
 ``quant.quantize_params``'s copy of the model: the attention, MLP and
 expert matmul weights and an untied head stored per-row quantized and
@@ -263,10 +271,8 @@ class InferenceEngine:
 
     def __post_init__(self):
         if self.mesh is not None:
-            # what the mesh path does not serve yet raises:
-            # ``transformer.shard_params`` the head counts that need the
-            # sequence-sharded cache, ``_no_capture`` a captured dispatch
-            # over more than one rank
+            # what the mesh path does not serve yet raises: ``_no_capture``
+            # a captured dispatch over more than one rank
             sh.check_mesh(self.mesh)
         if not self.cfg.causal:
             raise NotImplementedError(
@@ -320,6 +326,15 @@ class InferenceEngine:
             self.params = T.shard_params(params, self.cfg, self.mesh,
                                          comm=self.comm)
             self._mcfg = self.params.cfg
+        # the vocabulary's cut over 'model' (a dispatch keeps its logits
+        # cut), and the cut of a monolithic cache's slots (a paged pool
+        # has no sequence axis: its views are whole)
+        self._vocab = getattr(self.params, "tp", None)
+        self._kv_seq = next((layer.mixer.seq for layer in self.params.layers
+                             if hasattr(layer.mixer, "seq")), None)
+        if self._kv_seq is not None and self.paged:
+            self._mcfg = dataclasses.replace(self._mcfg, kv_seq_shards=1)
+            self._kv_seq = None
         self.params = self.params.to(self.device)
         if self.weight_quant is not None and self.mesh is None:
             self.params = Q.quantize_params(self.params, self.weight_quant)
@@ -388,7 +403,8 @@ class InferenceEngine:
     def _kv_placement(self) -> "_KVHeads":
         """The KV heads this rank's attention holds: case (a) of
         ``shard_params`` a slice, case (b) the one head its query heads
-        read; case (c), a (1, 1) mesh and one device all of them."""
+        read; case (s) (its cache's slots cut instead), a (1, 1) mesh and
+        one device all of them."""
         K, K_l = self.cfg.num_kv_heads, self._mcfg.num_kv_heads
         if K_l == K:
             return _KVHeads(0, K)
@@ -437,8 +453,16 @@ class InferenceEngine:
         new_len = self._round_len(need)
         self.counters["grow_copy"] += 1
         rows = len(range(state.batch)[self._rows(state.batch)])
-        return (T.grow_cache(self._mcfg, state.cache, rows, new_len,
-                             device=self.device), new_len)
+        if self._kv_seq is None:
+            return (T.grow_cache(self._mcfg, state.cache, rows, new_len,
+                                 device=self.device), new_len)
+        # a cut cache's slots move between ranks as it grows: grow the
+        # whole view and cut it again
+        whole = T.grow_cache(
+            dataclasses.replace(self._mcfg, kv_seq_shards=1),
+            [self._seq_whole(c) for c in state.cache], rows, new_len,
+            device=self.device)
+        return [self._seq_mine(c) for c in whole], new_len
 
     def _bucket(self, prompts: np.ndarray) -> tuple[np.ndarray, int]:
         B, S = prompts.shape
@@ -575,7 +599,7 @@ class InferenceEngine:
         # contiguous: in an f32 model ``.float()`` is the strided view,
         # and the uncertainty kernel takes contiguous rows
         last = logits[:, 0].float().contiguous()
-        return last.argmax(-1).to(torch.int32), last, cache
+        return self._argmax(last), last, cache
 
     def _prefill_absorb(self, tokens, s_orig, max_len: int):
         """Monolithic cold prefill into a fresh (B, max_len) cache; the span
@@ -602,36 +626,72 @@ class InferenceEngine:
                                   continuation=True, check=False,
                                   logits_at=at)
         last = logits[:, 0].float().contiguous()
-        return last.argmax(-1).to(torch.int32), last, cache
+        return self._argmax(last), last, cache
+
+    # ------------------------------------------------------------------
+    # logits whose vocabulary is cut over 'model' (``_vocab``)
+    # ------------------------------------------------------------------
+
+    def _cols(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's vocabulary columns of whole logits ``x`` (..., V);
+        ``x`` itself where the vocabulary is whole."""
+        v = self._vocab
+        return x if v is None else x[..., v.start:v.start + v.size]
+
+    def _vocab_whole(self, x):
+        """Logits of this rank's vocabulary columns joined into whole rows
+        (one all-gather over 'model'); ``x`` itself (or None) where the
+        vocabulary is whole."""
+        if x is None or self._vocab is None:
+            return x
+        return self._vocab.gather(x.contiguous(), -1)
+
+    def _argmax(self, lg: torch.Tensor) -> torch.Tensor:
+        """The greedy tokens of logits ``lg`` (B, V or the rank's columns),
+        int32: ties to the lowest index of the whole row."""
+        if self._vocab is None:
+            return lg.argmax(-1).to(torch.int32)
+        return sh.vocab_argmax(lg, self._vocab).to(torch.int32)
 
     def _next(self, lg: torch.Tensor, greedy: bool,
               gen: torch.Generator | None) -> torch.Tensor:
         if greedy:
-            return lg.argmax(-1).to(torch.int32)
+            return self._argmax(lg)
         # torch.multinomial's one-sample draw (an exponential race over the
         # probabilities, the same numbers), without its validity check: a
-        # host sync, which a captured dispatch cannot hold
-        probs = torch.softmax(lg, dim=-1)
+        # host sync, which a captured dispatch cannot hold.  The noise of
+        # the whole (B, V) batch is drawn on every rank (``_RankDraw``),
+        # each keeping its rows and vocabulary columns
+        v = self._vocab
+        V = lg.shape[-1] if v is None else v.size * v.shards
         if isinstance(gen, _RankDraw):
-            q = probs.new_empty((gen.batch, probs.shape[-1])).exponential_(
+            q = lg.new_empty((gen.batch, V)).exponential_(
                 1, generator=gen.gen)[self._rows(gen.batch)]
         else:
-            q = torch.empty_like(probs).exponential_(1, generator=gen)
-        return (probs / q).argmax(-1).to(torch.int32)
+            q = lg.new_empty((lg.shape[0], V)).exponential_(1, generator=gen)
+        if v is None:
+            return (torch.softmax(lg, dim=-1) / q).argmax(-1).to(torch.int32)
+        # vocabulary-parallel: exp(lg - M) / q with M the whole row's max,
+        # its argmax merged over 'model' (the softmax's sum, a positive
+        # factor of the row, does not move it)
+        M = v.comm.all_reduce(lg.amax(-1), v.axes, op="max")
+        return self._argmax(torch.exp(lg - M[:, None]) / self._cols(q))
 
     def _decode(self, cur, last, pos, steps: int, greedy: bool, gen, step,
                 with_logits: bool = True):
         """The eager decode loop: ``steps`` iterations; ``step(tokens
         (B,1), pos (B,), t)`` runs one model step and returns its logits
         (B,1,V).  cur (B,) token entering the span, last (B,V) its logits,
-        pos (B,) its position.  Emits the tokens (and logits) *entering*
-        each step plus their Eq. 2-3 terms; returns (tokens, logits | None,
-        h, v, (cur, last, pos)), each (B, steps).  No host sync: a
-        dispatch captures it whole (``_dispatch``)."""
+        pos (B,) its position; where the vocabulary is cut over 'model',
+        every logits tensor here is the rank's columns (``_vocab``).  Emits
+        the tokens (and logits) *entering* each step plus their Eq. 2-3
+        terms; returns (tokens, logits | None, h, v, (cur, last, pos)), each
+        (B, steps).  No host sync: a dispatch captures it whole
+        (``_dispatch``)."""
         toks, lgs, hs, vs = [], [], [], []
         for t in range(steps):
             h, v = U.uncertainty_terms(last[:, None, :], cur[:, None],
-                                       self.ucfg)
+                                       self.ucfg, vocab=self._vocab)
             lg = step(cur[:, None], pos, t)[:, -1].float()
             toks.append(cur)
             hs.append(h[:, 0])
@@ -1016,7 +1076,7 @@ class InferenceEngine:
         it is."""
         cut = self._cuts(c)
         if cut is None:
-            return c
+            return self._seq_whole(c)
         axes, _, fields = cut
         return c._replace(**{f: sh.gather_cols(self.comm, getattr(c, f),
                                                axes, d, per)
@@ -1032,7 +1092,29 @@ class InferenceEngine:
             _, r, fields = cut
             c = c._replace(**{f: sh.take_cols(getattr(c, f), d, per[r])
                               for f, (d, per) in fields.items()})
+        c = self._seq_mine(c)
         return type(c)(*(t.contiguous() for t in c))
+
+    def _seq_whole(self, c):
+        """A ``SeqKVCache`` entry's whole cache: its slots gathered over
+        the model axes in rank order (``attention.SeqKVCache``); any other
+        entry as it is."""
+        if not isinstance(c, T.attention.SeqKVCache):
+            return c
+        return T.attention.KVCache(*(self.comm.all_gather(
+            t, self._kv_seq.axes, 1) for t in c))
+
+    def _seq_mine(self, c):
+        """A whole KV cache entry as this rank holds it where its layer
+        cuts the slots (``attention.init_kv_cache``): its run of them where
+        the model axes divide their count; any other entry as it is."""
+        seq = self._kv_seq
+        if seq is None or type(c) is not T.attention.KVCache \
+                or c.k.shape[1] % seq.shards:
+            return c
+        n = c.k.shape[1] // seq.shards
+        return T.attention.SeqKVCache(*(
+            t[:, seq.index * n:(seq.index + 1) * n] for t in c))
 
     @torch.inference_mode()
     def restore_session(self, ckpt_dir: str,
@@ -1084,6 +1166,16 @@ class InferenceEngine:
         tree, _ = ck.restore(ckpt_dir, step, like)
         if gen is not None:
             gen.set_state(tree["gen"])
+        max_len = int(extra["max_len"])
+        if not self.paged and max_len > cov_len:
+            # a monolithic cache is as long as its max_len: a paged-saved
+            # session arrives trimmed to the blocks it covers and grows back
+            # to its max_len (empty slots), so its dispatches keep the
+            # source's shapes (on the card another length tiles the decode
+            # kernel's keys otherwise, and the sums differ in their last
+            # bits)
+            cache = T.grow_cache(self.cfg, cache, B, max_len,
+                                 device=self.device)
         if self.mesh is not None:
             cache = [self._entry_mine(c) for c in cache]
         if self.paged:
@@ -1092,18 +1184,7 @@ class InferenceEngine:
             T.paged_scatter_back(
                 self._mcfg, self._paged_dev_cache(handle.tables, handle.rows),
                 cache, self._full(n, 0), self._full(n, cov_len))
-            cache, max_len = handle, int(extra["max_len"])
-        else:
-            # a monolithic cache is as long as its max_len: a paged-saved
-            # session arrives trimmed to the blocks it covers and grows back
-            # to its max_len (empty slots), so its dispatches keep the
-            # source's shapes (on the card another length tiles the decode
-            # kernel's keys otherwise, and the sums differ in their last
-            # bits)
-            max_len = int(extra["max_len"])
-            if max_len > cov_len:
-                cache = T.grow_cache(self._mcfg, cache, self._nrows(B),
-                                     max_len, device=self.device)
+            cache = handle
         return SessionState(cache, tree["pos"], tree["cur"], tree["last"],
                             max_len, int(extra["offset"]), gen,
                             bool(extra["exact"]))
@@ -1210,6 +1291,7 @@ class InferenceEngine:
                 max_len, max_new, greedy, draw)
             offset = state.offset + s_orig + max_new
         toks, lgs, u, h, v, cur, last, pos = self._whole(out, B)
+        lgs, last = self._vocab_whole(lgs), self._vocab_whole(last)
         res = {"tokens": toks.cpu().numpy(), "u": u.cpu().numpy(),
                "logits": lgs, "h_mean": h.cpu().numpy(),
                "v_mean": v.cpu().numpy(),
@@ -1247,11 +1329,12 @@ class InferenceEngine:
             greedy, seed)
         B = state.batch
         toks, lgs, h_per, v_per, (cur, last, pos) = self._dispatch(
-            self._route, self._mine(state.cur), self._mine(state.last),
-            cache, self._mine(state.pos), max_new, greedy,
-            self._draw(gen, B))
+            self._route, self._mine(state.cur),
+            self._cols(self._mine(state.last)).contiguous(), cache,
+            self._mine(state.pos), max_new, greedy, self._draw(gen, B))
         toks, lgs, h_per, v_per, cur, last, pos = self._whole(
             (toks, lgs, h_per, v_per, cur, last, pos), B)
+        lgs, last = self._vocab_whole(lgs), self._vocab_whole(last)
         res = self._result(toks, lgs, h_per, v_per,
                            np.zeros((state.batch,), np.int64))
         offset = state.offset + max_new
@@ -1312,7 +1395,8 @@ class InferenceEngine:
         if self.paged:
             self.pool.trim(cache, -(-offset // self.block_len))
         cur, last = self._whole((cur, last), B)
-        return SessionState(cache, pos, cur, last, max_len, offset)
+        return SessionState(cache, pos, cur, self._vocab_whole(last),
+                            max_len, offset)
 
     @torch.inference_mode()
     def state_select(self, state: SessionState, idx) -> SessionState:
@@ -1468,7 +1552,7 @@ class InferenceEngine:
             lgs.append(last)
             cur, last = step(cur[:, None], S + n, greedy)
         tokens = torch.stack(toks, dim=1)
-        logits = torch.stack(lgs, dim=1)
+        logits = self._vocab_whole(torch.stack(lgs, dim=1))
         u = U.difficulty(logits, tokens, self.ucfg)
         return {"tokens": tokens.cpu().numpy(), "u": u.cpu().numpy(),
                 "logits": logits,
@@ -1558,7 +1642,9 @@ class InferenceEngine:
         paged = self.paged
         dev = self.device
         cur = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
-        last = torch.zeros((n_slots, self.cfg.vocab_size),
+        # the slots' logits: this rank's vocabulary columns (``_vocab``)
+        last = torch.zeros((n_slots, self.cfg.vocab_size if self._vocab is
+                            None else self._vocab.size),
                            dtype=torch.float32, device=dev)
         pos = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
         # on a mesh whose batch axes divide n_slots, a data rank decodes
@@ -1732,7 +1818,7 @@ class InferenceEngine:
                           else self._prefill_continue)
                     c1, l1, k1 = fn(*self._span(pb, s_orig), st.pos, c1g)
                 elif st is not None:
-                    c1, l1, k1 = st.cur, st.last, c1g
+                    c1, l1, k1 = st.cur, self._cols(st.last), c1g
                 else:
                     span = self._span(pb, s_orig)
                     if paged:
@@ -1796,7 +1882,8 @@ class InferenceEngine:
                                                    -(-end // self.block_len))
                     states[req.rid] = SessionState(
                         handle, self._full(1, end), cur[i:i + 1].clone(),
-                        last[i:i + 1].clone(), max_len, end, exact=exact)
+                        self._vocab_whole(last[i:i + 1]).clone(), max_len,
+                        end, exact=exact)
                 free_slot(i)
             if step_time_ms is not None:
                 # the simulated clock: each decode step costs step_time_ms,

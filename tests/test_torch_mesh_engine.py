@@ -9,20 +9,31 @@
   and tie-aware equal to the JAX engine within the reference's budget.
 * Multi-rank (one subprocess, ``tests/torch_mesh_ranks.py``): 4 gloo ranks
   over a ``FileStore`` on meshes (data=2, model=2), (1, 4) and (4, 1) —
-  attention cases (a), (b) and (c) of ``shard_params`` — against the
+  attention cases (a), (b) and (s) of ``shard_params`` (the smollm smoke's
+  H3/K1 takes the sequence-sharded cache at model=2 and 4) — against the
   single-device engine: tokens tie-aware (logits within 0.01 before a
   flip), ``u`` within 1e-4 on f32 copies, ``serve()`` with 2 slots over
-  data=4 (the batch replicated) and 4 slots, each rank's shapes the full
-  ones divided as the specs say; then the gateway on a (data=1, model=2)
-  mesh: the same routing decisions and tokens as the single-device one.
+  data=4 (the batch replicated) and 4 slots, each rank's shapes (weights
+  and KV caches) the full ones divided as the specs say; then the gateway
+  on a (data=1, model=2) mesh: the same routing decisions and tokens as
+  the single-device one.
+* The sequence-sharded cache and the vocabulary-parallel probe
+  (``torch_mesh_ranks.py seq2`` and ``seq4`` on the JAX package's
+  weights): H6/K3 on (2, 2) at 128 and 31 slots (routes (s) and (w)), the
+  smollm smoke on (1, 2) and (1, 4), greedy and sampled, the
+  recurrentgemma smoke at H6/K1 on (1, 4) with a wrapped ring, sessions
+  saved on those layouts restored on one device, (2, 1), (1, 4) and
+  (2, 2) — against one device in the ranks, and their cold generates
+  against the JAX engine on one device here (its own mesh path fails
+  under jax 0.9.0).
 * Paged pools, quantized weights and pools and session checkpoints build
   and run on the (1, 1) mesh here (``tests/test_torch_mesh_paged.py``
   holds them to one device and to JAX), and so do the recurrent and MoE
   decoders (``tests/test_torch_mesh_mixers.py`` holds them); what the mesh
-  path does not serve yet raises ``NotImplementedError`` naming it (MoE
-  training on a mesh, the sequence-sharded cache, the FSDP rules, graph
-  capture over more than one rank); a mesh that is not a ``DeviceMesh``
-  raises ``TypeError``.
+  path does not serve yet raises ``NotImplementedError`` naming it (the
+  training rules' head counts that only the sequence-sharded cache
+  serves, graph capture over more than one rank); a mesh that is not a
+  ``DeviceMesh`` raises ``TypeError``.
 * The serve CLI with ``--model-parallel 2 --paged --cache-quant int8`` on
   two gloo ranks routes the study workload as one device does.
 """
@@ -115,10 +126,11 @@ def test_degenerate_mesh_matches_jax_tie_aware(tier):
                                     _logits_np(je.generate(PROMPTS, 8)))
 
 
-def _ranks(job: str, timeout: int = 300):
+def _ranks(job: str, *args, timeout: int = 300):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     proc = subprocess.run([sys.executable, str(ROOT / "tests" /
-                                               "torch_mesh_ranks.py"), job],
+                                               "torch_mesh_ranks.py"), job,
+                           *map(str, args)],
                           env=env, capture_output=True, text=True,
                           timeout=timeout)
     assert proc.returncode == 0, (proc.stdout[-2000:], proc.stderr[-4000:])
@@ -217,3 +229,75 @@ def test_serve_cli_paged_int8_on_two_ranks():
     --paged --cache-quant int8`` (40 train steps) on two gloo ranks: the
     routing decisions and answers of the same command on one device."""
     assert "cli routes" in _ranks("cli", timeout=600)
+
+
+def _seq_weights(path: Path) -> dict:
+    """{name: (JAX config, JAX params)} of ``torch_mesh_ranks.SEQ``'s
+    smokes in f32 at vocabulary 512 (a recurrent smoke's matrices but the
+    embedding and the convs scaled by 6, as ``mixer_model`` scales them),
+    each converted into ``path``/<name>.pt for the ranks."""
+    import jax.numpy as jnp
+    from repro import configs as C
+    from repro.models import transformer as JT
+    from repro_torch.convert import from_jax_params
+    from torch_mesh_ranks import SEQ, seq_config
+    out = {}
+    for i, (name, (arch, heads)) in enumerate(SEQ.items()):
+        jc = dataclasses.replace(C.get_smoke(arch), vocab_size=512,
+                                 dtype=jnp.float32,
+                                 attn_prefill_impl="flash", **heads)
+        p = jax.jit(JT.init_params, static_argnums=0)(
+            jc, jax.random.PRNGKey(20 + i))
+        if arch == "recurrentgemma-2b":
+            def scale(path, a):
+                key = jax.tree_util.keystr(path)
+                big = a.ndim >= 2 and "embed" not in key and "conv" not in key
+                return a * 6 if big else a
+            p = jax.tree_util.tree_map_with_path(scale, p)
+        tc = seq_config(name, torch.float32)
+        torch.save(from_jax_params(jax.tree.map(np.asarray, p),
+                                   tc).state_dict(), path / f"{name}.pt")
+        out[name] = (jc, p)
+    return out
+
+
+def test_sequence_sharded_cache_matches_one_device_and_jax(tmp_path):
+    """The ``seq2`` then ``seq4`` rank jobs (2 and 4 gloo ranks) on the
+    JAX package's weights; every mesh generate they wrote (f32, tokens
+    and logits, ``u``, h and v means) against the JAX engine's on one
+    device: tokens tie-aware with logits within 1e-4 before a flip, h
+    within 1e-4 and v within 5e-3."""
+    from repro.core.uncertainty import UncertaintyConfig as JU
+    from repro.serving.engine import InferenceEngine as JEngine
+    pairs = _seq_weights(tmp_path)
+    out2 = _ranks("seq2", tmp_path, timeout=400)
+    out4 = _ranks("seq4", tmp_path, timeout=600)
+    for want in ("seq smollm 1x2", "ckpt smollm12 ok"):
+        assert want in out2, out2
+    for want in ("seq odd 2x2 {} T=128 cut=2/2", "seq odd 2x2 {'max_len': 31}"
+                 " T=31 cut=0/2", "seq odd 2x2 paged ok", "seq smollm 1x4",
+                 "seq rg 1x4",
+                 "ckpt rg14 ok", "ckpt odd22 ok",
+                 "ckpt smollm12 -> (1,4) ok"):
+        assert want in out4, out4
+    files = sorted(tmp_path.glob("out_*.npz"))
+    assert len(files) == 5, files
+    for f in files:
+        name = f.stem.split("_")[1]
+        jc, p = pairs[name]
+        with np.load(f) as z:
+            got = dict(z)
+        max_new = got["tokens"].shape[1]
+        ref = JEngine(name, jc, p, JU(mode="distribution")).generate(
+            PROMPTS, max_new)
+        assert_greedy_match_modulo_ties(
+            got, {"tokens": np.asarray(ref["tokens"]),
+                  "logits": np.asarray(ref["logits"], np.float32)},
+            atol=1e-4)
+        same = np.all(got["tokens"] == np.asarray(ref["tokens"]), axis=1)
+        np.testing.assert_allclose(got["h"][same],
+                                   np.asarray(ref["h_mean"])[same],
+                                   atol=1e-4, rtol=0, err_msg=f.name)
+        np.testing.assert_allclose(got["v"][same],
+                                   np.asarray(ref["v_mean"])[same],
+                                   atol=5e-3, rtol=0, err_msg=f.name)

@@ -8,7 +8,8 @@
   sharded step does not run here, and XLA's partitioning does not change
   the math.
 * Gloo ranks against one device (``torch_mesh_ranks.py train``: dense
-  case (b) and (c) on (2, 2), (1, 4), (4, 1) and (2, 2, 1), RG-LRU, SSD
+  case (b) and attention whole on every rank (the training rules' smollm
+  H3/K1) on (2, 2), (1, 4), (4, 1) and (2, 2, 1), RG-LRU, SSD
   and MoE on (2, 2), microbatches (two-hop batches too, whose rows hold
   unequal token counts), MoE groups = the data shards; its
   ``train_case`` states the budgets).

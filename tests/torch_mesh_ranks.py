@@ -12,6 +12,9 @@ port's mesh-sharded engine and gateway against its single-device ones.
     python tests/torch_mesh_ranks.py mixers    # 4 ranks: RG-LRU, SSD, MoE
     python tests/torch_mesh_ranks.py mixers_ckpt DIR  # 2 ranks: recurrent
                                                       # sessions, meshes
+    python tests/torch_mesh_ranks.py seq2 DIR  # 2 ranks: the sequence-sharded
+    python tests/torch_mesh_ranks.py seq4 DIR  # cache, 4 ranks (weights and
+                                               # outputs in DIR; seq2 first)
 
 Spawns its ranks over a ``FileStore`` in a temporary directory (no socket
 but gloo's own on the loopback device); every rank builds the same
@@ -185,6 +188,36 @@ def state_width(cfg, kind, mesh) -> dict:
             "conv": (cfg.ssm_conv_width - 1, h * P + 2 * N)}
 
 
+def check_kv_shapes(eng, state, mesh):
+    """Every KV entry of a monolithic session (``state``) is the slice of
+    the whole cache its spec gives (``cache_axes`` under the serving rules:
+    the KV heads over 'model', else the slots), but case (b)'s one KV head
+    over every slot; a cache whose slots are cut is a ``SeqKVCache``."""
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as T
+    cfg = eng.cfg
+    B, K, D = state.batch, cfg.num_kv_heads, cfg.head_dim
+    for c, (mixer, _), axes in zip(state.cache, cfg.layer_plan(),
+                                   T.cache_axes(cfg)):
+        if mixer not in T.ATTN:
+            continue
+        Tw = state.max_len
+        if mixer == "attn_local" and cfg.window is not None:
+            Tw = min(Tw, cfg.window)
+        whole = (B, Tw, K, D)
+        spec = sh.spec_for(whole, axes.k, mesh, sh.SERVE_RULES.act_rules)
+        want = [sl.stop - sl.start for sl in sh.local_slices(
+            whole, spec, mesh)]
+        m = sh.axis_sizes(mesh).get("model", 1)
+        if T.attention_placement(cfg.num_heads, K, m).kind == "b":
+            want[1:3] = [Tw, 1]                 # its one KV head, whole
+        assert tuple(c.k.shape) == tuple(want), (tuple(c.k.shape), want,
+                                                 spec)
+        assert tuple(c.pos.shape) == tuple(want[:2])
+        assert isinstance(c, A.SeqKVCache) == (want[1] < Tw), type(c)
+
+
 def check_state_shapes(cfg, cache, mesh):
     """Every recurrent entry of a cache list (or pool) holds the rank's
     width or heads (``state_width``)."""
@@ -222,6 +255,7 @@ def engines_case(mesh, arch: str, seed: int, kw=None,
         r1 = shard.generate(PROMPTS, 8, return_state=True)
         if not kw.get("paged"):
             check_state_shapes(cfg, r1["state"].cache, mesh)
+            check_kv_shapes(shard, r1["state"], mesh)
         tie_aware(r1, r0, tag + " generate")
         if dtype == torch.float32:
             np.testing.assert_allclose(r1["u"], r0["u"], atol=1e-4,
@@ -662,13 +696,15 @@ def run_engines(rank: int, world: int, arg=None):
 
 def refusals(mesh):
     """On the (2, 2) mesh: heads that neither split with their KV heads nor
-    share one per rank (H6/K3 over model=2) need the sequence-sharded
-    cache; a graph handed to an engine of more than one rank is not
+    share one per rank (H6/K3 over model=2), which serving places with the
+    sequence-sharded cache (``run_seq4``), are refused by the training
+    rules; a graph handed to an engine of more than one rank is not
     captured.  Each raises NotImplementedError naming what is missing.
     The FSDP rules (DEFAULT_RULES cut d_model over 'data'), once refused
     here, cut the training shard: its leaves are the spec slices of the
     whole (``fsdp_slices``)."""
     from repro_torch import configs as C
+    from repro_torch.distributed import sharding as sh
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import InferenceEngine
     from repro_torch.serving import graphs
@@ -683,9 +719,9 @@ def refusals(mesh):
         eng.generate(PROMPTS, 2)
     for build, what in (
             (captured, "graph capture over more than one rank"),
-            (lambda: InferenceEngine("x", odd, T.Transformer(odd),
-                                     device="cpu", mesh=mesh),
-             "sequence-sharded")):
+            (lambda: T.shard_params(T.Transformer(odd), odd, mesh,
+                                    rules=sh.DEFAULT_RULES),
+             "training on a mesh")):
         try:
             build()
         except NotImplementedError as e:
@@ -952,7 +988,8 @@ def run_mixers_ckpt(rank: int, world: int, arg: str):
 # ---------------------------------------------------------------------------
 
 #: (arch, mesh, microbatches, two-hop batches): dense case (b) (llama3-8b
-#: H4/K1 at model=2 and 4) and case (c) (smollm-135m H3/K1) on every 4-rank
+#: H4/K1 at model=2 and 4) and attention whole on every rank (smollm-135m
+#: H3/K1: the training rules' placement of that shape) on every 4-rank
 #: shape and a pod mesh; the recurrent and MoE families on (2, 2); two-hop
 #: batches (statements of 6 and 7 tokens) give the rows unequal loss-mask
 #: counts, so a microbatch of other rows than one device's has another
@@ -1273,6 +1310,194 @@ def _bits_equal(x, y) -> bool:
         y.view(torch.int16) if y.dtype == torch.bfloat16 else y)
 
 
+# ---------------------------------------------------------------------------
+# The sequence-sharded KV cache and the vocabulary-parallel probe
+# ---------------------------------------------------------------------------
+
+#: name -> (the smoke, its head counts): the swarm-edge-1b smoke at H6/K3
+#: (model=2 divides H but neither splits the KV heads nor is split by
+#: them: q cut by heads, the slots cut), the smollm smoke (H3/K1: 2 and 4
+#: divide neither; heads whole, the slots cut) and the recurrentgemma smoke
+#: at H6/K1 (4 divides neither: its local layers' 32-slot ring cut 8 a
+#: rank; the smoke's own H4/K1 is case (b) at model=4)
+SEQ = {"odd": ("swarm-edge-1b", dict(num_heads=6, num_kv_heads=3)),
+       "smollm": ("smollm-135m", {}),
+       "rg": ("recurrentgemma-2b", dict(num_heads=6))}
+
+
+def seq_config(name: str, dtype):
+    from repro_torch import configs as C
+    arch, heads = SEQ[name]
+    return dataclasses.replace(C.get_smoke(arch), vocab_size=512,
+                               dtype=dtype, **heads)
+
+
+def seq_model(arg: str, name: str, dtype):
+    """``SEQ[name]``'s smoke in ``dtype`` with the f32 weights the test
+    wrote to ``arg``/<name>.pt (the JAX package's, converted; a recurrent
+    smoke's matrices scaled as ``mixer_model`` scales them)."""
+    from repro_torch.models import transformer as T
+    cfg = seq_config(name, dtype)
+    m = T.Transformer(dataclasses.replace(cfg, dtype=torch.float32))
+    m.load_state_dict(torch.load(os.path.join(arg, name + ".pt")))
+    return cfg, m.to(dtype)
+
+
+def seq_out(mesh, name: str, arg: str, rank: int, kw=None,
+            max_new: int = 8):
+    """``name``'s f32 engine on ``mesh`` against one device's: a cold
+    ``generate`` tie-aware with ``u`` within 1e-4, each rank's KV entries
+    the spec's slices, a decode-only extension whose collectives include a
+    merge per attention layer and step (over a cut cache) and a probe and
+    a token merge per step (over a cut vocabulary), and a longer one that
+    grows the cache (past ``max_len``: its slots re-cut).  Rank 0 writes
+    the generate's outputs to ``arg``/out_<name>_<mesh>_<T>.npz for the
+    test to hold to the JAX engine."""
+    from repro_torch.core.uncertainty import UncertaintyConfig
+    from repro_torch.models import attention as A
+    from repro_torch.serving.engine import InferenceEngine
+    kw = kw or {}
+    ucfg = UncertaintyConfig(mode="distribution")
+    cfg, m = seq_model(arg, name, torch.float32)
+    base = InferenceEngine(name, cfg, m, ucfg, device="cpu", **kw)
+    shard = InferenceEngine(name, cfg, m, ucfg, device="cpu", mesh=mesh,
+                            **kw)
+    shape = "x".join(map(str, mesh.shape))
+    tag = f"{name} {shape} {kw}"
+    r1 = shard.generate(PROMPTS, max_new, return_state=True)
+    r0 = base.generate(PROMPTS, max_new, return_state=True)
+    tie_aware(r1, r0, tag + " seq generate")
+    np.testing.assert_allclose(r1["u"], r0["u"], atol=1e-4, rtol=0,
+                               err_msg=tag)
+    st = r1["state"]
+    check_kv_shapes(shard, st, mesh)
+    cut = [isinstance(c, A.SeqKVCache) for c in st.cache]
+    n_attn = sum(cut)
+    shard.comm.reset()
+    e1 = shard.generate(None, 3, state=st, return_state=True)
+    gathers = shard.comm.stats["all_gather"]
+    vocab = shard._vocab is not None
+    assert gathers >= 3 * (n_attn + 2 * vocab), (tag, shard.comm.stats)
+    e0 = base.generate(None, 3, state=r0["state"], return_state=True)
+    tie_aware(e1, e0, tag + " seq extension")
+    grow = st.max_len - st.offset + 1          # past max_len: it grows
+    g1 = shard.generate(None, grow, state=e1["state"], return_state=True)
+    g0 = base.generate(None, grow, state=e0["state"])
+    if np.array_equal(e1["tokens"], e0["tokens"]):
+        tie_aware(g1, g0, tag + " seq grown extension")
+    assert g1["state"].max_len > st.max_len, (g1["state"].max_len, tag)
+    check_kv_shapes(shard, g1["state"], mesh)
+    if rank == 0:
+        np.savez(os.path.join(arg, f"out_{name}_{shape}_{st.max_len}.npz"),
+                 tokens=r1["tokens"], logits=r1["logits"].numpy(),
+                 u=r1["u"], h=r1["h_mean"], v=r1["v_mean"],
+                 cut=np.asarray(cut))
+        print(f"seq {tag} T={st.max_len} cut={sum(cut)}/{len(cut)} "
+              f"vocab={vocab} ok", flush=True)
+    return st
+
+
+def seq_ckpt(arg: str, name: str, save, restores, rank: int, tag: str):
+    """A session of ``name`` (f32) saved on ``save``'s sequence-sharded
+    layout, restored on every mesh of ``restores`` (None: one device) and
+    continued: bitwise the uninterrupted run on the saving layout, tie-
+    aware elsewhere; the uninterrupted run tie-aware one device's.  Rank 0
+    writes the continuation to ``arg``/ckpt_<tag>.npz."""
+    from repro_torch.core.uncertainty import UncertaintyConfig
+    from repro_torch.models import attention as A
+    from repro_torch.serving.engine import InferenceEngine
+    ucfg = UncertaintyConfig(mode="distribution")
+    cfg, m = seq_model(arg, name, torch.float32)
+
+    def eng(mesh=None):
+        return InferenceEngine("e", cfg, m, ucfg, device="cpu", mesh=mesh)
+    one = eng()
+    r0 = one.generate(PROMPTS, 6, return_state=True)
+    c0 = one.generate(None, 5, state=r0["state"])
+    e = eng(save)
+    r = e.generate(PROMPTS, 6, return_state=True)
+    assert any(isinstance(c, A.SeqKVCache) for c in r["state"].cache), tag
+    tie_aware(r, r0, f"ckpt {tag} generate")
+    d = os.path.join(arg, "ckpt_" + tag)
+    e.checkpoint_session(r["state"], d)
+    c = e.generate(None, 5, state=r["state"])
+    tie_aware(c, c0, f"ckpt {tag} uninterrupted")
+    if rank == 0:
+        np.savez(d + ".npz", tokens=c["tokens"], logits=c["logits"].numpy())
+    for mesh in restores:
+        f = eng(mesh)
+        st = f.restore_session(d)
+        if mesh is not None:
+            check_kv_shapes(f, st, mesh)
+        x = f.generate(None, 5, state=st)
+        if mesh is save:
+            np.testing.assert_array_equal(x["tokens"], c["tokens"])
+            assert torch.equal(x["logits"], c["logits"]), tag
+        else:
+            tie_aware(x, c, f"ckpt {tag} -> {mesh}")
+    if rank == 0:
+        print(f"ckpt {tag} ok", flush=True)
+
+
+def run_seq2(rank: int, world: int, arg: str):
+    """On (1, 2): the smollm smoke (H3/K1: the slots cut, the vocabulary
+    cut and the probe vocabulary-parallel) through every entry point,
+    greedy and sampled (``engines_case``), against one device; a session
+    saved on (1, 2) restored on one device, on (2, 1) and on (1, 2)."""
+    from repro_torch.launch.mesh import serving_mesh
+    m12, m21 = serving_mesh(model_parallel=2), serving_mesh(model_parallel=1)
+    assert tuple(m12.shape) == (1, 2), m12
+    engines_case(m12, "smollm", seed=0,
+                 build=lambda n, dtype, seed: seq_model(arg, n, dtype))
+    seq_out(m12, "smollm", arg, rank)
+    seq_ckpt(arg, "smollm", m12, (None, m21, m12), rank, "smollm12")
+
+
+def run_seq4(rank: int, world: int, arg: str):
+    """On (2, 2): the H6/K3 smoke (q cut by heads and gathered before
+    attention, the slots cut) at 128 slots (route (s)) and at 31 (route
+    (w): 2 does not divide it; a decode-only extension past them grows the
+    cache to 64 slots, cut again), and on a paged pool, bf16 and int8
+    (route (w): every head against the whole pool); on (1, 4) the smollm smoke and the
+    recurrentgemma smoke at H6/K1 (its 32-slot ring cut 8 a rank, wrapped
+    by a 40-token generate); every entry point against one device
+    (``engines_case``); sessions saved on (1, 4) and (2, 2) restored on
+    one device and across; the (1, 2) session of ``seq2`` on (1, 4)."""
+    from repro_torch.launch.mesh import serving_mesh
+    m22, m14 = serving_mesh(model_parallel=2), serving_mesh(model_parallel=4)
+    m41 = serving_mesh(model_parallel=1)
+
+    def build(n, dtype, seed):
+        return seq_model(arg, n, dtype)
+    for kw in ({}, {"max_len": 31}):
+        engines_case(m22, "odd", seed=0, kw=kw, build=build)
+        seq_out(m22, "odd", arg, rank, kw=kw)
+    # the paged pool (no sequence axis): q gathered, row 5 over every head
+    # of the whole pool, the rank's heads kept
+    for kw in (dict(PAGED), dict(PAGED, cache_quant="int8")):
+        engines_case(m22, "odd", seed=0, kw=kw, build=build)
+    if rank == 0:
+        print("seq odd 2x2 paged ok", flush=True)
+    seq_out(m14, "smollm", arg, rank)
+    engines_case(m14, "rg", seed=0, dtypes=(torch.float32,), build=build)
+    seq_out(m14, "rg", arg, rank, max_new=40)
+    seq_ckpt(arg, "rg", m14, (None, m41, m22, m14), rank, "rg14")
+    seq_ckpt(arg, "odd", m22, (None, m14, m22), rank, "odd22")
+    # the (1, 2) session seq2 saved, restored on (1, 4)
+    from repro_torch.core.uncertainty import UncertaintyConfig
+    from repro_torch.serving.engine import InferenceEngine
+    cfg, m = seq_model(arg, "smollm", torch.float32)
+    e = InferenceEngine("e", cfg, m, UncertaintyConfig(mode="distribution"),
+                        device="cpu", mesh=m14)
+    st = e.restore_session(os.path.join(arg, "ckpt_smollm12"))
+    check_kv_shapes(e, st, m14)
+    with np.load(os.path.join(arg, "ckpt_smollm12.npz")) as z:
+        ref = {"tokens": z["tokens"], "logits": torch.from_numpy(z["logits"])}
+    tie_aware(e.generate(None, 5, state=st), ref, "ckpt (1,2) -> (1,4)")
+    if rank == 0:
+        print("ckpt smollm12 -> (1,4) ok", flush=True)
+
+
 #: job -> (ranks, function); a function takes (rank, world, argument)
 JOBS = {"engines": (4, "run_engines"), "gateway": (2, "run_gateway"),
         "paged": (4, "run_paged"), "lockstep": (2, "run_lockstep"),
@@ -1280,7 +1505,8 @@ JOBS = {"engines": (4, "run_engines"), "gateway": (2, "run_gateway"),
         "cli": (2, "run_cli"), "mixers": (4, "run_mixers"),
         "mixers_ckpt": (2, "run_mixers_ckpt"), "train": (4, "run_train"),
         "train_jax": (4, "run_train_jax"), "train_cli": (2, "run_train_cli"),
-        "compress": (2, "run_compress")}
+        "compress": (2, "run_compress"), "seq2": (2, "run_seq2"),
+        "seq4": (4, "run_seq4")}
 
 
 def _rank(rank: int, job: str, world: int, store: str, arg):
